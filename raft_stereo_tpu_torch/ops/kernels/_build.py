@@ -1,0 +1,103 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each kernel is one source under ``raft_stereo_tpu_torch/csrc/`` with a
+plain C interface. It is compiled for Hopper (``sm_90a``) into a shared
+library under ``raft_stereo_tpu_torch/build/`` at first use, named by the
+hash of its source and flags, so a changed source is rebuilt and an
+unchanged one is loaded as it is. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Dict, Iterable
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the port's CUDA kernels are built from "
+                       f"{CSRC_DIR} at first use")
+
+
+def library_path(name: str) -> str:
+    """Where kernel ``name`` is built: keyed by its source and flags."""
+    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def _start_build(name: str):
+    """Start nvcc for kernel ``name``; returns (popen, tmp, final) or None
+    when the library is already built."""
+    final = library_path(name)
+    if os.path.exists(final):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{final}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           os.path.join(CSRC_DIR, f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tmp, final
+
+
+def _finish_build(name: str, job) -> None:
+    proc, tmp, final = job
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f"nvcc failed to build kernel {name!r} "
+                           f"(exit {proc.returncode}):\n{err}{out}")
+    os.replace(tmp, final)  # atomic: a reader never sees a partial library
+
+
+def build_all(names: Iterable[str]) -> None:
+    """Build every kernel in ``names`` with one nvcc each, all started
+    together; raises with nvcc's stderr if any build fails."""
+    jobs = {name: _start_build(name) for name in names}
+    errors = []
+    for name, job in jobs.items():
+        if job is None:
+            continue
+        try:
+            _finish_build(name, job)
+        except RuntimeError as exc:
+            errors.append(str(exc))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of kernel ``name``, built if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(library_path(name))
+        _loaded[name] = lib
+    return lib
