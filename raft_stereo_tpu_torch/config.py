@@ -1,11 +1,14 @@
-"""Architecture config for the PyTorch port (inference fields only).
+"""Architecture and training-step config for the PyTorch port.
 
-The port's own copy of ``raft_stereo_tpu.config.RAFTStereoConfig``, limited
-to the fields that test-mode inference reads. Defaults, validation and the
+The port's own copies of ``raft_stereo_tpu.config.RAFTStereoConfig`` and
+``TrainConfig``, limited to the fields that inference and one training
+step read, plus ``sceneflow_config()``. Defaults, validation and the
 ``CORR_ALIASES`` folding are the same, so a reference command line selects
-the same implementation in both packages. Names whose implementation the
-port does not have yet are refused with a ``ValueError``: the port never
-substitutes another implementation.
+the same implementation in both packages. Corr implementations the port
+does not have yet are refused with a ``ValueError``: the port never
+substitutes another implementation. The JAX package's other knobs (remat
+modes, save policies, fused paths, parallelism) are not fields here at
+all; ROADMAP.md queues them.
 """
 
 from __future__ import annotations
@@ -47,6 +50,9 @@ class RAFTStereoConfig:
     # Correlation-volume storage precision. None = fp32 for "reg", the
     # compute dtype for the kernel implementation.
     corr_storage_dtype: Optional[str] = None
+    # Training forward: recompute each refinement iteration in the backward
+    # pass (torch.utils.checkpoint) instead of keeping its activations.
+    remat_refinement: bool = True
 
     def __post_init__(self):
         impl = CORR_ALIASES.get(self.corr_implementation,
@@ -90,6 +96,44 @@ class RAFTStereoConfig:
     def corr_channels(self) -> int:
         """Channels produced by a correlation lookup."""
         return self.corr_levels * (2 * self.corr_radius + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The fields of the JAX package's ``TrainConfig`` that the optimizer
+    and one training step read (reference "Training parameters"), with its
+    defaults. The step's own switches (``anomaly_guard``, ``numerics``) are
+    arguments of ``make_train_step``; the loader, checkpoint, telemetry and
+    parallelism fields belong to the trainer (ROADMAP A10) and are not
+    here."""
+
+    batch_size: int = 6
+    lr: float = 0.0002
+    # micro-steps; the LR schedule's horizon is the number of updates
+    num_steps: int = 100000
+    image_size: Tuple[int, int] = (320, 720)
+    train_iters: int = 16
+    wdecay: float = 1e-5
+    # average the gradients of k micro-steps before one optimizer update
+    grad_accum_steps: int = 1
+
+    def __post_init__(self):
+        object.__setattr__(self, "image_size", tuple(self.image_size))
+        if self.grad_accum_steps < 1:
+            raise ValueError(f"grad_accum_steps must be >= 1, got "
+                             f"{self.grad_accum_steps}")
+        if self.train_iters < 1 or self.num_steps < 1:
+            raise ValueError("train_iters and num_steps must be >= 1")
+
+
+def sceneflow_config() -> Tuple[RAFTStereoConfig, TrainConfig]:
+    """The SceneFlow recipe: batch 8, 22 train iterations, 200k steps, bf16
+    compute and bf16 volume storage (the augmentation fields of the JAX
+    preset belong to the loader, ROADMAP A10)."""
+    return (
+        RAFTStereoConfig(mixed_precision=True, corr_storage_dtype="bfloat16"),
+        TrainConfig(batch_size=8, train_iters=22, num_steps=200000),
+    )
 
 
 def realtime_config() -> RAFTStereoConfig:

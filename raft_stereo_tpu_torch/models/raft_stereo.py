@@ -1,10 +1,11 @@
-"""RAFT-Stereo test-mode forward (the port of
+"""RAFT-Stereo forward, test mode and train mode (the port of
 ``raft_stereo_tpu.models.raft_stereo``).
 
 Encoders, the all-pairs correlation pyramid, ``iters`` refinement
-iterations (pyramid lookup -> update block) in a Python loop, and one
-convex upsample. Only inference exists so far: the training forward is
-ROADMAP item A9.
+iterations (pyramid lookup -> update block) in a Python loop, and the
+convex upsample: once, of the final iteration, in test mode; of every
+iteration, as one batched upsample after the loop, in train mode (the JAX
+package's deferred-upsample schedule).
 
 Mixed precision follows the JAX package's policy, not ``autocast``:
 parameters stay fp32, convs run in the compute dtype (bf16 under
@@ -18,24 +19,28 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from raft_stereo_tpu_torch.config import RAFTStereoConfig
 from raft_stereo_tpu_torch.nn.encoder import BasicEncoder, MultiBasicEncoder
 from raft_stereo_tpu_torch.nn.gru import BasicMultiUpdateBlock
 from raft_stereo_tpu_torch.nn.layers import Conv, ResidualBlock
 from raft_stereo_tpu_torch.ops.corr import corr_lookup, init_corr
-from raft_stereo_tpu_torch.ops.geometry import (coords_grid,
-                                                upsample_disparity_convex)
+from raft_stereo_tpu_torch.ops.geometry import (convex_upsample_tiles,
+                                                coords_grid,
+                                                upsample_disparity_convex,
+                                                upsample_tiles_to_image)
 
 
 class RAFTStereo(nn.Module):
     """The flagship model, NHWC at its interface.
 
     ``forward(image1, image2, iters, flow_init=None, test_mode=True)``
-    takes uint8-range images ``(B, H, W, 3)`` and returns
-    ``(flow_lowres (B, H/f, W/f, 2), flow_up (B, H, W, 1))``.
-    ``dtype`` overrides the compute dtype that ``cfg.mixed_precision``
-    selects (bf16 when set, fp32 otherwise).
+    takes uint8-range images ``(B, H, W, 3)`` and returns, in test mode,
+    ``(flow_lowres (B, H/f, W/f, 2), flow_up (B, H, W, 1))``; in train mode
+    the ``(iters, B, H, W, 1)`` stack of every iteration's upsampled
+    x-flow (negative disparity). ``dtype`` overrides the compute dtype
+    that ``cfg.mixed_precision`` selects (bf16 when set, fp32 otherwise).
     """
 
     def __init__(self, cfg: RAFTStereoConfig,
@@ -76,13 +81,9 @@ class RAFTStereo(nn.Module):
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
                 iters: int = 12, flow_init: Optional[torch.Tensor] = None,
                 test_mode: bool = True):
-        if not test_mode:
-            raise NotImplementedError(
-                "the training forward is not ported yet (ROADMAP.md item A9)")
         if iters < 1:
             raise ValueError(f"iters must be >= 1, got {iters}")
         cfg = self.cfg
-        dt = self.compute_dtype
 
         image1 = 2.0 * (image1.float() / 255.0) - 1.0
         image2 = 2.0 * (image2.float() / 255.0) - 1.0
@@ -114,30 +115,87 @@ class RAFTStereo(nn.Module):
             coords1 = coords1 + torch.stack(
                 [flow_init[..., 0], torch.zeros_like(flow_init[..., 0])], -1)
 
-        block = self.update_block
-        n = cfg.n_gru_layers
+        if not test_mode:
+            return self._train_refine(net_list, inp_list, corr_state,
+                                      coords0, coords1, iters)
+        mask = None
         for itr in range(iters):
-            coords1 = coords1.detach()
-            corr = corr_lookup(corr_state, coords1).to(dt)
-            flow = (coords1 - coords0).to(dt)
-            if cfg.slow_fast_gru and n == 3:
-                net_list = block(net_list, inp_list, iter32=True,
-                                 iter16=False, iter08=False, update=False)
-            if cfg.slow_fast_gru and n >= 2:
-                net_list = block(net_list, inp_list, iter32=n == 3,
-                                 iter16=True, iter08=False, update=False)
-            net_list, mask, delta_flow = block(
-                net_list, inp_list, corr, flow, iter32=n == 3,
-                iter16=n >= 2, compute_mask=itr == iters - 1)
-            # stereo: project the update onto the epipolar line
-            delta_x = delta_flow[..., 0].float()
-            coords1 = coords1 + torch.stack(
-                [delta_x, torch.zeros_like(delta_x)], -1)
-
+            net_list, coords1, mask = self._iteration(
+                net_list, inp_list, corr_state, coords0, coords1,
+                compute_mask=itr == iters - 1)
         flow_lowres = coords1 - coords0
         flow_up = upsample_disparity_convex(flow_lowres, mask.float(),
                                             cfg.factor)
         return flow_lowres, flow_up
+
+    def _iteration(self, net_list, inp_list, corr_state, coords0, coords1,
+                   compute_mask: bool):
+        """One refinement iteration: lookup at the (detached) coordinates,
+        the update block, the epipolar coordinate update. Returns
+        ``(net_list, coords1, mask)``; ``mask`` is None unless
+        ``compute_mask``."""
+        cfg = self.cfg
+        dt = self.compute_dtype
+        block = self.update_block
+        n = cfg.n_gru_layers
+        coords1 = coords1.detach()
+        corr = corr_lookup(corr_state, coords1).to(dt)
+        flow = (coords1 - coords0).to(dt)
+        if cfg.slow_fast_gru and n == 3:
+            net_list = block(net_list, inp_list, iter32=True, iter16=False,
+                             iter08=False, update=False)
+        if cfg.slow_fast_gru and n >= 2:
+            net_list = block(net_list, inp_list, iter32=n == 3, iter16=True,
+                             iter08=False, update=False)
+        net_list, mask, delta_flow = block(
+            net_list, inp_list, corr, flow, iter32=n == 3, iter16=n >= 2,
+            compute_mask=compute_mask)
+        # stereo: project the update onto the epipolar line
+        delta_x = delta_flow[..., 0].float()
+        coords1 = coords1 + torch.stack([delta_x, torch.zeros_like(delta_x)],
+                                        -1)
+        return net_list, coords1, mask
+
+    def _train_refine(self, net_list, inp_list, corr_state, coords0,
+                      coords1, iters):
+        """Every iteration computes its upsampling mask; the low-res flows
+        and masks are stacked and upsampled together after the loop (the
+        JAX package's deferred schedule: the same numbers as upsampling
+        inside each iteration) in a ``torch.utils.checkpoint`` region, so
+        its fp32 softmax intermediates are recomputed in the backward
+        rather than kept (JAX ``remat_loss_tail``). Under
+        ``remat_refinement`` each iteration is such a region too (the
+        counterpart of ``nn.remat(RefinementStep)``)."""
+        cfg = self.cfg
+        n = len(net_list)
+
+        def step(coords, *nets):
+            nets, coords, mask = self._iteration(
+                list(nets), inp_list, corr_state, coords0, coords,
+                compute_mask=True)
+            return (coords, mask, *nets)
+
+        lowres, masks = [], []
+        for _ in range(iters):
+            if cfg.remat_refinement:
+                out = checkpoint(step, coords1, *net_list,
+                                 use_reentrant=False)
+            else:
+                out = step(coords1, *net_list)
+            coords1, mask, net_list = out[0], out[1], list(out[2:2 + n])
+            lowres.append((coords1 - coords0)[..., :1])
+            masks.append(mask)
+
+        def upsample_stack(lr, mk):
+            it, b, h, w = lr.shape[:4]
+            tiles = convex_upsample_tiles(
+                lr.reshape(it * b, h, w, 1).float(),
+                mk.reshape(it * b, h, w, -1).float(), cfg.factor)
+            up = upsample_tiles_to_image(tiles)
+            return up.reshape(it, b, h * cfg.factor, w * cfg.factor, 1)
+
+        return checkpoint(upsample_stack, torch.stack(lowres),
+                          torch.stack(masks), use_reentrant=False)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

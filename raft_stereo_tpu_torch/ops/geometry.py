@@ -28,8 +28,17 @@ def avg_pool2d(x: torch.Tensor, window: Tuple[int, int],
                stride: Tuple[int, int],
                padding: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """NHWC average pool with ``count_include_pad=True`` and floor
-    semantics (windows that overhang the unpadded input are dropped)."""
-    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride, padding,
+    semantics (windows that overhang the unpadded input are dropped).
+
+    On CUDA the pool runs on a channels-first copy: PyTorch's
+    channels-last CUDA backward of this pool returns a wrong input
+    gradient (measured with torch 2.11 on an H100 by
+    ``scripts/card_vs_cpu_grads.py``, phase ``ops``), and a channels-last
+    layout is what cuDNN's convolution outputs hand it."""
+    x = x.permute(0, 3, 1, 2)
+    if x.is_cuda:
+        x = x.contiguous()
+    y = F.avg_pool2d(x, window, stride, padding,
                      ceil_mode=False, count_include_pad=True)
     return y.permute(0, 2, 3, 1)
 

@@ -1,0 +1,119 @@
+"""Training state and one training step (the port of
+``raft_stereo_tpu.training.state``).
+
+:func:`make_train_step` builds the step that the JAX package's trainer
+drives: the train-mode forward, the sequence loss, the backward, and one
+optimizer micro-step (global-norm clip, AdamW at the OneCycle LR, gradient
+accumulation) behind the anomaly guard. It updates the model and the
+optimizer in place and returns the state for the JAX package's calling
+convention.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping, Tuple
+
+import torch
+
+from raft_stereo_tpu_torch.training.loss import sequence_loss
+from raft_stereo_tpu_torch.training.optim import Optimizer, global_norm
+from raft_stereo_tpu_torch.utils.weights import jax_leaf_names
+
+
+def loss_and_grads(model: torch.nn.Module, batch: Mapping[str, Any],
+                   train_iters: int):
+    """Train-mode forward, sequence loss and backward on ``batch``:
+    ``(loss, metrics, grads)`` with ``metrics`` holding ``loss`` too, all
+    detached, and ``grads`` in ``model.parameters()`` order (zeros for a
+    parameter the loss does not reach). Leaves every ``.grad`` None."""
+    params = list(model.parameters())
+    dev = params[0].device
+    b = {k: torch.as_tensor(batch[k]).to(dev)
+         for k in ("image1", "image2", "flow", "valid")}
+    for p in params:
+        p.grad = None
+    preds = model(b["image1"], b["image2"], iters=train_iters,
+                  test_mode=False)
+    loss, metrics = sequence_loss(preds, b["flow"], b["valid"])
+    loss.backward()
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    for p in params:
+        p.grad = None
+    metrics = {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
+    return metrics["loss"], metrics, grads
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (parameters and frozen batch-norm statistics), its
+    optimizer, and the count of consumed batches."""
+
+    model: torch.nn.Module
+    optimizer: Optimizer
+    step: int = 0
+
+
+def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
+                    train_iters: int, axis_name: Any = None,
+                    fused_loss: bool = False, anomaly_guard: bool = True,
+                    numerics: bool = False):
+    """Build ``train_step(state, batch) -> (state, metrics)``.
+
+    ``batch`` holds ``image1``/``image2`` ``(B, H, W, 3)`` uint8-range
+    floats, ``flow`` ``(B, H, W, 1)`` and ``valid`` ``(B, H, W)``, as
+    tensors or numpy arrays; they are moved to the model's device.
+    ``optimizer`` must hold ``model``'s parameters in the order of
+    ``model.parameters()``. ``metrics`` are device tensors: ``loss``,
+    ``epe``, ``1px``, ``3px``, ``5px`` and, with the guard, ``grad_norm``
+    (the global norm of the unclipped gradients) and ``skipped_updates``
+    (1.0 when this step's update was skipped). ``numerics`` adds
+    ``leaf_grad_norms``: one L2 norm per parameter, in the order of the
+    JAX package's parameter leaves.
+
+    ``anomaly_guard``: when the loss or the gradient norm is not finite,
+    the update is skipped: parameters, AdamW moments and AdamW's step
+    count stay bitwise unchanged and the LR schedule does not advance,
+    while ``state.step`` still counts the batch. Deciding that reads one
+    boolean back from the device each step (a host sync, where the JAX
+    package branches on the device with ``lax.cond``).
+
+    ``axis_name`` (data parallelism, ROADMAP A10) and ``fused_loss`` (the
+    in-loop reduced loss, queued under A9) are not ported and raise.
+    """
+    if axis_name is not None:
+        raise NotImplementedError("data-parallel training (axis_name) is not "
+                                  "ported yet (ROADMAP.md A10)")
+    if fused_loss:
+        raise NotImplementedError("fused_loss is not ported yet (ROADMAP.md "
+                                  "A9)")
+    params = list(model.parameters())
+    if [id(p) for p in optimizer.params] != [id(p) for p in params]:
+        raise ValueError("the optimizer does not hold the model's parameters "
+                         "in model.parameters() order")
+    if numerics:
+        index = {name: i for i, (name, _) in
+                 enumerate(model.named_parameters())}
+        leaf_order = [index[name] for name, _ in jax_leaf_names(model)]
+
+    def train_step(state: TrainState, batch: Mapping[str, Any]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        loss, metrics, grads = loss_and_grads(state.model, batch,
+                                              train_iters)
+        if numerics:
+            metrics["leaf_grad_norms"] = torch.sqrt(torch.stack(
+                [torch.sum(grads[i].float() ** 2) for i in leaf_order]))
+        if anomaly_guard:
+            grad_norm = global_norm(grads)
+            finite = torch.isfinite(grad_norm) & torch.isfinite(loss)
+            if bool(finite):  # the host sync
+                state.optimizer.step(grads)
+            metrics.update(grad_norm=grad_norm,
+                           skipped_updates=1.0 - finite.float())
+        else:
+            state.optimizer.step(grads)
+        state.step += 1
+        return state, metrics
+
+    return train_step

@@ -22,12 +22,16 @@ strict=True)`` accepts:
 
 * :func:`load_reference_checkpoint` reads a released RAFT-Stereo ``.pth``
   and strips the ``module.`` prefix its DataParallel wrapper added.
+
+:func:`jax_leaf_names` runs the map the other way: it lists a model's
+parameters in the order of the JAX package's parameter leaves, the order
+of its per-leaf gradient norms.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -125,3 +129,54 @@ def load_reference_checkpoint(path: str,
         dead = _unbuilt_prefixes(cfg)
         state = {k: v for k, v in state.items() if not k.startswith(dead)}
     return state
+
+
+def _flax_module_path(parts: List[str]) -> Tuple[str, ...]:
+    """A port module path (split on dots) -> the JAX package's path."""
+    out = ["refinement"] if parts[:1] == ["update_block"] else []
+    i = 0
+    while i < len(parts):
+        p = parts[i]
+        nxt = parts[i + 1] if i + 1 < len(parts) else None
+        step = 2
+        if re.fullmatch(r"layer[1-5]", p):
+            out.append(f"{p}_{nxt}")
+        elif p in ("outputs08", "outputs16"):
+            kind = "res" if parts[i + 2] == "0" else "conv"
+            out.append(f"{p}_{nxt}_{kind}")
+            step = 3
+        elif p == "outputs32":
+            out.append(f"outputs32_{nxt}_conv")
+        elif p == "downsample":  # downsample.1 is norm3 under a second name
+            out.append("down_conv")
+        elif p == "mask":
+            out.append("mask_conv1" if nxt == "0" else "mask_conv2")
+        elif p == "conv2" and nxt in ("0", "1"):
+            out.append("conv2_res" if nxt == "0" else "conv2_out")
+        elif p == "context_zqr_convs":
+            out.append(f"context_zqr_convs_{nxt}")
+        else:
+            out.append(p)
+            step = 1
+        i += step
+    # the encoders' stem and layer1-3 sit under "trunk"
+    if (out[0] in ("cnet", "fnet") and len(out) > 1
+            and re.fullmatch(r"conv1|norm1|layer[123]_\d", out[1])):
+        out.insert(1, "trunk")
+    return tuple(out)
+
+
+def jax_leaf_names(model: torch.nn.Module
+                   ) -> List[Tuple[str, Tuple[str, ...]]]:
+    """``(port parameter name, JAX parameter path)`` for every parameter of
+    ``model`` (each shared one once), in the order of the JAX package's
+    ``jax.tree_util.tree_leaves(params)`` (sorted paths)."""
+    modules = dict(model.named_modules())
+    named = []
+    for name, _ in model.named_parameters():
+        mod_name, leaf = name.rsplit(".", 1)
+        is_conv = isinstance(modules[mod_name], torch.nn.Conv2d)
+        leaf = {"weight": "kernel" if is_conv else "scale",
+                "bias": "bias"}[leaf]
+        named.append((name, _flax_module_path(mod_name.split(".")) + (leaf,)))
+    return sorted(named, key=lambda item: item[1])

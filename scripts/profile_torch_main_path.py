@@ -2,6 +2,7 @@
 """Where the PyTorch port's main path spends its time on one NVIDIA GPU.
 
     python3 scripts/profile_torch_main_path.py [--frames 3]
+    python3 scripts/profile_torch_main_path.py --train [--frames 2]
 
 For both served configurations — the default architecture with
 corr_implementation="reg_cuda" (fp32, 32 iterations) and realtime_config()
@@ -18,8 +19,19 @@ configuration:
 * device time per kernel category (convolution, matmul, the
   windowed_sample lookup, the rest) and the top kernels by device time.
 
-TF32 is off, as in chip_smoke.py. Exits non-zero without a CUDA device or
-when the profiler records no device kernels.
+With ``--train`` it profiles ``--frames`` training steps instead, at
+chip_smoke.py's train shape (sceneflow_config() with reg_cuda: batch 8 at
+320x720, 22 iterations, bf16, seeded weights and batch), after a warm-up
+step; convolution time is split into forward and backward (cuDNN's
+dgrad/wgrad kernels), the lookup into the windowed_sample forward and
+backward kernels, and ``wall_ms`` is per step.
+
+TF32 is off, as in chip_smoke.py. ``--unrepaired_pool`` (with
+``--train``) times the step with the GRU links' pool on PyTorch's
+channels-last CUDA backward, as before ``ops/geometry.avg_pool2d`` copied
+its input to channels first (see scripts/card_vs_cpu_grads.py): the
+repair's cost, run beside a plain ``--train`` call. Exits non-zero
+without a CUDA device or when the profiler records no device kernels.
 """
 
 import argparse
@@ -31,21 +43,148 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def category(name: str) -> str:
+def category(name: str, split: bool = False) -> str:
+    """Kernel category by name; ``split`` separates forward from backward
+    for the convolutions and the lookup."""
     n = name.lower()
     if "windowed_sample" in n:
-        return "windowed_sample"
+        if not split:
+            return "windowed_sample"
+        return "lookup_bwd" if "bwd" in n else "lookup_fwd"
     if any(k in n for k in ("conv", "cudnn", "winograd", "implicit",
-                            "xmma", "fprop", "dgrad", "nchw", "nhwc")):
-        return "convolution"
+                            "xmma", "fprop", "dgrad", "wgrad", "nchw",
+                            "nhwc")):
+        if not split:
+            return "convolution"
+        return ("convolution_bwd" if any(k in n for k in ("dgrad", "wgrad"))
+                else "convolution_fwd")
     if any(k in n for k in ("gemm", "cutlass", "cublas", "matmul")):
         return "matmul"
     return "other"
 
 
+def summarize(prof, n: int, split: bool):
+    """Device kernels of a profile: per-category and top-kernel device ms
+    per unit (``n`` units profiled), or None when there are none."""
+    import torch
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    by_cat = collections.Counter()
+    by_name = collections.Counter()
+    count = collections.Counter()
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        by_cat[category(e.name, split)] += us
+        by_name[e.name] += us
+        count[e.name] += 1
+    # the device time each operator launched itself, by operator name
+    ops = sorted(((getattr(e, "self_device_time_total", None)
+                   or getattr(e, "self_cuda_time_total", 0), e.key, e.count)
+                  for e in prof.key_averages()), reverse=True)
+    return {
+        "device_busy_ms": sum(by_cat.values()) / 1e3 / n,
+        "kernels_per_unit": len(kernels) / n,
+        "category_ms": {k: v / 1e3 / n for k, v in by_cat.most_common()},
+        "top": [{"name": name[:90], "ms": v / 1e3 / n,
+                 "calls": count[name] // n}
+                for name, v in by_name.most_common(12)],
+        "top_ops": [{"op": key[:60], "self_device_ms": us / 1e3 / n,
+                     "calls": calls // n}
+                    for us, key, calls in ops[:15] if us > 0],
+    }
+
+
+def profile_train(args, dev) -> int:
+    """The training step at chip_smoke.py's train shape."""
+    import dataclasses
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import SEED, seeded_weights, train_batch
+    from raft_stereo_tpu_torch.config import sceneflow_config
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    from raft_stereo_tpu_torch.training.loss import sequence_loss
+    from raft_stereo_tpu_torch.training.optim import fetch_optimizer
+    from raft_stereo_tpu_torch.training.state import (TrainState,
+                                                      make_train_step)
+    mcfg, tcfg = sceneflow_config()
+    mcfg = dataclasses.replace(mcfg, corr_implementation="reg_cuda")
+    model = RAFTStereo(mcfg)
+    seeded_weights(model, SEED)
+    model.to(dev)
+    opt = fetch_optimizer(tcfg, model.parameters())
+    state = TrainState(model, opt)
+    step = make_train_step(model, opt, tcfg.train_iters)
+    b, (h, w) = tcfg.batch_size, tcfg.image_size
+    batch = train_batch(b, h, w, SEED + 3, dev)
+    state, _ = step(state, batch)  # warm-up
+    secs = []
+    for _ in range(args.frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    wall_ms = sum(secs) / len(secs) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.frames):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    # device memory of one forward and backward: what the forward keeps
+    # for the backward, and the peaks of each pass
+    torch.cuda.reset_peak_memory_stats(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    preds = model(batch["image1"], batch["image2"], iters=tcfg.train_iters,
+                  test_mode=False)
+    loss, _ = sequence_loss(preds, batch["flow"], batch["valid"])
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated(dev) - resident
+    memory = {"resident_bytes": resident, "forward_kept_bytes": kept,
+              "forward_peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    loss.backward()
+    torch.cuda.synchronize()
+    memory["step_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    model.zero_grad(set_to_none=True)
+    del preds, loss
+    # the encoders' share of what the forward keeps (their outputs too)
+    image1 = 2.0 * (batch["image1"] / 255.0) - 1.0
+    image2 = 2.0 * (batch["image2"] / 255.0) - 1.0
+    before = torch.cuda.memory_allocated(dev)
+    encoded = (model.cnet(image1), model.fnet(torch.cat([image1, image2])))
+    torch.cuda.synchronize()
+    memory["encoders_kept_bytes"] = torch.cuda.memory_allocated(dev) - before
+    del encoded
+    out = summarize(prof, args.frames, split=True)
+    if out is None:
+        print("profile_torch_main_path: the profiler recorded no device "
+              "kernels", file=sys.stderr)
+        return 1
+    print(json.dumps({
+        "config": "train: sceneflow_config() + reg_cuda", "batch": b,
+        "unrepaired_pool": args.unrepaired_pool,
+        "image_size": [h, w], "iters": tcfg.train_iters,
+        "steps": args.frames, "wall_ms": wall_ms,
+        "wall_ms_runs": [x * 1e3 for x in secs],
+        "idle_share": 1 - out["device_busy_ms"] / wall_ms, **out,
+        "memory": memory,
+    }), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--frames", type=int, default=3,
+                    help="frames (training steps with --train) profiled")
+    ap.add_argument("--train", action="store_true",
+                    help="profile the training step instead of inference")
+    ap.add_argument("--unrepaired_pool", action="store_true",
+                    help="with --train: the pool without its channels-first "
+                         "copy (wrong gradients; for timing only)")
     args = ap.parse_args()
 
     import torch
@@ -63,6 +202,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.train:
+        if args.unrepaired_pool:
+            from card_vs_cpu_grads import unrepaired_avg_pool2d
+            from raft_stereo_tpu_torch.ops import geometry
+            geometry.avg_pool2d = unrepaired_avg_pool2d
+        return profile_train(args, dev)
     left, right = stereo_pair(375, 1242, 1234)
     for name, cfg, iters in [
             ("default", RAFTStereoConfig(corr_implementation="reg_cuda"), 32),
@@ -79,32 +224,20 @@ def main() -> int:
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(args.frames):
                 pred.predict_timed(left, right)
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if not kernels:
+        out = summarize(prof, args.frames, split=False)
+        if out is None:
             print("profile_torch_main_path: the profiler recorded no "
                   "device kernels", file=sys.stderr)
             return 1
-        by_cat = collections.Counter()
-        by_name = collections.Counter()
-        count = collections.Counter()
-        for e in kernels:
-            us = e.time_range.elapsed_us()
-            by_cat[category(e.name)] += us
-            by_name[e.name] += us
-            count[e.name] += 1
-        busy_ms = sum(by_cat.values()) / 1e3 / args.frames
         wall_ms = wall * 1e3
         print(json.dumps({
             "config": name, "iters": iters, "padded": [384, 1248],
             "frames": args.frames, "wall_ms": wall_ms,
-            "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-            "kernels_per_frame": len(kernels) / args.frames,
-            "category_ms": {k: v / 1e3 / args.frames
-                            for k, v in by_cat.most_common()},
-            "top": [{"name": n[:90], "ms": v / 1e3 / args.frames,
-                     "calls": count[n] // args.frames}
-                    for n, v in by_name.most_common(12)],
+            "device_busy_ms": out["device_busy_ms"],
+            "idle_share": 1 - out["device_busy_ms"] / wall_ms,
+            "kernels_per_frame": out["kernels_per_unit"],
+            "category_ms": out["category_ms"], "top": out["top"],
+            "top_ops": out["top_ops"],
         }), flush=True)
         del pred
     return 0

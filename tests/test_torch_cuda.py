@@ -1,13 +1,16 @@
-"""The ``windowed_sample`` CUDA kernel held to its plain version on the card.
+"""The ``windowed_sample`` CUDA kernels held to their plain versions on the
+card.
 
-Every test here needs an NVIDIA GPU with nvcc (the kernel has no CPU or
+Every test here needs an NVIDIA GPU with nvcc (the kernels have no CPU or
 interpret mode) and skips without one. Run them on the card with
 
-    python -m pytest tests/test_torch_cuda.py -m cuda
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
-Bound: 1e-5 abs against the plain PyTorch version on the same inputs (the
-kernel rounds each product and the sum as the plain version does, so it is
-expected to be exact).
+Bounds, against the plain PyTorch versions on the same inputs: the
+forward and the backward's ``dvol`` 1e-5 abs (both kernels round each
+product and sum as the plain versions do, so they are expected to be
+exact; ``dvol`` is checked bitwise), ``dcoords`` 1e-5 abs (a 9-term fp32
+sum taken in another order).
 """
 
 import pytest
@@ -16,7 +19,8 @@ import torch
 from raft_stereo_tpu_torch.config import RAFTStereoConfig
 from raft_stereo_tpu_torch.models import RAFTStereo, init_weights
 from raft_stereo_tpu_torch.ops.kernels.windowed_sample import (
-    windowed_sample, windowed_sample_plain)
+    windowed_sample, windowed_sample_backward, windowed_sample_backward_plain,
+    windowed_sample_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -110,3 +114,160 @@ def test_model_kernel_matches_plain_lookup(cuda):
         lo_p, up_p = model_p(left, right, iters=5)
     assert windowed_sample.launches == 4 * 5
     assert (up_k - up_p).abs().max().item() <= 1e-5
+
+
+# level shapes of the SceneFlow training batch (8 x 320x720 at 1/4) and of
+# the two inference paths, plus the odd and degenerate widths
+BWD_SHAPES = [(8, 80, 180, 180), (8, 80, 180, 22), (1, 96, 312, 312),
+              (1, 48, 156, 19), (2, 3, 15, 15), (1, 2, 15, 7),
+              (1, 2, 15, 3), (1, 2, 15, 1)]
+
+
+def _same(a, b):
+    """Bitwise equal, NaNs in the same places counting as equal."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+def _cotangent(shape, device, seed=3):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape[:3] + (2 * R + 1,), generator=g, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_backward_kernel_matches_plain(cuda, dtype, shape):
+    vol, center = _inputs(shape, dtype, cuda)
+    ct = _cotangent(shape, cuda)
+    before = windowed_sample.bwd_launches
+    dvol, dcoords = windowed_sample_backward(vol, center, ct, R)
+    torch.cuda.synchronize()
+    assert windowed_sample.bwd_launches == before + 1
+    want_dvol, want_dcoords = windowed_sample_backward_plain(vol, center, ct,
+                                                             R)
+    assert dvol.dtype == dtype and dvol.shape == vol.shape
+    nan = torch.isnan(want_dvol)
+    assert torch.equal(torch.isnan(dvol), nan) and bool(nan.any())
+    assert torch.equal(dvol[~nan], want_dvol[~nan])
+    assert (dcoords - want_dcoords).abs().max().item() <= 1e-5
+    rows = dvol.view(-1, shape[-1])
+    assert bool((rows[4:6] == 0).all())  # far-out centers write zeros
+
+
+def test_backward_kernel_strided_cotangent(cuda):
+    # the lookup's cotangent is a slice of the 4-level concatenation
+    vol, center = _inputs((2, 8, 40, 40), torch.bfloat16, cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    full = torch.randn((2, 8, 40, 4 * (2 * R + 1)), generator=g, device=cuda)
+    ct = full[..., 2 * R + 1:2 * (2 * R + 1)]
+    assert not ct.is_contiguous()
+    got = windowed_sample_backward(vol, center, ct, R)
+    want = windowed_sample_backward(vol, center, ct.contiguous(), R)
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+
+
+@pytest.mark.parametrize("rows", [33, 66])
+def test_backward_kernel_64bit_offsets(cuda, rows):
+    # 2**31 + 2**25 and 2**32 + 2**26 elements: the last rows lie past
+    # 2**31 and past 2**32
+    shape = (1, rows, 1024, 65536)
+    vol = torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    center = torch.rand(shape[:3], generator=g, device=cuda) * 65536
+    ct = _cotangent(shape, cuda)
+    dvol, _ = windowed_sample_backward(vol, center, ct, R,
+                                       need_dcoords=False)
+    torch.cuda.synchronize()
+    want, _ = windowed_sample_backward_plain(vol[:, -1:], center[:, -1:],
+                                             ct[:, -1:], R)
+    assert torch.equal(dvol[:, -1:], want)
+    assert bool(want.abs().max() > 0)
+    del vol, dvol
+
+
+def test_backward_kernel_is_deterministic(cuda):
+    vol, center = _inputs((8, 80, 180, 180), torch.bfloat16, cuda)
+    ct = _cotangent(vol.shape, cuda)
+    a = windowed_sample_backward(vol, center, ct, R)
+    b = windowed_sample_backward(vol, center, ct, R)
+    assert _same(a[0], b[0]) and _same(a[1], b[1])
+
+
+def test_autograd_launches_the_backward(cuda):
+    vol, center = _inputs((1, 4, 32, 32), torch.float32, cuda)
+    vol.requires_grad_()
+    center = center.nan_to_num(0.0).requires_grad_()
+    before = (windowed_sample.launches, windowed_sample.bwd_launches)
+    out = windowed_sample(vol, center, R)
+    ct = _cotangent(vol.shape, cuda)
+    dvol, dcoords = torch.autograd.grad(out, (vol, center), ct)
+    assert (windowed_sample.launches, windowed_sample.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = windowed_sample_backward_plain(vol.detach(), center.detach(),
+                                          ct, R)
+    assert torch.equal(dvol, want[0])
+    assert (dcoords - want[1]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_model_train_kernels_match_plain_lookup(cuda, mixed):
+    # the same training step with the kernels (reg_cuda) and with the plain
+    # lookup under autograd (reg), both on the card. The forwards are
+    # bitwise equal; the backward is not deterministic from run to run even
+    # with deterministic cuDNN (PyTorch backward ops that accumulate with
+    # atomics; measured 1.4e-7 of the global gradient norm in fp32 and
+    # 6.7e-4 in bf16), so the kernels' deviation from the plain lookup is
+    # held to twice the kernel path's own run-to-run deviation, plus 1e-7.
+    from raft_stereo_tpu_torch.training.state import loss_and_grads
+    torch.backends.cudnn.deterministic = True
+    kw = dict(hidden_dims=(32, 32, 32), mixed_precision=mixed,
+              corr_storage_dtype="bfloat16" if mixed else None)
+    try:
+        model_k = init_weights(
+            RAFTStereo(RAFTStereoConfig(corr_implementation="reg_cuda", **kw)),
+            torch.Generator().manual_seed(0))
+        model_p = RAFTStereo(RAFTStereoConfig(corr_implementation="reg", **kw))
+        model_p.load_state_dict(model_k.state_dict(), strict=True)
+        model_k.to(cuda)
+        model_p.to(cuda)
+        g = torch.Generator(device=cuda).manual_seed(5)
+        left = torch.rand((2, 64, 128, 3), generator=g, device=cuda) * 255
+        batch = {"image1": left, "image2": torch.roll(left, -4, dims=2),
+                 "flow": -4 * torch.ones((2, 64, 128, 1), device=cuda),
+                 "valid": torch.ones((2, 64, 128), device=cuda)}
+        windowed_sample.launches = windowed_sample.bwd_launches = 0
+        loss_k, _, grads_k = loss_and_grads(model_k, batch, 3)
+        assert (windowed_sample.launches, windowed_sample.bwd_launches) == (
+            2 * 4 * 3, 4 * 3)
+        _, _, again = loss_and_grads(model_k, batch, 3)
+        loss_p, _, grads_p = loss_and_grads(model_p, batch, 3)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert torch.equal(loss_k, loss_p)
+
+    def dist(a, b):
+        return float(torch.sqrt(sum(((x - y).double() ** 2).sum()
+                                    for x, y in zip(a, b))))
+    norm = float(torch.sqrt(sum((y.double() ** 2).sum() for y in grads_p)))
+    assert dist(grads_k, grads_p) <= 2 * dist(grads_k, again) + 1e-7 * norm
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw_storage"])
+def test_pool2x_gradient_matches_cpu(cuda, layout):
+    # the GRU links' pool gets NHWC-contiguous input from cuDNN's
+    # channels-last convolution outputs; its gradient on the card must match
+    # the CPU's in either storage. Bound: 1e-6 relative L2 (fp32 round-off
+    # of a 9-term sum).
+    from raft_stereo_tpu_torch.ops.geometry import pool2x
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn((2, 16, 40, 128), generator=g)
+    if layout == "nchw_storage":
+        x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    ct = torch.randn((2, 8, 20, 128), generator=g)
+    grads = []
+    for where in ("cpu", cuda):
+        xi = x.to(where).detach().requires_grad_()
+        (dx,) = torch.autograd.grad(pool2x(xi), xi, ct.to(where))
+        grads.append(dx.cpu())
+    err = float((grads[1] - grads[0]).norm() / grads[0].norm())
+    assert err <= 1e-6, err

@@ -52,20 +52,14 @@ from raft_stereo_tpu_torch.nn.gru import BasicMultiUpdateBlock
 from raft_stereo_tpu_torch.utils.weights import (load_reference_checkpoint,
                                                  state_dict_from_jax)
 
-from torch_parity import jax_variables, max_abs, module_variables, rel_dev
+from torch_parity import (jax_variables, max_abs, module_variables,
+                          port_config, rel_dev)
 
 SMALL = (32, 32, 32)
 IMG = (1, 64, 128, 3)
 ITERS = 3
 # fp32 modules: max abs deviation over max(1, max |JAX output|)
 MODULE_TOL = 5e-5
-
-
-def port_config(cfg: JConfig) -> tconfig.RAFTStereoConfig:
-    """The port's config with the same field values as a JAX config."""
-    return tconfig.RAFTStereoConfig(**{
-        f.name: getattr(cfg, f.name)
-        for f in dataclasses.fields(tconfig.RAFTStereoConfig)})
 
 
 def _loaded(module: torch.nn.Module, variables) -> torch.nn.Module:
@@ -360,10 +354,11 @@ def test_forward_refusals(default_small):
     jcfg, v = default_small
     model = _loaded(RAFTStereo(port_config(jcfg)), v)
     x = torch.zeros(IMG)
-    with pytest.raises(NotImplementedError, match="A9"):
-        model(x, x, iters=2, test_mode=False)
-    with pytest.raises(ValueError, match="iters"):
-        model(x, x, iters=0)
+    for test_mode in (True, False):  # train mode is ported (A9)
+        with pytest.raises(ValueError, match="iters"):
+            model(x, x, iters=0, test_mode=test_mode)
+    with pytest.raises(ValueError, match="not ported"):
+        port_config(dataclasses.replace(jcfg, remat_encoders=True))
 
 
 def test_predictor_pads_and_unpads_like_jax(default_small, record_property):

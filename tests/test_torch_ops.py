@@ -6,12 +6,21 @@ kernel) is held to the JAX Pallas kernel run in interpret mode — as
 tests/test_pallas_corr.py runs it — and to the JAX pure sampler, at
 <= 1e-6 abs for fp32 and bf16 volumes (the blend is fp32 in both;
 measured <= 1.2e-7 against the kernel and 0 against the sampler).
+
+The lookup's plain backward is held to ``jax.vjp`` of the same Pallas
+kernel (its hand-written backward in interpret mode, or autodiff of the
+pure sampler where the JAX kernel takes that branch, ``W2 <= 2r+2``):
+``dvol`` and ``dcoords`` <= 1e-6 abs in fp32, and a bf16 ``dvol`` within
+one bf16 ulp of its magnitude (both round one fp32 value once). Measured:
+``dvol`` bitwise equal in both dtypes, ``dcoords`` <= 9.6e-7 (its 9-term
+sum taken in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from raft_stereo_tpu.ops import geometry as jgeo
@@ -23,7 +32,7 @@ from raft_stereo_tpu.ops.sampler import windowed_linear_sample as j_sample
 from raft_stereo_tpu_torch.ops import geometry as tgeo
 from raft_stereo_tpu_torch.ops.corr import corr_lookup, init_corr
 from raft_stereo_tpu_torch.ops.kernels.windowed_sample import (
-    windowed_sample, windowed_sample_plain)
+    windowed_sample, windowed_sample_backward_plain, windowed_sample_plain)
 from raft_stereo_tpu_torch.ops.sampler import windowed_linear_sample
 
 from torch_parity import max_abs
@@ -193,11 +202,91 @@ def test_wrapper_takes_plain_path_on_cpu():
 
 
 def test_wrapper_refuses_grad():
+    # the wrapper now has a backward: on CPU tensors it is the plain one,
+    # and a gradient is refused only where autograd itself refuses it
     vol, center = _lookup_inputs((1, 2, 15, 15), seed=10)
-    with pytest.raises(NotImplementedError, match="backward"):
-        windowed_sample(_t(vol).requires_grad_(), _t(center), R)
-    with torch.no_grad():  # no gradient needed: fine
-        windowed_sample(_t(vol).requires_grad_(), _t(center), R)
+    tvol, tcenter = _t(vol).requires_grad_(), _t(center).requires_grad_()
+    out = windowed_sample(tvol, tcenter, R)
+    ct = torch.from_numpy(np.random.default_rng(10).normal(
+        size=out.shape).astype(np.float32))
+    dvol, dcoords = torch.autograd.grad(out, (tvol, tcenter), ct)
+    want = windowed_sample_backward_plain(_t(vol), _t(center), ct, R)
+    assert torch.equal(dvol, want[0]) and torch.equal(dcoords, want[1])
+    with torch.no_grad():  # no gradient needed: no graph
+        assert not windowed_sample(tvol, tcenter, R).requires_grad
+    with pytest.raises(RuntimeError, match="does not require grad"):
+        torch.autograd.grad(windowed_sample(_t(vol), _t(center), R).sum(),
+                            _t(vol))
+
+
+def _jax_vjp(vol, center, ct, radius, dtype):
+    jvol = jnp.asarray(vol, getattr(jnp, dtype))
+    _, vjp = jax.vjp(lambda v, c: windowed_sample_pallas(v, c, radius),
+                     jvol, jnp.asarray(center))
+    dvol, dcoords = vjp(jnp.asarray(ct))
+    return np.asarray(dvol.astype(jnp.float32)), np.asarray(dcoords)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", LOOKUP_SHAPES)
+def test_lookup_backward_plain_matches_jax_kernel(dtype, shape,
+                                                  record_property):
+    vol, center = _lookup_inputs(shape, seed=sum(shape) + 1)
+    ct = np.random.default_rng(sum(shape)).normal(
+        size=shape[:3] + (2 * R + 1,)).astype(np.float32)
+    tvol = _t(vol).to(getattr(torch, dtype))
+    dvol, dcoords = windowed_sample_backward_plain(tvol, _t(center), _t(ct),
+                                                   R)
+    assert dvol.dtype == tvol.dtype and tuple(dvol.shape) == shape
+    assert dcoords.dtype == torch.float32 and tuple(dcoords.shape) == shape[:3]
+    want_dvol, want_dcoords = _jax_vjp(vol, center, ct, R, dtype)
+    got_dvol = dvol.float().numpy()
+    err_dvol = max_abs(got_dvol, want_dvol)
+    err_dcoords = max_abs(dcoords.numpy(), want_dcoords)
+    record_property("max_abs_dvol", err_dvol)
+    record_property("max_abs_dcoords", err_dcoords)
+    if dtype == "float32":
+        assert err_dvol <= 1e-6
+    else:  # one bf16 ulp (2**-7 relative) of each entry
+        ulp = np.abs(want_dvol) * 2.0 ** -7
+        assert np.all(np.abs(got_dvol - want_dvol) <= ulp)
+    assert err_dcoords <= 1e-6
+    # far-out centers write nothing into their rows
+    rows = got_dvol.reshape(-1, shape[-1])
+    assert np.all(rows[6:8] == 0.0)
+
+
+@pytest.mark.parametrize("radius", [1, 3])
+def test_lookup_backward_plain_other_radii(radius, record_property):
+    vol, center = _lookup_inputs((1, 2, 12, 20), seed=17)
+    ct = np.random.default_rng(17).normal(
+        size=(1, 2, 12, 2 * radius + 1)).astype(np.float32)
+    dvol, dcoords = windowed_sample_backward_plain(_t(vol), _t(center),
+                                                   _t(ct), radius)
+    want_dvol, want_dcoords = _jax_vjp(vol, center, ct, radius, "float32")
+    err = max(max_abs(dvol.numpy(), want_dvol),
+              max_abs(dcoords.numpy(), want_dcoords))
+    record_property("max_abs", err)
+    assert err <= 1e-6
+
+
+def test_lookup_backward_nan_center():
+    # a NaN center: NaN dg on the taps of the base the forward clamps it
+    # to (-r), zero elsewhere in its row, and a finite dcoords
+    vol, center = _lookup_inputs((1, 1, 4, 16), seed=18)
+    center[0, 0, 1] = np.nan
+    ct = np.ones((1, 1, 4, 2 * R + 1), np.float32)
+    dvol, dcoords = windowed_sample_backward_plain(_t(vol), _t(center),
+                                                   _t(ct), R)
+    row = dvol[0, 0, 1].numpy()
+    assert np.all(np.isnan(row[:R + 2])) and np.all(row[R + 2:] == 0.0)
+    assert np.isfinite(dcoords.numpy()).all()
+    want_dvol, want_dcoords = _jax_vjp(vol, center, ct, R, "float32")
+    np.testing.assert_array_equal(np.isnan(dvol.numpy()),
+                                  np.isnan(want_dvol))
+    keep = ~np.isnan(want_dvol)
+    assert max_abs(dvol.numpy()[keep], want_dvol[keep]) <= 1e-6
+    assert max_abs(dcoords.numpy(), want_dcoords) <= 1e-6
 
 
 def test_wrapper_never_falls_back_off_cpu():

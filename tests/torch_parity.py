@@ -73,3 +73,27 @@ def rel_dev(got, want) -> float:
     """Max abs deviation relative to ``max(1, max |want|)``."""
     scale = max(1.0, float(np.max(np.abs(np.asarray(want, np.float64)))))
     return max_abs(got, want) / scale
+
+
+def port_config(cfg):
+    """The port's config with the same field values as a JAX config.
+    Raises ``ValueError`` when ``cfg`` sets a field the port lacks away
+    from the JAX default: the port would compute something else."""
+    import dataclasses
+
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    ported = {f.name for f in dataclasses.fields(RAFTStereoConfig)}
+    for f in dataclasses.fields(cfg):
+        if f.name not in ported and getattr(cfg, f.name) != f.default:
+            raise ValueError(f"{f.name}={getattr(cfg, f.name)!r} is not "
+                             "ported to PyTorch yet")
+    return RAFTStereoConfig(**{name: getattr(cfg, name) for name in ported})
+
+
+def rel_l2(got, want) -> float:
+    """``||got - want|| / ||want||`` in float64 (0 when both are 0)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    num = float(np.linalg.norm(got - want))
+    den = float(np.linalg.norm(want))
+    return num / den if den > 0 else num
