@@ -3,48 +3,73 @@
 
     python3 chip_smoke.py
 
-Phases, each reported as one JSON line:
+Phases, each reported as one JSON line, in the order they run:
 
 1. device  — the card's name and power limit (nvidia-smi); TF32 is turned
    off for convolutions and matmuls, so fp32 means fp32 everywhere below.
-2. build   — builds every CUDA kernel of the path from the sources in
-   raft_stereo_tpu_torch/csrc with nvcc (sm_90a), timed as set-up.
-3. parity  — the forward kernel against its plain PyTorch version on the
-   card, at every pyramid-level shape of both inference configurations,
-   with edge centers (integers, borders, +-1e9, NaN). Bound: 1e-5 abs.
-4. bwd_parity — the backward kernel against its plain version at every
-   level shape of the training batch and of both inference configurations,
-   the same edge centers: dvol bitwise equal (NaN pattern included; bound
-   1e-5 abs in fp32, one bf16 ulp in bf16), dcoords 1e-5 abs, and two runs
-   bitwise equal.
-5. default — the default architecture with corr_implementation="reg_cuda"
+2. build   — builds every CUDA kernel of the paths (windowed_sample,
+   fused_corr) from the sources in raft_stereo_tpu_torch/csrc with nvcc
+   (sm_90a), one nvcc each, started together; timed as set-up.
+3. parity  — the windowed_sample forward kernel against its plain PyTorch
+   version on the card, at every pyramid-level shape of both inference
+   configurations, with edge centers (integers, borders, +-1e9, NaN).
+   Bound: 1e-5 abs.
+4. bwd_parity — the windowed_sample backward kernel against its plain
+   version at every level shape of the training batch and of both
+   inference configurations, the same edge centers: dvol bitwise equal
+   (NaN pattern included; bound 1e-5 abs in fp32, one bf16 ulp in bf16),
+   dcoords 1e-5 abs, and two runs bitwise equal.
+5. fused_parity — the fused_corr forward and backward kernels against
+   their plain versions at every level shape of the hires and train_fused
+   paths and at W2 <= 2r+2, the same edge centers: the forward 1e-5 abs,
+   df1/df2 1e-5 abs (bf16 features: one bf16 ulp of the plain value where
+   larger), NaN patterns equal, and two runs of each bitwise equal (df2 is
+   a deterministic scatter).
+6. fused_memory — the memory contract: the 4-level fused lookup at the
+   hires shape allocates its outputs plus less than 1/8 of one level-0
+   volume, a level-0 backward df1 + df2 plus that margin.
+7. default — the default architecture with corr_implementation="reg_cuda"
    at full width (seeded random weights), through StereoPredictor on a
    375x1242 pair (padded to 384x1248), 32 iterations: finite output of the
    right shape, exactly 4 levels x 32 kernel launches, median ms/frame.
-6. realtime — realtime_config() (bf16), 7 iterations, 28 launches.
-7. cpu_parity — the default architecture on the same weights at 64x160,
+8. realtime — realtime_config() (bf16), 7 iterations, 28 launches.
+9. hires — the default architecture with alt_cuda (the fused_corr
+   kernels, fp32) on a 1988x2880 pair (padded to 2016x2880), 32
+   iterations: exactly 128 fused_corr launches and no windowed_sample
+   launch, finite output, median ms/frame over HIRES_RUNS warm frames;
+   peak memory at 2 iterations below reg_cuda's on the same pair.
+10. cpu_parity — the default architecture on the same weights at 64x160,
    fp32, 4 iterations, on the card (kernel) and on the CPU (plain
-   version). Bound: 1e-3 px on flow_up.
-8. train — the SceneFlow recipe (sceneflow_config(): bf16 compute, bf16
+   version), with reg_cuda and with alt_cuda. Bound: 1e-3 px on flow_up.
+11. train — the SceneFlow recipe (sceneflow_config(): bf16 compute, bf16
    volume) with reg_cuda, batch 8 at 320x720, 22 iterations, through
    make_train_step on a seeded synthetic batch: a warm-up step, then timed
    steps, each with exactly 4 x 22 forward launches, as many recomputed
    under remat_refinement and 4 x 22 backward launches; finite loss and
    gradient norm, no skipped update, parameters that moved; median
    ms/step and peak memory.
-9. train_nan — a batch with a NaN pixel: the update is skipped, the
+12. train_nan — a batch with a NaN pixel: the update is skipped, the
    parameters stay bitwise unchanged and the step still counts.
-10. train_cpu_parity — one fp32 step of the default architecture at 64x160,
-   2 iterations, on the card (kernels) and on the CPU (plain versions),
-   with the card's convolutions in cuDNN (as the main path runs them) and
-   outside it: the loss within 1e-5 relative, and the gradients within
-   the null floor of NULL_RUNS CPU null runs (see check_grad_parity).
-11. timings — per pyramid level: each kernel's time per launch, its bound
-   (bytes over 3.35 TB/s, or flops over the fp32 peak, whichever is
-   larger), the plain version's time and one PyTorch call computing the
-   same function: F.grid_sample for the forward, its backward
-   (torch.autograd.grad on a prebuilt graph) for the backward (the
-   reference's formulation; a yardstick only).
+13. train_fused — the same recipe with alt_cuda (bf16 features): the same
+   checks, with fused_corr's launches (176, 88) and none of
+   windowed_sample's.
+14. train_cpu_parity — one fp32 step of the default architecture at 64x160,
+   2 iterations, on the card (kernels) and on the CPU (plain versions):
+   reg_cuda with the card's convolutions in cuDNN (as the main path runs
+   them) and outside it, alt_cuda in cuDNN; the loss within 1e-5
+   relative, and the gradients within the null floor of NULL_RUNS CPU
+   null runs (see check_grad_parity).
+15. timings, bwd_timings — per pyramid level: each windowed_sample
+   kernel's time per launch, its bound (bytes over 3.35 TB/s, or flops
+   over the fp32 peak, whichever is larger), the plain version's time and
+   one PyTorch call computing the same function: F.grid_sample for the
+   forward, its backward (torch.autograd.grad on a prebuilt graph) for the
+   backward (the reference's formulation; a yardstick only).
+16. fused_timings — per level, fused_corr's forward at the hires levels
+   (fp32) and its backward at the train_fused levels (bf16): time per
+   launch, bound, plain time, and the reference's several-call 'alt'
+   formulation as a yardstick (no single PyTorch call computes the
+   function, so its kernels-line entries have library_ms null).
 
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits non-zero without that last line. It
@@ -71,6 +96,15 @@ TRAIN_LOSS_TOL = 1e-5        # card vs CPU step: relative loss deviation
 NULL_PERTURBATION = 1e-6     # the CPU null runs' relative weight noise
 NULL_RUNS = 8                # CPU null runs whose envelope bounds the card
 ROUNDOFF_REL = 1e-7          # gradient leaves below this x the global norm
+# the hires pair: about MiddEval3's full-resolution size, padded to
+# 2016x2880 (1/4 resolution 504x720)
+HIRES_H, HIRES_W = 1988, 2880
+HIRES_RUNS = 3               # timed warm frames
+# fused_corr level shapes (B, H, W1, W2, D): the hires path (fp32) and
+# the SceneFlow training batch with alt_cuda (bf16)
+FUSED_SHAPES = {"hires": [(1, 504, 720, 720 >> i, 256) for i in range(4)],
+                "train_fused": [(8, 80, 180, 180 >> i, 256)
+                                for i in range(4)]}
 
 
 def emit(phase, **fields):
@@ -107,11 +141,12 @@ def stereo_pair(h, w, seed, shift=12):
     return left[None], right[None]
 
 
-def lookup_inputs(shape, dtype, seed, device, edges=True):
+def window_centers(b, h, w1, w2, g, device, edges=True):
+    """Lookup centers of a (b, h, w1) grid into rows of width w2: each
+    pixel's own x less a disparity in [0, w2/4]. With ``edges``, the first
+    centers are integers, borders, +-1e9 (flat positions 6 and 7) and NaN
+    (flat position 9)."""
     import torch
-    b, h, w1, w2 = shape
-    g = torch.Generator(device=device).manual_seed(seed)
-    vol = torch.randn(shape, generator=g, device=device).to(dtype)
     x = torch.arange(w1, device=device, dtype=torch.float32) * (w2 / w1)
     disp = torch.rand((b, h, w1), generator=g, device=device) * (w2 / 4)
     center = (x - disp).contiguous()
@@ -121,7 +156,91 @@ def lookup_inputs(shape, dtype, seed, device, edges=True):
                 w2 + RADIUS + 0.25, 1e9, -1e9, 0.999999, float("nan"),
                 float(w2 // 2)]
         flat[:len(edge)] = torch.tensor(edge, device=device)
-    return vol, center
+    return center
+
+
+def lookup_inputs(shape, dtype, seed, device, edges=True):
+    import torch
+    b, h, w1, w2 = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    vol = torch.randn(shape, generator=g, device=device).to(dtype)
+    return vol, window_centers(b, h, w1, w2, g, device, edges)
+
+
+def fused_inputs(shape, dtype, seed, device, edges=True):
+    """Features ``fmap1 (B, H, W1, D)``, ``fmap2 (B, H, W2, D)`` and
+    centers for a ``(B, H, W1, W2, D)`` level shape."""
+    import torch
+    b, h, w1, w2, d = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    f1 = torch.randn((b, h, w1, d), generator=g, device=device).to(dtype)
+    f2 = torch.randn((b, h, w2, d), generator=g, device=device).to(dtype)
+    return f1, f2, window_centers(b, h, w1, w2, g, device, edges)
+
+
+def fused_bytes_flops(f1, f2, center, backward=False):
+    """Least bytes and flops of one fused_corr launch on these inputs.
+    Forward: fmap1 and the fmap2 rows some in-range tap touches read once,
+    the center read and the fp32 output written; 2*D flops per in-range
+    tap and 3 per output. Backward: the same reads plus the fp32
+    cotangent, df1 and df2 written whole; 4*D flops per in-range tap (df1
+    and df2) and 4 per tap for dg."""
+    import torch
+    b, h, w1, d = f1.shape
+    w2 = f2.shape[2]
+    k = 2 * RADIUS + 1
+    c = torch.nan_to_num(center, nan=0.0).clamp(-1e8, 1e8)
+    taps = torch.floor(c).long()[..., None] - RADIUS + torch.arange(
+        k + 1, device=c.device)
+    valid = (taps >= 0) & (taps < w2)
+    n_valid = int(valid.sum().item())
+    touched = torch.zeros((b, h, w2 + 1), dtype=torch.bool, device=c.device)
+    touched.scatter_(2, torch.where(valid, taps, w2).reshape(b, h, -1), True)
+    rows = int(touched[..., :w2].sum().item())
+    es = f1.element_size()
+    n_pix = center.numel()
+    reads = f1.numel() * es + rows * d * es + n_pix * 4
+    if not backward:
+        return reads + n_pix * k * 4, n_valid * 2 * d + n_pix * k * 3
+    writes = (f1.numel() + f2.numel()) * es
+    return (reads + n_pix * k * 4 + writes,
+            n_valid * 4 * d + n_valid * 4)
+
+
+def alt_yardstick(f1, f2, center, ct=None):
+    """The reference's own 'alt' formulation of the same function, several
+    PyTorch calls: F.grid_sample of the fmap2 rows at the 2r+1 tap
+    positions (bilinear, zeros, align_corners), then a product with fmap1
+    and a sum over D, over sqrt(D). Returns a call computing it, or, with a
+    cotangent ``ct``, a call taking its gradients in fmap1 and fmap2 by
+    torch.autograd.grad on a prebuilt graph."""
+    import torch
+    import torch.nn.functional as F
+    b, h, w1, d = f1.shape
+    w2 = f2.shape[2]
+    k = 2 * RADIUS + 1
+    dx = torch.arange(-RADIUS, RADIUS + 1, device=f1.device,
+                      dtype=torch.float32)
+    x = (center.reshape(b * h, 1, w1, 1) + dx.view(1, 1, 1, k)).reshape(
+        b * h, 1, w1 * k, 1)
+    xn = 2.0 * x / max(w2 - 1, 1) - 1.0
+    grid = torch.cat([xn, torch.zeros_like(xn)], dim=-1).to(f1.dtype)
+    scale = 1.0 / math.sqrt(d)
+
+    def fwd(a, bb):
+        inp = bb.permute(0, 1, 3, 2).reshape(b * h, d, 1, w2)
+        s = F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                          align_corners=True).view(b * h, d, w1, k)
+        lhs = a.reshape(b * h, w1, d).permute(0, 2, 1)[..., None]
+        return ((s * lhs).sum(dim=1) * scale).view(b, h, w1, k)
+
+    if ct is None:
+        return lambda: fwd(f1, f2)
+    a = f1.detach().requires_grad_()
+    bb = f2.detach().requires_grad_()
+    out = fwd(a, bb)
+    cot = ct.to(out.dtype)
+    return lambda: torch.autograd.grad(out, (a, bb), cot, retain_graph=True)
 
 
 def lookup_bytes_flops(vol, center):
@@ -309,9 +428,184 @@ def check_grad_parity(names, got, want, nulls):
                 ok=leaves["ok"] and all_dev <= max(all_null))
 
 
-def run_train(dev, windowed_sample, model_seed):
-    """Phases 8 and 9: timed training steps at the SceneFlow recipe's
-    shape, then an injected NaN step."""
+def within_bound(got, want, dtype):
+    """Max abs error of ``got`` against ``want`` off their NaNs, and whether
+    every element is within 1e-5 abs, or in bf16 within one bf16 ulp of
+    ``want`` where that is larger; the NaN patterns must agree."""
+    import torch
+    nan = torch.isnan(want)
+    same_nan = torch.equal(torch.isnan(got), nan)
+    diff = (got.float() - want.float())[~nan].abs()
+    ulp = want.float()[~nan].abs() * (
+        2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+    ok = same_nan and bool((diff <= torch.clamp(ulp, min=KERNEL_TOL)).all())
+    return (diff.max().item() if diff.numel() else 0.0), ok
+
+
+def bitwise(a, b):
+    """Equal bit for bit, NaNs in the same places counting as equal."""
+    import torch
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+def run_fused_parity(dev, fc):
+    """fused_corr's kernels against their plain versions at every level
+    shape of the hires and train_fused paths (and at W2 <= 2r+2), with the
+    edge centers: the forward and df1/df2 within KERNEL_TOL (bf16 features:
+    one bf16 ulp of the gradient where that is larger), NaN patterns equal,
+    far-out centers zero, and two runs of each kernel bitwise equal."""
+    import torch
+    shapes = [("hires", torch.float32, s) for s in FUSED_SHAPES["hires"]]
+    shapes += [("train_fused", torch.bfloat16, s)
+               for s in FUSED_SHAPES["train_fused"]]
+    shapes += [("narrow", torch.float32, (1, 4, 15, w, 256))
+               for w in (7, 3, 1)]
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    n_fwd = n_bwd = 0
+    before = (fc.fused_corr.launches, fc.fused_corr.bwd_launches)
+    for i, (cfg_name, dtype, shape) in enumerate(shapes):
+        f1, f2, center = fused_inputs(shape, dtype, SEED + 60 + i, dev)
+        out = fc.fused_corr(f1, f2, center, RADIUS)
+        again = fc.fused_corr(f1, f2, center, RADIUS)
+        want = fc.fused_corr_plain(f1, f2, center, RADIUS)
+        g = torch.Generator(device=dev).manual_seed(SEED + 70 + i)
+        ct = torch.randn(tuple(center.shape) + (2 * RADIUS + 1,),
+                         generator=g, device=dev)
+        df1, df2 = fc.fused_corr_backward(f1, f2, center, ct, RADIUS)
+        df1b, df2b = fc.fused_corr_backward(f1, f2, center, ct, RADIUS)
+        n_fwd += 2
+        n_bwd += 2
+        w1, w2 = fc.fused_corr_backward_plain(f1, f2, center, ct, RADIUS)
+        torch.cuda.synchronize()
+        err_f, ok_f = within_bound(out, want, torch.float32)
+        err_1, ok_1 = within_bound(df1, w1, dtype)
+        err_2, ok_2 = within_bound(df2, w2, dtype)
+        det = dict(fwd=bitwise(out, again), df1=bitwise(df1, df1b),
+                   df2=bitwise(df2, df2b))
+        emit("fused_parity", config=cfg_name, shape=list(shape),
+             dtype=str(dtype).replace("torch.", ""), max_abs_err_fwd=err_f,
+             max_abs_err_df1=err_1, max_abs_err_df2=err_2,
+             deterministic=det)
+        check(ok_f and bool(torch.isnan(out).any()),
+              f"fused forward differs at {cfg_name} {shape}")
+        check(ok_1 and ok_2, f"fused backward differs at {cfg_name} {shape}")
+        check(all(det.values()), f"fused kernels not deterministic at "
+                                 f"{cfg_name} {shape}: {det}")
+        check(bool((out.view(-1, 2 * RADIUS + 1)[6:8] == 0).all())
+              and bool((df1.view(-1, shape[-1])[6:8] == 0).all()),
+              "far-out centers are not zero")
+        errs["fwd"] = max(errs["fwd"], err_f)
+        errs["bwd"] = max(errs["bwd"], err_1, err_2)
+        del f1, f2, out, again, want, df1, df2, df1b, df2b, w1, w2
+    check((fc.fused_corr.launches - before[0],
+           fc.fused_corr.bwd_launches - before[1]) == (n_fwd, n_bwd),
+          "the parity calls did not launch the fused kernels")
+    return errs
+
+
+def run_fused_memory(dev, fc):
+    """The memory contract: the 4-level fused lookup at the hires shape
+    allocates no more than its outputs (the levels' and their
+    concatenation) plus an eighth of one level-0 volume, and a backward at
+    level 0 no more than df1 + df2 plus that margin."""
+    import torch
+    from raft_stereo_tpu_torch.ops.corr import corr_lookup, init_corr
+    b, h, w1, w2, d = FUSED_SHAPES["hires"][0]
+    margin = b * h * w1 * w2 * 4 // 8
+    f1, f2, center = fused_inputs((b, h, w1, w2, d), torch.float32,
+                                  SEED + 80, dev, edges=False)
+    state = init_corr("fused", f1, f2, num_levels=4, radius=RADIUS)
+    coords = torch.stack([center, torch.zeros_like(center)], dim=-1)
+    rows = {}
+
+    def measure(name, fn, own):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated(dev) - base
+        rows[name] = dict(extra_bytes=extra, own_output_bytes=own,
+                          limit_bytes=own + margin)
+        check(extra <= own + margin, f"fused_memory {name}: {extra} bytes "
+                                     f"above the {own + margin} allowed")
+        return out
+    with torch.no_grad():
+        out = measure("lookup_4_levels", lambda: corr_lookup(state, coords),
+                      2 * b * h * w1 * 4 * (2 * RADIUS + 1) * 4)
+    del out
+    ct = torch.randn(tuple(center.shape) + (2 * RADIUS + 1,), device=dev)
+    grads = measure("backward_level0", lambda: fc.fused_corr_backward(
+        f1, f2, center, ct, RADIUS), (f1.numel() + f2.numel()) * 4)
+    del grads
+    tb = FUSED_SHAPES["train_fused"][0]
+    f1, f2, center = fused_inputs(tb, torch.bfloat16, SEED + 81, dev,
+                                  edges=False)
+    ct = torch.randn(tuple(center.shape) + (2 * RADIUS + 1,), device=dev)
+    grads = measure("backward_train_level0", lambda: fc.fused_corr_backward(
+        f1, f2, center, ct, RADIUS), (f1.numel() + f2.numel()) * 2)
+    emit("fused_memory", margin_bytes=margin,
+         level0_volume_bytes=8 * margin, **rows)
+    return rows
+
+
+def run_hires(dev, fc, windowed_sample, model_seed):
+    """The hires path: the default architecture with alt_cuda through
+    StereoPredictor on a 1988x2880 pair (padded to 2016x2880), 32
+    iterations; and the peak memory of alt_cuda against reg_cuda on the
+    same pair at 2 iterations."""
+    import numpy as np
+    import torch
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.inference import StereoPredictor
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    h, w, iters = HIRES_H, HIRES_W, 32
+    left, right = stereo_pair(h, w, SEED + 5, shift=24)
+    cfg = RAFTStereoConfig(corr_implementation="alt_cuda")
+    state = seeded_weights(RAFTStereo(cfg), model_seed)
+    pred = StereoPredictor(cfg, state, valid_iters=iters, device=dev)
+    pred(left, right, iters=2)  # warm-up: cuDNN autotuning, allocator
+    fc.fused_corr.launches = 0
+    windowed_sample.launches = 0
+    flow, _ = pred.predict_timed(left, right)
+    launches = (fc.fused_corr.launches, windowed_sample.launches)
+    want = (cfg.corr_levels * iters, 0)
+    check(launches == want, f"hires: (fused_corr, windowed_sample) "
+                            f"launches {launches}, expected {want}")
+    check(flow.shape == (1, h, w, 1), f"hires: shape {flow.shape}")
+    check(bool(np.isfinite(flow).all()), "hires: non-finite output")
+    secs = [pred.predict_timed(left, right)[1] for _ in range(HIRES_RUNS)]
+    peaks = {}
+    for impl in ("alt_cuda", "reg_cuda"):
+        p = pred if impl == "alt_cuda" else StereoPredictor(
+            RAFTStereoConfig(corr_implementation=impl), state,
+            valid_iters=2, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        p(left, right, iters=2)
+        torch.cuda.synchronize()
+        peaks[impl] = torch.cuda.max_memory_allocated(dev)
+        del p
+    del pred
+    result = dict(padded=[2016, 2880], iters=iters, launches=launches[0],
+                  launches_windowed_sample=launches[1],
+                  ms_per_frame_median=statistics.median(secs) * 1e3,
+                  ms_per_frame_runs=[s * 1e3 for s in secs],
+                  peak_mem_bytes_2it=peaks,
+                  disparity_range=[float(-flow.max()), float(-flow.min())])
+    emit("hires", **result)
+    check(peaks["alt_cuda"] < peaks["reg_cuda"],
+          f"hires: alt_cuda's peak {peaks['alt_cuda']} is not below "
+          f"reg_cuda's {peaks['reg_cuda']}")
+    return result, state
+
+
+def run_train(dev, impl, kernel, other, model_seed, phase="train"):
+    """Timed training steps at the SceneFlow recipe's shape with ``impl``:
+    each step launches ``kernel``'s forward 4 x 22 times and as many again
+    recomputed, its backward 4 x 22 times, and ``other``'s kernels never.
+    For reg_cuda (phase "train"), then an injected NaN step."""
     import torch
     from raft_stereo_tpu_torch.config import sceneflow_config
     from raft_stereo_tpu_torch.models import RAFTStereo
@@ -319,7 +613,7 @@ def run_train(dev, windowed_sample, model_seed):
     from raft_stereo_tpu_torch.training.state import (TrainState,
                                                       make_train_step)
     mcfg, tcfg = sceneflow_config()
-    mcfg = dataclasses.replace(mcfg, corr_implementation="reg_cuda")
+    mcfg = dataclasses.replace(mcfg, corr_implementation=impl)
     b, (h, w), iters = tcfg.batch_size, tcfg.image_size, tcfg.train_iters
     model = RAFTStereo(mcfg)
     seeded_weights(model, model_seed)
@@ -335,28 +629,30 @@ def run_train(dev, windowed_sample, model_seed):
     want = (2 * mcfg.corr_levels * iters, mcfg.corr_levels * iters)
     secs, losses, norms = [], [], []
     for _ in range(TRAIN_STEPS):
-        windowed_sample.launches = 0
-        windowed_sample.bwd_launches = 0
+        kernel.launches = kernel.bwd_launches = 0
+        other.launches = other.bwd_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, batch)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        got = (windowed_sample.launches, windowed_sample.bwd_launches)
-        check(got == want, f"train: (forward incl. recompute, backward) "
+        got = (kernel.launches, kernel.bwd_launches)
+        check(got == want, f"{phase}: (forward incl. recompute, backward) "
                            f"launches {got}, expected {want}")
+        check((other.launches, other.bwd_launches) == (0, 0),
+              f"{phase}: launched another implementation's kernels")
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
-        check(float(m["skipped_updates"]) == 0.0, "train: update skipped")
+        check(float(m["skipped_updates"]) == 0.0, f"{phase}: update skipped")
     check(all(map(math.isfinite, losses + norms)),
-          f"train: loss {losses} or grad norm {norms} not finite")
+          f"{phase}: loss {losses} or grad norm {norms} not finite")
     moved = sum(bool((p != p0).any())
                 for p, p0 in zip(model.parameters(), start))
     n_leaves = len(start)
-    check(moved >= 0.9 * n_leaves, f"train: only {moved} of {n_leaves} "
+    check(moved >= 0.9 * n_leaves, f"{phase}: only {moved} of {n_leaves} "
                                    "parameter leaves moved")
     ms = statistics.median(secs) * 1e3
-    result = dict(config="sceneflow_config() + reg_cuda", batch=b,
+    result = dict(config=f"sceneflow_config() + {impl}", batch=b,
                   image_size=[h, w], iters=iters,
                   launches_fwd=want[0], launches_bwd=want[1],
                   ms_per_step_median=ms, ms_per_step_runs=[s * 1e3
@@ -365,7 +661,9 @@ def run_train(dev, windowed_sample, model_seed):
                   peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
                   loss=losses, grad_norm=norms, leaves_moved=moved,
                   leaves=n_leaves, lr_position=opt.count)
-    emit("train", **result)
+    emit(phase, **result)
+    if phase != "train":
+        return result
 
     # 9. an injected NaN batch is skipped
     bad = dict(batch, image1=batch["image1"].clone())
@@ -391,6 +689,48 @@ def run_train(dev, windowed_sample, model_seed):
     return result
 
 
+def train_cpu_parity(dev, impl, kernel, state, modes):
+    """One fp32 training step of the default architecture with ``impl`` at
+    64x160, 2 iterations, on the card (``kernel``'s kernels, 16 forward and
+    8 backward launches) against the CPU (plain versions), in each cuDNN
+    mode of ``modes``, gated by check_grad_parity over NULL_RUNS CPU null
+    runs."""
+    import torch
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    from raft_stereo_tpu_torch.training.state import loss_and_grads
+    cfg = RAFTStereoConfig(corr_implementation=impl)
+    on_cpu = RAFTStereo(cfg)
+    on_cpu.load_state_dict(state, strict=True)
+    on_gpu = RAFTStereo(cfg)
+    on_gpu.load_state_dict(state, strict=True)
+    on_gpu.to(dev)
+    batch = train_batch(1, 64, 160, SEED + 4, "cpu", max_disp=16.0)
+    loss_c, _, grads_c = loss_and_grads(on_cpu, batch, 2)
+    nulls = [loss_and_grads(perturbed_copy(on_cpu, NULL_PERTURBATION,
+                                           SEED + i), batch, 2)[2]
+             for i in range(NULL_RUNS)]
+    names = [n for n, _ in on_cpu.named_parameters()]
+    runs = {}
+    try:
+        for label, cudnn in modes:
+            torch.backends.cudnn.enabled = cudnn
+            kernel.launches = kernel.bwd_launches = 0
+            loss_g, _, grads_g = loss_and_grads(on_gpu, batch, 2)
+            torch.cuda.synchronize()
+            launches = (kernel.launches, kernel.bwd_launches)
+            check(launches == (16, 8), f"card step ({impl}) launches "
+                                       f"{launches} != (16, 8)")
+            runs[label] = dict(
+                loss_rel_dev=abs(float(loss_g) - float(loss_c))
+                / abs(float(loss_c)),
+                **check_grad_parity(names, [g.cpu() for g in grads_g],
+                                    grads_c, nulls))
+    finally:
+        torch.backends.cudnn.enabled = True
+    return runs
+
+
 def main():
     import numpy as np
     import torch
@@ -404,8 +744,10 @@ def main():
     from raft_stereo_tpu_torch.inference import StereoPredictor
     from raft_stereo_tpu_torch.models import RAFTStereo
     from raft_stereo_tpu_torch.ops.kernels import _build
+    from raft_stereo_tpu_torch.ops.kernels import fused_corr as fc
     from raft_stereo_tpu_torch.ops.kernels import windowed_sample as ws_mod
     windowed_sample = ws_mod.windowed_sample
+    fused_corr = fc.fused_corr
     t_start = time.perf_counter()
 
     # 1. device
@@ -423,9 +765,11 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    _build.build_all([ws_mod.KERNEL_NAME])
-    _build.load_library(ws_mod.KERNEL_NAME)
-    emit("build", kernels=[ws_mod.KERNEL_NAME],
+    kernel_names = [ws_mod.KERNEL_NAME, fc.KERNEL_NAME]
+    _build.build_all(kernel_names)  # one nvcc each, started together
+    for name in kernel_names:
+        _build.load_library(name)
+    emit("build", kernels=kernel_names,
          seconds=round(time.perf_counter() - t0, 3))
 
     # level shapes of both inference configurations (384x1248 padded) and
@@ -505,6 +849,12 @@ def main():
     check(windowed_sample.bwd_launches - before == n_calls,
           "the parity calls did not launch the backward kernel")
 
+    # fused_corr: kernels against plain, and the memory contract
+    fused_err = run_fused_parity(dev, fc)
+    check(fused_err["fwd"] <= KERNEL_TOL,
+          f"fused forward error {fused_err['fwd']} > {KERNEL_TOL}")
+    run_fused_memory(dev, fc)
+
     # 5-6. main path, both configurations at full width
     left, right = stereo_pair(375, 1242, SEED)
     main = {}
@@ -515,11 +865,11 @@ def main():
         pred = StereoPredictor(cfg, state, valid_iters=iters, device=dev)
         pred(left, right)  # warm-up: cuDNN autotuning, allocator
         torch.cuda.reset_peak_memory_stats(dev)
-        windowed_sample.launches = 0
+        windowed_sample.launches = fused_corr.launches = 0
         flow, _ = pred.predict_timed(left, right)
         launches = windowed_sample.launches
         want = cfg.corr_levels * iters
-        check(launches == want,
+        check(launches == want and fused_corr.launches == 0,
               f"{name}: {launches} kernel launches, expected {want}")
         check(flow.shape == (1, 375, 1242, 1), f"{name}: shape {flow.shape}")
         check(bool(np.isfinite(flow).all()), f"{name}: non-finite output")
@@ -536,64 +886,54 @@ def main():
             default_state = state
         del pred
 
-    # 7. device against CPU, same weights
-    cfg = RAFTStereoConfig(corr_implementation="reg_cuda")
+    # hires: alt_cuda at 2016x2880, peak memory beside reg_cuda's
+    hires, _ = run_hires(dev, fc, windowed_sample, SEED)
+
+    # 7. device against CPU, same weights, through each kernel
     small_l, small_r = stereo_pair(64, 160, SEED + 1, shift=6)
-    on_gpu = StereoPredictor(cfg, default_state, valid_iters=4, device=dev)
-    on_cpu = StereoPredictor(cfg, default_state, valid_iters=4, device="cpu")
-    windowed_sample.launches = 0
-    f_gpu = on_gpu(small_l, small_r)
-    check(windowed_sample.launches == 16, "the card run missed the kernel")
-    f_cpu = on_cpu(small_l, small_r)
-    dev_px = float(np.abs(f_gpu - f_cpu).max())
-    emit("cpu_parity", shape=[64, 160], iters=4, max_abs_px=dev_px,
-         bound_px=CPU_PARITY_TOL_PX, max_abs_flow=float(np.abs(f_cpu).max()))
-    check(dev_px <= CPU_PARITY_TOL_PX,
-          f"card vs CPU forward differ by {dev_px} px")
+    for impl, kernel in (("reg_cuda", windowed_sample),
+                         ("alt_cuda", fused_corr)):
+        cfg = RAFTStereoConfig(corr_implementation=impl)
+        on_gpu = StereoPredictor(cfg, default_state, valid_iters=4,
+                                 device=dev)
+        on_cpu = StereoPredictor(cfg, default_state, valid_iters=4,
+                                 device="cpu")
+        windowed_sample.launches = fused_corr.launches = 0
+        f_gpu = on_gpu(small_l, small_r)
+        check(kernel.launches == 16, f"the card run of {impl} missed its "
+                                     "kernel")
+        f_cpu = on_cpu(small_l, small_r)
+        dev_px = float(np.abs(f_gpu - f_cpu).max())
+        emit("cpu_parity", impl=impl, shape=[64, 160], iters=4,
+             max_abs_px=dev_px, bound_px=CPU_PARITY_TOL_PX,
+             max_abs_flow=float(np.abs(f_cpu).max()))
+        check(dev_px <= CPU_PARITY_TOL_PX,
+              f"card vs CPU forward ({impl}) differ by {dev_px} px")
 
-    # 8-9. training steps at the SceneFlow recipe's shape, a NaN step
-    train = run_train(dev, windowed_sample, SEED)
+    # 8-9. training steps at the SceneFlow recipe's shape, a NaN step;
+    # then the same recipe with alt_cuda
+    train = run_train(dev, "reg_cuda", windowed_sample, fused_corr, SEED)
+    train_fused = run_train(dev, "alt_cuda", fused_corr, windowed_sample,
+                            SEED, phase="train_fused")
 
-    # 10. one fp32 training step, card against CPU, same weights, with the
-    # card's convolutions in cuDNN (the main path's) and outside it
-    from raft_stereo_tpu_torch.training.state import loss_and_grads
-    cfg = RAFTStereoConfig(corr_implementation="reg_cuda")
-    on_cpu = RAFTStereo(cfg)
-    on_cpu.load_state_dict(default_state, strict=True)
-    on_gpu = RAFTStereo(cfg)
-    on_gpu.load_state_dict(default_state, strict=True)
-    on_gpu.to(dev)
-    batch = train_batch(1, 64, 160, SEED + 4, "cpu", max_disp=16.0)
-    loss_c, _, grads_c = loss_and_grads(on_cpu, batch, 2)
-    nulls = [loss_and_grads(perturbed_copy(on_cpu, NULL_PERTURBATION,
-                                           SEED + i), batch, 2)[2]
-             for i in range(NULL_RUNS)]
-    names = [n for n, _ in on_cpu.named_parameters()]
-    runs = {}
-    for label, cudnn in (("cudnn", True), ("cudnn_off", False)):
-        torch.backends.cudnn.enabled = cudnn
-        windowed_sample.launches = 0
-        windowed_sample.bwd_launches = 0
-        loss_g, _, grads_g = loss_and_grads(on_gpu, batch, 2)
-        torch.cuda.synchronize()
-        launches = (windowed_sample.launches, windowed_sample.bwd_launches)
-        check(launches == (16, 8), f"card step launches {launches} != "
-                                   "(16, 8)")
-        runs[label] = dict(
-            loss_rel_dev=abs(float(loss_g) - float(loss_c))
-            / abs(float(loss_c)),
-            **check_grad_parity(names, [g.cpu() for g in grads_g], grads_c,
-                                nulls))
-    torch.backends.cudnn.enabled = True
-    emit("train_cpu_parity", shape=[64, 160], iters=2, launches=[16, 8],
-         loss_bound=TRAIN_LOSS_TOL, null_perturbation=NULL_PERTURBATION,
-         null_runs=NULL_RUNS, **runs)
-    for label, run in runs.items():
-        check(run["loss_rel_dev"] <= TRAIN_LOSS_TOL,
-              f"card ({label}) vs CPU loss differ by "
-              f"{run['loss_rel_dev']} relative")
-        check(run["ok"], f"card ({label}) vs CPU gradients beyond the null "
-                         f"floor: {run}")
+    # 10. one fp32 training step, card against CPU, same weights: reg_cuda
+    # with the card's convolutions in cuDNN (the main path's) and outside
+    # it, alt_cuda in cuDNN
+    for impl, kernel, modes in (
+            ("reg_cuda", windowed_sample, (("cudnn", True),
+                                           ("cudnn_off", False))),
+            ("alt_cuda", fused_corr, (("cudnn", True),))):
+        runs = train_cpu_parity(dev, impl, kernel, default_state, modes)
+        emit("train_cpu_parity", impl=impl, shape=[64, 160], iters=2,
+             launches=[16, 8], loss_bound=TRAIN_LOSS_TOL,
+             null_perturbation=NULL_PERTURBATION, null_runs=NULL_RUNS,
+             **runs)
+        for label, run in runs.items():
+            check(run["loss_rel_dev"] <= TRAIN_LOSS_TOL,
+                  f"card ({impl}, {label}) vs CPU loss differ by "
+                  f"{run['loss_rel_dev']} relative")
+            check(run["ok"], f"card ({impl}, {label}) vs CPU gradients "
+                             f"beyond the null floor: {run}")
 
     # 11. timings at the main-path level shapes
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
@@ -655,6 +995,51 @@ def main():
         bwd_levels.append(row)
         emit("bwd_timings", **row)
 
+    # fused_corr per level: the forward at the hires levels (fp32), the
+    # backward at the train_fused levels (bf16). No single PyTorch call
+    # computes the function: the yardstick is the reference's several-call
+    # 'alt' formulation (alt_yardstick), reported as yardstick_ms.
+    fused_rows = {"fwd": [], "bwd": []}
+    for which, cfg_name, dtype in (("fwd", "hires", torch.float32),
+                                   ("bwd", "train_fused", torch.bfloat16)):
+        for i, shape in enumerate(FUSED_SHAPES[cfg_name]):
+            f1, f2, center = fused_inputs(shape, dtype, SEED + 90 + i, dev,
+                                          edges=False)
+            if which == "fwd":
+                ct = None
+                kernel = lambda: fc.fused_corr_forward(f1, f2, center, RADIUS)
+                plain = lambda: fc.fused_corr_plain(f1, f2, center, RADIUS)
+            else:
+                g = torch.Generator(device=dev).manual_seed(SEED + 95 + i)
+                ct = torch.randn(tuple(center.shape) + (2 * RADIUS + 1,),
+                                 generator=g, device=dev)
+                kernel = lambda: fc.fused_corr_backward(f1, f2, center, ct,
+                                                        RADIUS)
+                plain = lambda: fc.fused_corr_backward_plain(f1, f2, center,
+                                                             ct, RADIUS)
+            nbytes, flops = fused_bytes_flops(f1, f2, center,
+                                              backward=which == "bwd")
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_flops = flops / FP32_FLOPS_PER_S * 1e3
+            yard = alt_yardstick(f1, f2, center, ct)
+            got, want = yard(), plain()
+            if which == "fwd":
+                got, want = (got,), (want,)
+            yard_err = max((a.float() - b.float()).abs().max().item()
+                           for a, b in zip(got, want))
+            del got, want
+            row = dict(config=cfg_name, shape=list(shape),
+                       dtype=str(dtype).replace("torch.", ""),
+                       ms=cuda_ms(kernel, flush), plain_ms=cuda_ms(plain, flush),
+                       yardstick_ms=cuda_ms(yard, flush),
+                       yardstick_max_abs_diff=yard_err,
+                       bound_ms=max(t_bytes, t_flops),
+                       bound_by="bytes" if t_bytes >= t_flops
+                       else "operations", bytes=nbytes, flops=flops)
+            fused_rows[which].append(row)
+            emit("fused_timings", kernel=which, **row)
+            del yard, f1, f2, center, ct
+
     # kernels line: per-launch means over the levels each kernel runs at on
     # its main path (the default forward's four, the training step's four)
     dflt = [r for r in per_level if r["config"] == "default"]
@@ -685,7 +1070,28 @@ def main():
         "library_ms": mean(bwd_levels, "library_ms"),
         "timed_at": "mean per launch over the training step's 4 levels "
                     "(8,80,180,{180,90,45,22}) bf16, L2 flushed",
-    }]}), flush=True)
+    }] + [{
+        "name": fc.KERNEL_NAME + suffix, "route": "cuda",
+        "source": fc.SOURCE, "replaces": replaces,
+        "launches": launches, **extra,
+        "max_abs_err": fused_err[which],
+        "ms": mean(rows, "ms"), "plain_ms": mean(rows, "plain_ms"),
+        "bound_ms": mean(rows, "bound_ms"), "bound_by": rows[0]["bound_by"],
+        "library_ms": None, "yardstick_ms": mean(rows, "yardstick_ms"),
+        "yardstick": "several calls: the reference's alt formulation "
+                     "(F.grid_sample of fmap2 at the taps, product with "
+                     "fmap1, sum over D); no single PyTorch call computes "
+                     "the function",
+        "timed_at": timed_at,
+    } for which, suffix, replaces, launches, extra, rows, timed_at in (
+        ("fwd", "", fc.REPLACES, hires["launches"],
+         {"launches_train_step": train_fused["launches_fwd"]},
+         fused_rows["fwd"], "mean per launch over the hires path's 4 levels "
+         "(1,504,720,{720,360,180,90},256) fp32, L2 flushed"),
+        ("bwd", "_bwd", fc.REPLACES_BWD, train_fused["launches_bwd"], {},
+         fused_rows["bwd"], "mean per launch over the train_fused step's 4 "
+         "levels (8,80,180,{180,90,45,22},256) bf16, L2 flushed"))]}),
+        flush=True)
     emit("total", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

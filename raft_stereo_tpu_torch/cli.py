@@ -2,8 +2,10 @@
 
 The flag surface is the JAX package's (``raft_stereo_tpu/cli.py``
 ``add_model_args`` and ``build_demo_parser``) plus ``--device``. Flags that
-only steer training memory or the JAX package's TPU kernels are accepted so
-that the same command lines parse; test-mode inference does not read them.
+only steer training memory or the JAX package's TPU kernels (such as
+``--fused_block_w``) are accepted so that the same command lines parse;
+test-mode inference does not read them. ``--corr_implementation alt_cuda``
+runs the memoryless ``fused_corr`` kernels.
 """
 
 from __future__ import annotations
@@ -24,9 +26,12 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
                             "reg_pallas", "alt_pallas", "ring", "fused",
                             "fused_cuda", "memoryless"], default="reg",
                    help="correlation implementation; the port runs 'reg' "
-                        "(plain PyTorch lookup) and 'reg_cuda'/'reg_pallas' "
-                        "(the windowed_sample CUDA kernel), and refuses the "
-                        "names it has not ported yet")
+                        "(plain PyTorch lookup), 'reg_cuda'/'reg_pallas' "
+                        "(the windowed_sample CUDA kernel) and "
+                        "'alt_cuda'/'fused'/'fused_cuda'/'memoryless' (the "
+                        "memoryless fused_corr CUDA kernels, for "
+                        "high-resolution pairs), and refuses 'alt', "
+                        "'alt_pallas' and 'ring', not ported yet")
     g.add_argument("--shared_backbone", action="store_true",
                    help="use a single backbone for context and feature nets")
     g.add_argument("--corr_levels", type=int, default=4)
@@ -50,7 +55,10 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
         "accepted so JAX-package command lines parse; inference ignores "
         "them")
     t.add_argument("--no_remat", action="store_true")
-    t.add_argument("--fused_block_w", type=int, default=256)
+    t.add_argument("--fused_block_w", type=int, default=256,
+                   help="the JAX package's W2 tile of its TPU 'fused' "
+                        "kernel; the port's CUDA kernels take no tile width "
+                        "and ignore it")
     t.add_argument("--fused_lookup", choices=["auto", "on", "off"],
                    default="auto",
                    help="'on' is refused: the fused lookup+convc1 kernel is "

@@ -25,8 +25,11 @@ CORR_ALIASES = {"reg_cuda": "reg_pallas", "alt_cuda": "fused",
                 "fused_cuda": "fused", "memoryless": "fused"}
 # What the port runs today: "reg" is plain PyTorch, "reg_pallas" (spelled
 # "reg_cuda" on the reference's command line) is the hand-written
-# windowed_sample CUDA kernel.
-PORTED_CORR_IMPLEMENTATIONS = ("reg", "reg_pallas")
+# windowed_sample CUDA kernel, "fused" (spelled "alt_cuda") the
+# hand-written memoryless fused_corr CUDA kernels. The JAX package's
+# fused_block_w is a TPU tiling knob the CUDA kernels do not read, so it is
+# not a field here.
+PORTED_CORR_IMPLEMENTATIONS = ("reg", "reg_pallas", "fused")
 
 NORM_FNS = ("group", "batch", "instance", "none")
 
@@ -47,8 +50,9 @@ class RAFTStereoConfig:
     slow_fast_gru: bool = False
     n_gru_layers: int = 3
     mixed_precision: bool = False
-    # Correlation-volume storage precision. None = fp32 for "reg", the
-    # compute dtype for the kernel implementation.
+    # Correlation storage precision (the volume, or fused's features).
+    # None = fp32 for "reg", the compute dtype for the kernel
+    # implementations.
     corr_storage_dtype: Optional[str] = None
     # Training forward: recompute each refinement iteration in the backward
     # pass (torch.utils.checkpoint) instead of keeping its activations.

@@ -69,12 +69,13 @@ class RAFTStereo(nn.Module):
                                      downsample=cfg.n_downsample, dtype=dt)
 
     def storage_dtype(self) -> Optional[torch.dtype]:
-        """Correlation-volume storage: the config's choice, else the compute
-        dtype for the kernel implementation and fp32 for ``reg``."""
+        """Correlation storage (the volume, or ``fused``'s features): the
+        config's choice, else the compute dtype for the kernel
+        implementations and fp32 for ``reg``."""
         cfg = self.cfg
         if cfg.corr_storage_dtype is not None:
             return getattr(torch, cfg.corr_storage_dtype)
-        if cfg.corr_implementation == "reg_pallas":
+        if cfg.corr_implementation in ("reg_pallas", "fused"):
             return self.compute_dtype
         return None
 

@@ -1,15 +1,20 @@
 """Pluggable 1-D correlation layer (the port of ``raft_stereo_tpu.ops.corr``).
 
-``init_corr`` builds the all-pairs volume ``(B, H, W1, W2)`` once and pools
-it into a pyramid along W2; ``corr_lookup`` samples a ``2r+1``-tap window
-per level around the current disparity coordinates. Two implementations
-are registered:
+``init_corr`` builds the correlation state once per pair and
+``corr_lookup`` samples a ``2r+1``-tap window per pyramid level around the
+current disparity coordinates. Three implementations are registered:
 
-* ``reg`` — the lookup is plain PyTorch (``ops/sampler.py``).
+* ``reg`` — the all-pairs volume ``(B, H, W1, W2)``, pooled into a pyramid
+  along W2; the lookup is plain PyTorch (``ops/sampler.py``).
 * ``reg_pallas`` (``reg_cuda`` on the reference's command line) — the same
   pyramid, looked up by the hand-written ``windowed_sample`` CUDA kernel.
-  On CPU tensors its wrapper takes the plain version; on CUDA tensors it
-  launches the kernel or raises.
+* ``fused`` (``alt_cuda``, ``fused_cuda``, ``memoryless``) — no volume: the
+  state is ``fmap1`` and a pyramid of ``fmap2`` pooled along W, and the
+  hand-written ``fused_corr`` CUDA kernels compute each level's taps from
+  the features, forward and backward.
+
+On CPU tensors the kernels' wrappers take their plain versions; on CUDA
+tensors they launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from raft_stereo_tpu_torch.ops.geometry import pool_last_axis2
+from raft_stereo_tpu_torch.ops.geometry import pool_last_axis2, pool_w2
+from raft_stereo_tpu_torch.ops.kernels.fused_corr import fused_corr
 from raft_stereo_tpu_torch.ops.kernels.windowed_sample import windowed_sample
 from raft_stereo_tpu_torch.ops.sampler import windowed_linear_sample
 
@@ -30,10 +36,12 @@ from raft_stereo_tpu_torch.ops.sampler import windowed_linear_sample
 class CorrState:
     """Correlation state carried through the refinement loop."""
 
-    levels: Tuple[torch.Tensor, ...]  # per-level volume (B, H, W1, W2_i)
+    # per-level volume (B, H, W1, W2_i), or fmap2 pooled (B, H, W2_i, D)
+    levels: Tuple[torch.Tensor, ...]
     impl: str
     radius: int
     num_levels: int = 4
+    fmap1: Optional[torch.Tensor] = None  # left features, "fused" only
 
 
 def all_pairs_correlation(fmap1: torch.Tensor,
@@ -57,6 +65,27 @@ def _build_reg(fmap1, fmap2, num_levels, radius,
         levels.append(pool_last_axis2(levels[-1]).contiguous())
     return CorrState(levels=tuple(levels), impl=impl, radius=radius,
                      num_levels=num_levels)
+
+
+def _build_fused(fmap1, fmap2, num_levels, radius,
+                 storage_dtype: Optional[torch.dtype] = None) -> CorrState:
+    """Memoryless state: ``fmap1`` and ``fmap2`` in the storage dtype, and
+    ``fmap2`` pooled along W into the pyramid (O(W) per row, no volume)."""
+    dt = storage_dtype or torch.float32
+    levels = [fmap2.to(dt).contiguous()]
+    for _ in range(num_levels - 1):
+        levels.append(pool_w2(levels[-1]).contiguous())
+    return CorrState(levels=tuple(levels), impl="fused", radius=radius,
+                     num_levels=num_levels,
+                     fmap1=fmap1.to(dt).contiguous())
+
+
+def _lookup_fused(state: CorrState, coords_x: torch.Tensor) -> torch.Tensor:
+    """Per-level memoryless taps at ``coords_x / 2**i``, concatenated in
+    the ``reg`` channel order."""
+    out = [fused_corr(state.fmap1, fmap2, coords_x / (2 ** i), state.radius)
+           for i, fmap2 in enumerate(state.levels)]
+    return torch.cat(out, dim=-1)
 
 
 def _lookup_with(sample: Callable) -> Callable:
@@ -87,14 +116,16 @@ def register_corr(name: str, builder: Callable, lookup: Callable) -> None:
 register_corr("reg", _build_reg, _lookup_with(windowed_linear_sample))
 register_corr("reg_pallas", functools.partial(_build_reg, impl="reg_pallas"),
               _lookup_with(windowed_sample))
+register_corr("fused", _build_fused, _lookup_fused)
 
 
 def init_corr(impl: str, fmap1: torch.Tensor, fmap2: torch.Tensor, *,
               num_levels: int = 4, radius: int = 4,
               storage_dtype: Optional[torch.dtype] = None) -> CorrState:
     """Build correlation state from NHWC feature maps ``(B, H, W, D)``.
-    ``storage_dtype`` (e.g. ``torch.bfloat16``) selects the volume's
-    storage precision; None keeps fp32."""
+    ``storage_dtype`` (e.g. ``torch.bfloat16``) selects the storage
+    precision of the volume (``reg``) or the features (``fused``); None
+    keeps fp32."""
     if impl not in _BUILDERS:
         raise ValueError(f"unknown corr implementation {impl!r}; "
                          f"registered: {sorted(_BUILDERS)}")

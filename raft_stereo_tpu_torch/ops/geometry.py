@@ -48,6 +48,14 @@ def pool2x(x: torch.Tensor) -> torch.Tensor:
     return avg_pool2d(x, (3, 3), (2, 2), (1, 1))
 
 
+def pool_w2(x: torch.Tensor) -> torch.Tensor:
+    """Window-2 stride-2 average pool along W of an NHWC tensor (floor
+    semantics): the ``fused`` correlation's feature pyramid. The pair is
+    summed and halved in the input's dtype, so bf16 in gives bf16 out."""
+    w = x.shape[2] // 2 * 2
+    return (x[:, :, 0:w:2] + x[:, :, 1:w:2]) / 2.0
+
+
 def pool_last_axis2(x: torch.Tensor) -> torch.Tensor:
     """Window-2 stride-2 average pool along the LAST axis (floor semantics):
     the correlation pyramid's pooling of ``(B, H, W1, W2)`` over W2."""

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from raft_stereo_tpu_torch.ops.kernels._build import load_library
-from raft_stereo_tpu_torch.ops.sampler import windowed_linear_sample
+from raft_stereo_tpu_torch.ops.sampler import window, windowed_linear_sample
 
 KERNEL_NAME = "windowed_sample"
 SOURCE = "raft_stereo_tpu_torch/csrc/windowed_sample.cu"
@@ -45,12 +45,7 @@ def windowed_sample_backward_plain(
     """
     w = volume.shape[-1]
     k = 2 * radius + 1
-    c = center.float()
-    base_f = torch.floor(c)
-    frac = (c - base_f)[..., None]
-    lim = float(w + radius + 2)
-    base_f = torch.nan_to_num(base_f, nan=0.0).clamp(-lim, lim)
-    base = base_f.to(torch.int64) - radius
+    base, frac = window(center, w, radius)
     ct = ct.float()
     zero = torch.zeros_like(ct[..., :1])
     dg = ((1.0 - frac) * torch.cat([ct, zero], dim=-1)

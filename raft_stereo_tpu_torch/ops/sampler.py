@@ -8,7 +8,24 @@ computes the same numbers.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+
+def window(center: torch.Tensor, w: int,
+           radius: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(base, frac)`` of the windows around ``center`` in rows of width
+    ``w``: ``base = floor(c) - r`` (int64) with ``floor(c)`` clamped to
+    ``+-(w + r + 2)`` in float before the cast (a NaN center to 0), and
+    ``frac = c - floor(c)`` taken before the clamp, with a trailing unit
+    dim. The CUDA kernels' ``window_base`` computes the same."""
+    c = center.float()
+    base_f = torch.floor(c)
+    frac = (c - base_f)[..., None]
+    lim = float(w + radius + 2)
+    base_f = torch.nan_to_num(base_f, nan=0.0).clamp(-lim, lim)
+    return base_f.to(torch.int64) - radius, frac
 
 
 def windowed_linear_sample(values: torch.Tensor, center: torch.Tensor,
@@ -32,12 +49,7 @@ def windowed_linear_sample(values: torch.Tensor, center: torch.Tensor,
       ``(..., 2r+1)`` float32 taps in ascending offset order.
     """
     w = values.shape[-1]
-    c = center.float()
-    base_f = torch.floor(c)
-    frac = (c - base_f)[..., None]
-    lim = float(w + radius + 2)
-    base_f = torch.nan_to_num(base_f, nan=0.0).clamp(-lim, lim)
-    base = base_f.to(torch.int64) - radius
+    base, frac = window(center, w, radius)
     idx = base[..., None] + torch.arange(2 * radius + 2,
                                          device=values.device)
     valid = (idx >= 0) & (idx < w)

@@ -2,6 +2,8 @@
 """Where the PyTorch port's main path spends its time on one NVIDIA GPU.
 
     python3 scripts/profile_torch_main_path.py [--frames 3]
+    python3 scripts/profile_torch_main_path.py --corr_implementation alt_cuda \
+        --size 1988x2880
     python3 scripts/profile_torch_main_path.py --train [--frames 2]
 
 For both served configurations — the default architecture with
@@ -17,16 +19,26 @@ configuration:
 * ``device_busy_ms`` per frame: the summed duration of the device kernels
   (one stream, so they do not overlap) and ``idle_share = 1 - busy/wall``;
 * device time per kernel category (convolution, matmul, the
-  windowed_sample lookup, the rest) and the top kernels by device time.
+  windowed_sample and fused_corr lookups, the rest) and the top kernels by
+  device time.
+
+``--corr_implementation`` profiles the default architecture alone with
+that implementation (e.g. ``alt_cuda``, the memoryless fused_corr
+kernels), and ``--size HxW`` sets the input pair (padded to /32; default
+375x1242).
 
 With ``--train`` it profiles ``--frames`` training steps instead, at
-chip_smoke.py's train shape (sceneflow_config() with reg_cuda: batch 8 at
-320x720, 22 iterations, bf16, seeded weights and batch), after a warm-up
+chip_smoke.py's train shape (sceneflow_config() with reg_cuda, or with
+``--corr_implementation``: batch 8 at 320x720, 22 iterations, bf16, seeded weights and batch), after a warm-up
 step; convolution time is split into forward and backward (cuDNN's
-dgrad/wgrad kernels), the lookup into the windowed_sample forward and
-backward kernels, and ``wall_ms`` is per step.
+dgrad/wgrad kernels), the lookup into its forward and backward
+kernels, and ``wall_ms`` is per step.
 
-TF32 is off, as in chip_smoke.py. ``--unrepaired_pool`` (with
+TF32 is off, as in chip_smoke.py. At 2016x2880 cuDNN's heuristic picks an
+FFT algorithm for a convolution of the update block that launches ~99,000
+small kernels an iteration; ``--cudnn_benchmark`` times the frame with
+the algorithms cuDNN's own benchmark picks instead, and ``--iters 1``
+keeps a profile with the heuristic's choice small. ``--unrepaired_pool`` (with
 ``--train``) times the step with the GRU links' pool on PyTorch's
 channels-last CUDA backward, as before ``ops/geometry.avg_pool2d`` copied
 its input to channels first (see scripts/card_vs_cpu_grads.py): the
@@ -47,6 +59,10 @@ def category(name: str, split: bool = False) -> str:
     """Kernel category by name; ``split`` separates forward from backward
     for the convolutions and the lookup."""
     n = name.lower()
+    if "fused_corr" in n:
+        if not split:
+            return "fused_corr"
+        return "lookup_bwd" if "bwd" in n else "lookup_fwd"
     if "windowed_sample" in n:
         if not split:
             return "windowed_sample"
@@ -112,7 +128,8 @@ def profile_train(args, dev) -> int:
     from raft_stereo_tpu_torch.training.state import (TrainState,
                                                       make_train_step)
     mcfg, tcfg = sceneflow_config()
-    mcfg = dataclasses.replace(mcfg, corr_implementation="reg_cuda")
+    impl = args.corr_implementation or "reg_cuda"
+    mcfg = dataclasses.replace(mcfg, corr_implementation=impl)
     model = RAFTStereo(mcfg)
     seeded_weights(model, SEED)
     model.to(dev)
@@ -165,7 +182,7 @@ def profile_train(args, dev) -> int:
               "kernels", file=sys.stderr)
         return 1
     print(json.dumps({
-        "config": "train: sceneflow_config() + reg_cuda", "batch": b,
+        "config": f"train: sceneflow_config() + {impl}", "batch": b,
         "unrepaired_pool": args.unrepaired_pool,
         "image_size": [h, w], "iters": tcfg.train_iters,
         "steps": args.frames, "wall_ms": wall_ms,
@@ -185,6 +202,20 @@ def main() -> int:
     ap.add_argument("--unrepaired_pool", action="store_true",
                     help="with --train: the pool without its channels-first "
                          "copy (wrong gradients; for timing only)")
+    ap.add_argument("--corr_implementation", default=None,
+                    help="profile the default architecture alone with this "
+                         "correlation implementation")
+    ap.add_argument("--iters", type=int, default=None,
+                    help="refinement iterations instead of the preset's "
+                         "(1 profiles the encoders and one iteration)")
+    ap.add_argument("--cudnn_benchmark", action="store_true",
+                    help="let cuDNN time its algorithms per shape "
+                         "(torch.backends.cudnn.benchmark) instead of its "
+                         "heuristic choice")
+    ap.add_argument("--warmup", type=int, default=2,
+                    help="unprofiled warm-up frames before the timed ones")
+    ap.add_argument("--size", default="375x1242",
+                    help="input pair HxW for inference (padded to /32)")
     args = ap.parse_args()
 
     import torch
@@ -201,6 +232,7 @@ def main() -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = args.cudnn_benchmark
     dev = torch.device("cuda", 0)
     if args.train:
         if args.unrepaired_pool:
@@ -208,13 +240,19 @@ def main() -> int:
             from raft_stereo_tpu_torch.ops import geometry
             geometry.avg_pool2d = unrepaired_avg_pool2d
         return profile_train(args, dev)
-    left, right = stereo_pair(375, 1242, 1234)
-    for name, cfg, iters in [
-            ("default", RAFTStereoConfig(corr_implementation="reg_cuda"), 32),
-            ("realtime", realtime_config(), 7)]:
+    h, w = (int(v) for v in args.size.split("x"))
+    left, right = stereo_pair(h, w, 1234)
+    padded = [-(-h // 32) * 32, -(-w // 32) * 32]
+    runs = [("default", RAFTStereoConfig(corr_implementation="reg_cuda"), 32),
+            ("realtime", realtime_config(), 7)]
+    if args.corr_implementation:
+        runs = [(f"default+{args.corr_implementation}", RAFTStereoConfig(
+            corr_implementation=args.corr_implementation), 32)]
+    for name, cfg, iters in runs:
+        iters = args.iters or iters
         state = seeded_weights(RAFTStereo(cfg), 1234)
         pred = StereoPredictor(cfg, state, valid_iters=iters, device=dev)
-        for _ in range(2):
+        for _ in range(args.warmup):
             pred(left, right)
         # wall clock without the profiler, whose host-side tracing slows
         # the launches it records
@@ -231,7 +269,8 @@ def main() -> int:
             return 1
         wall_ms = wall * 1e3
         print(json.dumps({
-            "config": name, "iters": iters, "padded": [384, 1248],
+            "config": name, "iters": iters, "padded": padded,
+            "cudnn_benchmark": args.cudnn_benchmark,
             "frames": args.frames, "wall_ms": wall_ms,
             "device_busy_ms": out["device_busy_ms"],
             "idle_share": 1 - out["device_busy_ms"] / wall_ms,

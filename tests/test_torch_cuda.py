@@ -271,3 +271,226 @@ def test_pool2x_gradient_matches_cpu(cuda, layout):
         grads.append(dx.cpu())
     err = float((grads[1] - grads[0]).norm() / grads[0].norm())
     assert err <= 1e-6, err
+
+
+# ----------------------------------------------------------- fused_corr
+#
+# Bounds against the plain PyTorch versions on the same inputs: the forward
+# 1e-5 abs (the dot over D summed in another order, taps O(1)); df1/df2
+# 1e-5 abs in fp32, and in bf16 one bf16 ulp of the plain value where that
+# is larger (both round one fp32 sum once); df2 bitwise from run to run.
+
+from raft_stereo_tpu_torch.ops.kernels import fused_corr as fc  # noqa: E402
+
+# (B, H, W1, W2, D): the hires levels (1/4 of 2016x2880), the SceneFlow
+# training levels, and the odd and degenerate widths (W2 <= 2r+2)
+FUSED_SHAPES = [(1, 504, 720, 720, 256), (1, 504, 720, 90, 256),
+                (8, 80, 180, 180, 256), (8, 80, 180, 22, 256),
+                (2, 3, 15, 15, 256), (1, 2, 15, 7, 256), (1, 2, 15, 3, 256),
+                (1, 2, 15, 1, 256), (1, 3, 33, 40, 96)]
+
+
+def _fused_inputs(shape, dtype, device, seed=0):
+    b, h, w1, w2, d = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    f1 = torch.randn((b, h, w1, d), generator=g, device=device).to(dtype)
+    f2 = torch.randn((b, h, w2, d), generator=g, device=device).to(dtype)
+    center = (torch.rand((b, h, w1), generator=g, device=device)
+              * (w2 + 4 * R + 4) - 2 * R - 2)
+    flat = center.view(-1)
+    edge = [0.0, -1.0, float(w2 - 1), float(w2), 1e9, -1e9, float("nan")]
+    flat[:len(edge)] = torch.tensor(edge, device=device)
+    return f1, f2, center
+
+
+def _close(got, want, dtype):
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        return False
+    diff = (got.float() - want.float())[~nan].abs()
+    ulp = want.float()[~nan].abs() * (2.0 ** -7 if dtype == torch.bfloat16
+                                      else 0.0)
+    return bool((diff <= torch.clamp(ulp, min=1e-5)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_fused_kernels_match_plain(cuda, dtype, shape):
+    f1, f2, center = _fused_inputs(shape, dtype, cuda)
+    ct = _cotangent(shape[:4], cuda)
+    before = (fc.fused_corr.launches, fc.fused_corr.bwd_launches)
+    out = fc.fused_corr(f1, f2, center, R)
+    df1, df2 = fc.fused_corr_backward(f1, f2, center, ct, R)
+    torch.cuda.synchronize()
+    assert (fc.fused_corr.launches, fc.fused_corr.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = fc.fused_corr_plain(f1, f2, center, R)
+    w1, w2 = fc.fused_corr_backward_plain(f1, f2, center, ct, R)
+    assert bool(torch.isnan(want).any())
+    assert _close(out, want, torch.float32)
+    assert df1.dtype == df2.dtype == dtype
+    assert _close(df1, w1, dtype) and _close(df2, w2, dtype)
+    assert bool((out.view(-1, 2 * R + 1)[4:6] == 0).all())  # far out
+    assert bool((df1.view(-1, shape[-1])[4:6] == 0).all())
+
+
+def test_fused_other_radii(cuda):
+    f1, f2, center = _fused_inputs((2, 4, 40, 40, 64), torch.float32, cuda)
+    for radius in (0, 1, 3, 8):
+        ct = torch.randn(tuple(center.shape) + (2 * radius + 1,),
+                         device=cuda)
+        assert _close(fc.fused_corr(f1, f2, center, radius),
+                      fc.fused_corr_plain(f1, f2, center, radius),
+                      torch.float32)
+        got = fc.fused_corr_backward(f1, f2, center, ct, radius)
+        want = fc.fused_corr_backward_plain(f1, f2, center, ct, radius)
+        assert _close(got[0], want[0], torch.float32)
+        assert _close(got[1], want[1], torch.float32)
+    with pytest.raises(ValueError, match="radius"):
+        fc.fused_corr(f1, f2, center, 9)
+
+
+def test_fused_64bit_offsets(cuda):
+    # B*H*W*D = 8320*1024*256 > 2**31 elements in each feature map: the
+    # last rows lie past 2**31
+    shape = (1, 8320, 1024, 1024, 256)
+    f1 = torch.zeros(shape[:3] + (256,), dtype=torch.bfloat16, device=cuda)
+    f2 = torch.zeros_like(f1)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    f1[0, -1] = torch.randn((1024, 256), generator=g, device=cuda).to(
+        torch.bfloat16)
+    f2[0, -1] = torch.randn((1024, 256), generator=g, device=cuda).to(
+        torch.bfloat16)
+    center = torch.rand(shape[:3], generator=g, device=cuda) * 1024
+    ct = _cotangent(shape[:4], cuda)
+    out = fc.fused_corr(f1, f2, center, R)
+    df1, df2 = fc.fused_corr_backward(f1, f2, center, ct, R)
+    torch.cuda.synchronize()
+    last = (slice(None), slice(-1, None))
+    want = fc.fused_corr_plain(f1[last], f2[last], center[last], R)
+    w1, w2 = fc.fused_corr_backward_plain(f1[last], f2[last], center[last],
+                                          ct[last], R)
+    assert bool(want.abs().max() > 0)
+    assert _close(out[last], want, torch.float32)
+    assert _close(df1[last], w1, torch.bfloat16)
+    assert _close(df2[last], w2, torch.bfloat16)
+    del f1, f2, df1, df2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_backward_is_deterministic(cuda, dtype):
+    # many pixels land on each w2 at the coarse level; two runs are bitwise
+    # equal (no float atomics)
+    f1, f2, center = _fused_inputs((8, 80, 180, 22, 256), dtype, cuda)
+    ct = _cotangent((8, 80, 180, 22), cuda)
+    a = fc.fused_corr_backward(f1, f2, center, ct, R)
+    b = fc.fused_corr_backward(f1, f2, center, ct, R)
+    assert _same(a[0], b[0]) and _same(a[1], b[1])
+
+
+def test_fused_autograd_launches_and_no_center_grad(cuda):
+    f1, f2, center = _fused_inputs((1, 4, 32, 32, 64), torch.float32, cuda)
+    f1.requires_grad_()
+    f2.requires_grad_()
+    center = center.nan_to_num(0.0).requires_grad_()
+    before = (fc.fused_corr.launches, fc.fused_corr.bwd_launches)
+    out = fc.fused_corr(f1, f2, center, R)
+    ct = torch.randn(out.shape, device=cuda)
+    df1, df2, dc = torch.autograd.grad(out, (f1, f2, center), ct,
+                                       allow_unused=True)
+    assert (fc.fused_corr.launches, fc.fused_corr.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert dc is None
+    want = fc.fused_corr_backward_plain(f1.detach(), f2.detach(),
+                                        center.detach(), ct, R)
+    assert _close(df1, want[0], torch.float32)
+    assert _close(df2, want[1], torch.float32)
+
+
+def test_fused_wrapper_refuses_bad_inputs(cuda):
+    f1, f2, center = _fused_inputs((1, 2, 8, 16, 32), torch.float32, cuda)
+    def strided(x):  # same shape, not contiguous
+        return x.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fc.fused_corr(strided(f1), f2, center, R)
+    with pytest.raises(TypeError, match="dtype"):
+        fc.fused_corr(f1.half(), f2.half(), center, R)
+    with pytest.raises(TypeError, match="dtype"):
+        fc.fused_corr(f1, f2.bfloat16(), center, R)
+    with pytest.raises(ValueError, match="want fmap1"):
+        fc.fused_corr(f1, f2[..., :16].contiguous(), center, R)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fc.fused_corr(f1, f2, center.cpu(), R)
+    wide = torch.zeros((1, 1, 4000, 32), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fc.fused_corr_backward(wide, wide, torch.zeros((1, 1, 4000),
+                                                       device=cuda),
+                               torch.zeros((1, 1, 4000, 9), device=cuda), R)
+
+
+def test_fused_memory_contract(cuda):
+    # the 4-level lookup at the hires shape allocates its outputs and less
+    # than an eighth of one level-0 volume more; the backward at level 0
+    # df1 + df2 and that margin
+    from raft_stereo_tpu_torch.ops.corr import corr_lookup, init_corr
+    b, h, w, d = 1, 504, 720, 256
+    margin = b * h * w * w * 4 // 8
+    f1, f2, center = _fused_inputs((b, h, w, w, d), torch.float32, cuda)
+    center = center.nan_to_num(0.0)
+    state = init_corr("fused", f1, f2, num_levels=4, radius=R)
+    assert all(lv.shape == (b, h, w >> i, d)
+               for i, lv in enumerate(state.levels))
+    coords = torch.stack([center, torch.zeros_like(center)], dim=-1)
+    for fn, own in [
+            (lambda: corr_lookup(state, coords), 2 * b * h * w * 36 * 4),
+            (lambda: fc.fused_corr_backward(
+                f1, f2, center, torch.randn((b, h, w, 2 * R + 1),
+                                            device=cuda), R),
+             2 * f1.numel() * 4 + b * h * w * (2 * R + 1) * 4)]:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated(cuda) - base <= own + margin
+        del out
+
+
+def test_fused_model_train_step_matches_reg(cuda):
+    # one fp32 training step through the fused kernels (alt_cuda) against
+    # the same step through the volume and the plain lookup (reg), both on
+    # the card: the same function, summed in another order. Bounds: loss
+    # 1e-5 relative; all gradients within 1e-3 relative L2 (the size of a
+    # 1e-6 weight perturbation's null run, PERF.md PR 2)
+    from raft_stereo_tpu_torch.training.state import loss_and_grads
+    kw = dict(hidden_dims=(32, 32, 32))
+    model_k = init_weights(
+        RAFTStereo(RAFTStereoConfig(corr_implementation="alt_cuda", **kw)),
+        torch.Generator().manual_seed(0))
+    model_p = RAFTStereo(RAFTStereoConfig(corr_implementation="reg", **kw))
+    model_p.load_state_dict(model_k.state_dict(), strict=True)
+    model_k.to(cuda)
+    model_p.to(cuda)
+    with torch.no_grad():
+        model_k.update_block.flow_head.conv2.weight.mul_(0.1)
+        model_p.update_block.flow_head.conv2.weight.mul_(0.1)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    left = torch.rand((2, 64, 128, 3), generator=g, device=cuda) * 255
+    batch = {"image1": left, "image2": torch.roll(left, -4, dims=2),
+             "flow": -4 * torch.ones((2, 64, 128, 1), device=cuda),
+             "valid": torch.ones((2, 64, 128), device=cuda)}
+    fc.fused_corr.launches = fc.fused_corr.bwd_launches = 0
+    windowed_sample.launches = 0
+    loss_k, _, grads_k = loss_and_grads(model_k, batch, 3)
+    assert (fc.fused_corr.launches, fc.fused_corr.bwd_launches,
+            windowed_sample.launches) == (2 * 4 * 3, 4 * 3, 0)
+    loss_p, _, grads_p = loss_and_grads(model_p, batch, 3)
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * float(loss_p)
+    flat_k = torch.cat([x.flatten() for x in grads_k]).double()
+    flat_p = torch.cat([x.flatten() for x in grads_p]).double()
+    assert float((flat_k - flat_p).norm() / flat_p.norm()) <= 1e-3
+    # gradients reach the feature encoder through the fused lookup
+    fnet = [gr for (n, _), gr in zip(model_k.named_parameters(), grads_k)
+            if n.startswith("fnet.")]
+    assert all(float(gr.abs().max()) > 0 for gr in fnet)

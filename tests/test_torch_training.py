@@ -72,8 +72,8 @@ from raft_stereo_tpu_torch.training.state import (TrainState, loss_and_grads,
 from raft_stereo_tpu_torch.utils.weights import (jax_leaf_names,
                                                  state_dict_from_jax)
 
-from chip_smoke import null_floor_gate
-from torch_parity import jax_variables, max_abs, port_config, rel_l2
+from torch_parity import (flat, jax_variables, max_abs, null_gate, perturbed,
+                          port_config, rel_l2)
 
 SMALL = (32, 32, 32)
 B, H, W = 2, 64, 128
@@ -266,46 +266,6 @@ def small():
     return jcfg, jax_variables(jcfg, seed=21, image_shape=(B, H, W, 3))
 
 
-def _perturbed(params, seed, rel=1e-6):
-    """``params`` with every weight scaled by ``1 + rel * N(0, 1)``: a
-    JAX-vs-JAX null run."""
-    rng = np.random.default_rng(seed)
-    return jax.tree_util.tree_map(
-        lambda a: (a * (1.0 + rel * rng.standard_normal(a.shape))).astype(
-            np.float32), params)
-
-
-def _flat(sd: dict, names) -> np.ndarray:
-    return np.concatenate([np.asarray(sd[k], np.float64).ravel()
-                           for k in names])
-
-
-def _null_gate(got: dict, want_tree, null_trees, floor: float,
-               skip=frozenset()):
-    """The null-floor rule over several null runs. ``got`` maps port names
-    to arrays; ``want_tree`` and each of ``null_trees`` are JAX params-
-    shaped trees. Returns ``(ok, readings)``: the leaves not in ``skip``
-    under ``null_floor_gate`` with ``floor``, and all leaves together
-    within the largest null run's aggregate deviation."""
-    names = list(got)
-    want = {k: v.numpy() for k, v in state_dict_from_jax(
-        {"params": want_tree}).items() if k in got}
-    nulls = [{k: v.numpy() for k, v in state_dict_from_jax(
-        {"params": t}).items() if k in got} for t in null_trees]
-
-    def devs(tree):
-        return {k: rel_l2(tree[k], want[k]) for k in names}
-    leaves = null_floor_gate(devs(got), [devs(n) for n in nulls], floor,
-                             [k for k in names if k not in skip])
-    flat_want = _flat(want, names)
-    agg = rel_l2(_flat(got, names), flat_want)
-    agg_null = [rel_l2(_flat(n, names), flat_want) for n in nulls]
-    readings = dict(leaves, rel_l2_all=agg,
-                    rel_l2_all_null=[min(agg_null), max(agg_null)],
-                    leaves_roundoff=len(skip))
-    return leaves["ok"] and agg <= max(agg_null), readings
-
-
 @pytest.fixture(scope="module")
 def jax_grads(small):
     """JAX's loss and gradients on one batch, and the gradients of the
@@ -323,7 +283,7 @@ def jax_grads(small):
     fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
     to_np = functools.partial(jax.tree_util.tree_map, np.asarray)
     (loss, _), grads = fn(v["params"])
-    nulls = [to_np(fn(_perturbed(v["params"], 31 + i))[1])
+    nulls = [to_np(fn(perturbed(v["params"], 31 + i))[1])
              for i in range(NULL_RUNS)]
     return batch, float(loss), to_np(grads), nulls
 
@@ -353,10 +313,10 @@ def test_step_gradients_match_jax(small, jax_grads, record_property):
     assert windowed_sample_launches() == before  # CPU: the plain versions
     named = {k: g.numpy() for k, g in _named_grads(model, grads).items()}
     want_sd = state_dict_from_jax({"params": want})
-    norm = float(np.linalg.norm(_flat(want_sd, named)))
+    norm = float(np.linalg.norm(flat(want_sd, named)))
     roundoff = {k for k in named
                 if np.linalg.norm(want_sd[k].numpy()) < ROUNDOFF_REL * norm}
-    ok, readings = _null_gate(named, want, null_grads, 1e-4, roundoff)
+    ok, readings = null_gate(named, want, null_grads, 1e-4, roundoff)
     record_property("loss_rel_dev", abs(float(loss) - want_loss) / want_loss)
     for key, value in readings.items():
         record_property(key, value)
@@ -387,7 +347,7 @@ def test_two_steps_match_jax_step(small, record_property):
             metrics.append(m)
         return state, metrics
     jstate, jms = jax_run(v["params"])
-    null_params = [jax_run(_perturbed(v["params"], 32 + i))[0].params
+    null_params = [jax_run(perturbed(v["params"], 32 + i))[0].params
                    for i in range(NULL_RUNS)]
     model = _port_model(jcfg, v)
     opt = toptim.fetch_optimizer(tconfig.TrainConfig(num_steps=NUM_STEPS),
@@ -407,7 +367,7 @@ def test_two_steps_match_jax_step(small, record_property):
             == 0.0
     assert state.step == int(jstate.step) == 2 and opt.count == 2
     params = {k: p.detach().numpy() for k, p in model.named_parameters()}
-    ok, readings = _null_gate(params, jstate.params, null_params, 1e-5)
+    ok, readings = null_gate(params, jstate.params, null_params, 1e-5)
     record_property("max_rel_dev_metrics", max(metric_devs))
     for key, value in readings.items():
         record_property(key, value)

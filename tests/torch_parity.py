@@ -97,3 +97,45 @@ def rel_l2(got, want) -> float:
     num = float(np.linalg.norm(got - want))
     den = float(np.linalg.norm(want))
     return num / den if den > 0 else num
+
+
+def perturbed(params, seed, rel=1e-6):
+    """``params`` with every weight scaled by ``1 + rel * N(0, 1)``: a
+    JAX-vs-JAX null run."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda a: (a * (1.0 + rel * rng.standard_normal(a.shape))).astype(
+            np.float32), params)
+
+
+def flat(sd: dict, names) -> np.ndarray:
+    return np.concatenate([np.asarray(sd[k], np.float64).ravel()
+                           for k in names])
+
+
+def null_gate(got: dict, want_tree, null_trees, floor: float,
+              skip=frozenset()):
+    """The null-floor rule over several null runs. ``got`` maps port names
+    to arrays; ``want_tree`` and each of ``null_trees`` are JAX params-
+    shaped trees. Returns ``(ok, readings)``: the leaves not in ``skip``
+    under ``chip_smoke.null_floor_gate`` with ``floor``, and all leaves
+    together within the largest null run's aggregate deviation."""
+    from chip_smoke import null_floor_gate
+    from raft_stereo_tpu_torch.utils.weights import state_dict_from_jax
+    names = list(got)
+    want = {k: v.numpy() for k, v in state_dict_from_jax(
+        {"params": want_tree}).items() if k in got}
+    nulls = [{k: v.numpy() for k, v in state_dict_from_jax(
+        {"params": t}).items() if k in got} for t in null_trees]
+
+    def devs(tree):
+        return {k: rel_l2(tree[k], want[k]) for k in names}
+    leaves = null_floor_gate(devs(got), [devs(n) for n in nulls], floor,
+                             [k for k in names if k not in skip])
+    flat_want = flat(want, names)
+    agg = rel_l2(flat(got, names), flat_want)
+    agg_null = [rel_l2(flat(n, names), flat_want) for n in nulls]
+    readings = dict(leaves, rel_l2_all=agg,
+                    rel_l2_all_null=[min(agg_null), max(agg_null)],
+                    leaves_roundoff=len(skip))
+    return leaves["ok"] and agg <= max(agg_null), readings
