@@ -8,8 +8,9 @@ Phases, each reported as one JSON line, in the order they run:
 1. device  — the card's name and power limit (nvidia-smi); TF32 is turned
    off for convolutions and matmuls, so fp32 means fp32 everywhere below.
 2. build   — builds every CUDA kernel of the paths (windowed_sample,
-   fused_corr) from the sources in raft_stereo_tpu_torch/csrc with nvcc
-   (sm_90a), one nvcc each, started together; timed as set-up.
+   fused_corr, alt_corr, fused_lookup) from the sources in
+   raft_stereo_tpu_torch/csrc with nvcc (sm_90a), one nvcc each, all
+   started together; timed as set-up.
 3. parity  — the windowed_sample forward kernel against its plain PyTorch
    version on the card, at every pyramid-level shape of both inference
    configurations, with edge centers (integers, borders, +-1e9, NaN).
@@ -28,48 +29,72 @@ Phases, each reported as one JSON line, in the order they run:
 6. fused_memory — the memory contract: the 4-level fused lookup at the
    hires shape allocates its outputs plus less than 1/8 of one level-0
    volume, a level-0 backward df1 + df2 plus that margin.
-7. default — the default architecture with corr_implementation="reg_cuda"
-   at full width (seeded random weights), through StereoPredictor on a
-   375x1242 pair (padded to 384x1248), 32 iterations: finite output of the
-   right shape, exactly 4 levels x 32 kernel launches, median ms/frame.
-8. realtime — realtime_config() (bf16), 7 iterations, 28 launches.
-9. hires — the default architecture with alt_cuda (the fused_corr
+7. alt_parity, alt_memory — the same two checks for the alt_corr kernels
+   (the on-chip slab), held to their plain versions and to fused_corr's
+   kernels on the same inputs (one function).
+8. fused_lookup_parity — the fused_lookup kernels (lookup + convc1 + ReLU)
+   against their plain versions at the default, realtime and train
+   pyramids with the edge centers: output and dvol 1e-5 abs (one bf16 ulp
+   in bf16), dk/db 1e-5 of their largest magnitude, every output bitwise
+   equal run to run.
+9. default, realtime, alt_pallas, default_fused_lookup,
+   realtime_fused_lookup — the default architecture with
+   corr_implementation="reg_cuda" at full width (seeded random weights),
+   through StereoPredictor on a 375x1242 pair (padded to 384x1248), 32
+   iterations; realtime_config() (bf16), 7 iterations; the default
+   architecture with alt_pallas (fp32); and both with fused_lookup=True:
+   finite output of the right shape, exactly 4 launches an iteration of
+   the path's lookup kernel (1 of fused_lookup) and none of the others,
+   median ms/frame, peak memory.
+10. hires — the default architecture with alt_cuda (the fused_corr
    kernels, fp32) on a 1988x2880 pair (padded to 2016x2880), 32
    iterations: exactly 128 fused_corr launches and no windowed_sample
    launch, finite output, median ms/frame over HIRES_RUNS warm frames;
    peak memory at 2 iterations below reg_cuda's on the same pair.
-10. cpu_parity — the default architecture on the same weights at 64x160,
-   fp32, 4 iterations, on the card (kernel) and on the CPU (plain
-   version), with reg_cuda and with alt_cuda. Bound: 1e-3 px on flow_up.
-11. train — the SceneFlow recipe (sceneflow_config(): bf16 compute, bf16
+11. cpu_parity — the default architecture on the same weights, fp32, 4
+   iterations, on the card (kernel) and on the CPU (plain version), with
+   reg_cuda, alt_cuda and alt_pallas at 64x160 and with reg_cuda +
+   fused_lookup at 64x352 (the narrowest pair whose pyramid the fused
+   kernel takes). Bound: 1e-3 px on flow_up.
+12. train — the SceneFlow recipe (sceneflow_config(): bf16 compute, bf16
    volume) with reg_cuda, batch 8 at 320x720, 22 iterations, through
    make_train_step on a seeded synthetic batch: a warm-up step, then timed
    steps, each with exactly 4 x 22 forward launches, as many recomputed
    under remat_refinement and 4 x 22 backward launches; finite loss and
    gradient norm, no skipped update, parameters that moved; median
    ms/step and peak memory.
-12. train_nan — a batch with a NaN pixel: the update is skipped, the
+13. train_nan — a batch with a NaN pixel: the update is skipped, the
    parameters stay bitwise unchanged and the step still counts.
-13. train_fused — the same recipe with alt_cuda (bf16 features): the same
-   checks, with fused_corr's launches (176, 88) and none of
-   windowed_sample's.
-14. train_cpu_parity — one fp32 step of the default architecture at 64x160,
-   2 iterations, on the card (kernels) and on the CPU (plain versions):
+14. train_fused, train_alt, train_fused_lookup — the same recipe with
+   alt_cuda (bf16 features), with alt_pallas, and with reg_cuda +
+   fused_lookup: the same checks, with the path's kernel launches
+   ((176, 88), (176, 88), (44, 22)) and none of the other kernels'.
+15. train_cpu_parity — one fp32 step of the default architecture, 2
+   iterations, on the card (kernels) and on the CPU (plain versions):
    reg_cuda with the card's convolutions in cuDNN (as the main path runs
-   them) and outside it, alt_cuda in cuDNN; the loss within 1e-5
+   them) and outside it, alt_cuda and alt_pallas in cuDNN at 64x160,
+   reg_cuda + fused_lookup in cuDNN at 64x352; the loss within 1e-5
    relative, and the gradients within the null floor of NULL_RUNS CPU
    null runs (see check_grad_parity).
-15. timings, bwd_timings — per pyramid level: each windowed_sample
-   kernel's time per launch, its bound (bytes over 3.35 TB/s, or flops
-   over the fp32 peak, whichever is larger), the plain version's time and
-   one PyTorch call computing the same function: F.grid_sample for the
-   forward, its backward (torch.autograd.grad on a prebuilt graph) for the
-   backward (the reference's formulation; a yardstick only).
-16. fused_timings — per level, fused_corr's forward at the hires levels
-   (fp32) and its backward at the train_fused levels (bf16): time per
-   launch, bound, plain time, and the reference's several-call 'alt'
-   formulation as a yardstick (no single PyTorch call computes the
-   function, so its kernels-line entries have library_ms null).
+16. timings, bwd_timings — per pyramid level: each windowed_sample
+   kernel's time per launch, its bound (bound_ms: bytes over 3.35 TB/s,
+   or operations over the peak of their type, whichever is larger), the
+   plain version's time and one PyTorch call computing the same function:
+   F.grid_sample for the forward, its backward (torch.autograd.grad on a
+   prebuilt graph) for the backward (the reference's formulation; a
+   yardstick only).
+17. fused_timings, alt_timings — per level, fused_corr's and alt_corr's
+   forwards at the hires levels (fp32; alt_corr also at the alt_pallas
+   frame's) and backwards at the train levels (bf16): time per launch,
+   bound (B2's function for both), plain time, and the reference's
+   several-call 'alt' formulation as a yardstick (no single PyTorch call
+   computes the function, so their kernels-line entries have library_ms
+   null); alt_corr's rows add the slab's flops and their time at the fp32
+   peak, outside the bound.
+18. fused_lookup_timings — fused_lookup's forward at the default and
+   realtime pyramids and its backward at the train pyramid: time per
+   launch, bound, plain time and the unfused formulation (F.grid_sample
+   x4, cat, a 1x1 conv, ReLU) as a yardstick.
 
 Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
 check raises, and the script exits non-zero without that last line. It
@@ -88,6 +113,7 @@ import time
 SEED = 1234
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published peak
 FP32_FLOPS_PER_S = 67e12    # H100 SXM, non-tensor-core fp32 peak
+BF16_FLOPS_PER_S = 989e12   # H100 SXM, dense bf16 tensor-core peak
 KERNEL_TOL = 1e-5
 CPU_PARITY_TOL_PX = 1e-3
 RADIUS = 4
@@ -105,6 +131,14 @@ HIRES_RUNS = 3               # timed warm frames
 FUSED_SHAPES = {"hires": [(1, 504, 720, 720 >> i, 256) for i in range(4)],
                 "train_fused": [(8, 80, 180, 180 >> i, 256)
                                 for i in range(4)]}
+# alt_corr's own inference path: the default architecture at 384x1248 (fp32)
+ALT_DEFAULT_SHAPES = [(1, 96, 312, 312 >> i, 256) for i in range(4)]
+# fused_lookup's configurations: (volume dtype, compute dtype, (B, H, W1,
+# level-0 W2)) of the default and realtime frames and the SceneFlow batch
+LOOKUP_C1 = {"default": ("float32", "float32", (1, 96, 312, 312)),
+             "realtime": ("bfloat16", "bfloat16", (1, 48, 156, 156)),
+             "train": ("bfloat16", "bfloat16", (8, 80, 180, 180))}
+SLAB_TILE = 64               # alt_corr's slab tile edge (csrc/alt_corr.cu)
 
 
 def emit(phase, **fields):
@@ -178,13 +212,29 @@ def fused_inputs(shape, dtype, seed, device, edges=True):
     return f1, f2, window_centers(b, h, w1, w2, g, device, edges)
 
 
+def bound_ms(nbytes, flops, product_flops, product_dtype):
+    """The least time (ms) the card needs for a function, and what sets
+    it: its bytes over the memory rate, or its operations over the peaks
+    of their types, whichever is longer. ``product_flops`` are the
+    multiply-adds of a product whose operands are in ``product_dtype``
+    (bf16: the tensor cores' rate); ``flops`` the rest, at the fp32 rate."""
+    import torch
+    peak = (BF16_FLOPS_PER_S if product_dtype == torch.bfloat16
+            else FP32_FLOPS_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (flops / FP32_FLOPS_PER_S + product_flops / peak) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def fused_bytes_flops(f1, f2, center, backward=False):
-    """Least bytes and flops of one fused_corr launch on these inputs.
-    Forward: fmap1 and the fmap2 rows some in-range tap touches read once,
-    the center read and the fp32 output written; 2*D flops per in-range
-    tap and 3 per output. Backward: the same reads plus the fp32
-    cotangent, df1 and df2 written whole; 4*D flops per in-range tap (df1
-    and df2) and 4 per tap for dg."""
+    """Least bytes, flops and product flops of one fused_corr launch on
+    these inputs. Forward: fmap1 and the fmap2 rows some in-range tap
+    touches read once, the center read and the fp32 output written; 2*D
+    product flops (on the features) per in-range tap and 3 flops per
+    output. Backward: the same reads plus the fp32 cotangent, df1 and df2
+    written whole; 4*D product flops per in-range tap (df1 and df2, read
+    from the features; counted at the features' peak, as a bound may only
+    err low) and 4 flops per tap for dg."""
     import torch
     b, h, w1, d = f1.shape
     w2 = f2.shape[2]
@@ -201,10 +251,9 @@ def fused_bytes_flops(f1, f2, center, backward=False):
     n_pix = center.numel()
     reads = f1.numel() * es + rows * d * es + n_pix * 4
     if not backward:
-        return reads + n_pix * k * 4, n_valid * 2 * d + n_pix * k * 3
+        return reads + n_pix * k * 4, n_pix * k * 3, n_valid * 2 * d
     writes = (f1.numel() + f2.numel()) * es
-    return (reads + n_pix * k * 4 + writes,
-            n_valid * 4 * d + n_valid * 4)
+    return reads + n_pix * k * 4 + writes, n_valid * 4, n_valid * 4 * d
 
 
 def alt_yardstick(f1, f2, center, ct=None):
@@ -449,73 +498,90 @@ def bitwise(a, b):
     return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
 
 
-def run_fused_parity(dev, fc):
-    """fused_corr's kernels against their plain versions at every level
-    shape of the hires and train_fused paths (and at W2 <= 2r+2), with the
-    edge centers: the forward and df1/df2 within KERNEL_TOL (bf16 features:
-    one bf16 ulp of the gradient where that is larger), NaN patterns equal,
-    far-out centers zero, and two runs of each kernel bitwise equal."""
+def run_feature_parity(dev, phase, kernel, fns, seed, against=None):
+    """A feature-pyramid lookup's kernels (fused_corr or alt_corr: ``fns``
+    = the forward's autograd Function, the backward launcher, plain
+    forward, plain backward; ``kernel`` holds the launch counts) against
+    their plain versions at every level shape of the hires and
+    train_fused paths (and at W2 <= 2r+2), with the edge
+    centers: the forward and df1/df2 within KERNEL_TOL (bf16 features: one
+    bf16 ulp of the reference where that is larger), NaN patterns equal,
+    far-out centers zero, and two runs of each kernel bitwise equal. With
+    ``against`` (another kernel's forward and backward computing the same
+    function), the same bounds against its results too."""
     import torch
+    fwd, bwd, plain, plain_bwd = fns
     shapes = [("hires", torch.float32, s) for s in FUSED_SHAPES["hires"]]
     shapes += [("train_fused", torch.bfloat16, s)
                for s in FUSED_SHAPES["train_fused"]]
     shapes += [("narrow", torch.float32, (1, 4, 15, w, 256))
                for w in (7, 3, 1)]
-    errs = {"fwd": 0.0, "bwd": 0.0}
-    n_fwd = n_bwd = 0
-    before = (fc.fused_corr.launches, fc.fused_corr.bwd_launches)
+    errs = dict(fwd=0.0, bwd=0.0, fwd_vs_other=0.0, bwd_vs_other=0.0)
+    n_calls = 0
+    before = (kernel.launches, kernel.bwd_launches)
     for i, (cfg_name, dtype, shape) in enumerate(shapes):
-        f1, f2, center = fused_inputs(shape, dtype, SEED + 60 + i, dev)
-        out = fc.fused_corr(f1, f2, center, RADIUS)
-        again = fc.fused_corr(f1, f2, center, RADIUS)
-        want = fc.fused_corr_plain(f1, f2, center, RADIUS)
-        g = torch.Generator(device=dev).manual_seed(SEED + 70 + i)
+        f1, f2, center = fused_inputs(shape, dtype, seed + i, dev)
+        g = torch.Generator(device=dev).manual_seed(seed + 10 + i)
         ct = torch.randn(tuple(center.shape) + (2 * RADIUS + 1,),
                          generator=g, device=dev)
-        df1, df2 = fc.fused_corr_backward(f1, f2, center, ct, RADIUS)
-        df1b, df2b = fc.fused_corr_backward(f1, f2, center, ct, RADIUS)
-        n_fwd += 2
-        n_bwd += 2
-        w1, w2 = fc.fused_corr_backward_plain(f1, f2, center, ct, RADIUS)
+        out = fwd(f1, f2, center, RADIUS)
+        again = fwd(f1, f2, center, RADIUS)
+        df1, df2 = bwd(f1, f2, center, ct, RADIUS)
+        df1b, df2b = bwd(f1, f2, center, ct, RADIUS)
+        n_calls += 2
+        refs = [("", plain(f1, f2, center, RADIUS),
+                 plain_bwd(f1, f2, center, ct, RADIUS))]
+        if against:
+            refs.append(("_vs_other", against[0](f1, f2, center, RADIUS),
+                         against[1](f1, f2, center, ct, RADIUS)))
         torch.cuda.synchronize()
-        err_f, ok_f = within_bound(out, want, torch.float32)
-        err_1, ok_1 = within_bound(df1, w1, dtype)
-        err_2, ok_2 = within_bound(df2, w2, dtype)
+        row = {}
+        for tag, want, (w1, w2) in refs:
+            err_f, ok_f = within_bound(out, want, torch.float32)
+            err_1, ok_1 = within_bound(df1, w1, dtype)
+            err_2, ok_2 = within_bound(df2, w2, dtype)
+            row.update({f"max_abs_err_fwd{tag}": err_f,
+                        f"max_abs_err_df1{tag}": err_1,
+                        f"max_abs_err_df2{tag}": err_2})
+            check(ok_f, f"{phase}: forward differs{tag} at {cfg_name} "
+                        f"{shape}")
+            check(ok_1 and ok_2, f"{phase}: backward differs{tag} at "
+                                 f"{cfg_name} {shape}")
+            errs[f"fwd{tag}"] = max(errs[f"fwd{tag}"], err_f)
+            errs[f"bwd{tag}"] = max(errs[f"bwd{tag}"], err_1,
+                                          err_2)
         det = dict(fwd=bitwise(out, again), df1=bitwise(df1, df1b),
                    df2=bitwise(df2, df2b))
-        emit("fused_parity", config=cfg_name, shape=list(shape),
-             dtype=str(dtype).replace("torch.", ""), max_abs_err_fwd=err_f,
-             max_abs_err_df1=err_1, max_abs_err_df2=err_2,
+        emit(phase, config=cfg_name, shape=list(shape),
+             dtype=str(dtype).replace("torch.", ""), **row,
              deterministic=det)
-        check(ok_f and bool(torch.isnan(out).any()),
-              f"fused forward differs at {cfg_name} {shape}")
-        check(ok_1 and ok_2, f"fused backward differs at {cfg_name} {shape}")
-        check(all(det.values()), f"fused kernels not deterministic at "
+        check(bool(torch.isnan(out).any()), "the NaN center gave no NaN")
+        check(all(det.values()), f"{phase}: kernels not deterministic at "
                                  f"{cfg_name} {shape}: {det}")
         check(bool((out.view(-1, 2 * RADIUS + 1)[6:8] == 0).all())
               and bool((df1.view(-1, shape[-1])[6:8] == 0).all()),
               "far-out centers are not zero")
-        errs["fwd"] = max(errs["fwd"], err_f)
-        errs["bwd"] = max(errs["bwd"], err_1, err_2)
-        del f1, f2, out, again, want, df1, df2, df1b, df2b, w1, w2
-    check((fc.fused_corr.launches - before[0],
-           fc.fused_corr.bwd_launches - before[1]) == (n_fwd, n_bwd),
-          "the parity calls did not launch the fused kernels")
+        del f1, f2, out, again, df1, df2, df1b, df2b, refs
+    check((kernel.launches - before[0],
+           kernel.bwd_launches - before[1]) == (n_calls, n_calls),
+          f"{phase}: the parity calls did not launch the kernels")
     return errs
 
 
-def run_fused_memory(dev, fc):
-    """The memory contract: the 4-level fused lookup at the hires shape
-    allocates no more than its outputs (the levels' and their
-    concatenation) plus an eighth of one level-0 volume, and a backward at
-    level 0 no more than df1 + df2 plus that margin."""
+def run_feature_memory(dev, phase, impl, backward):
+    """The memory contract of a feature-pyramid implementation (``fused``
+    or ``alt_pallas``): the 4-level lookup at the hires shape allocates no
+    more than its outputs (the levels' and their concatenation) plus an
+    eighth of one level-0 volume, and a backward (``backward``, the
+    kernel's launcher) at level 0 no more than df1 + df2 plus that margin,
+    at the hires and the train shapes."""
     import torch
     from raft_stereo_tpu_torch.ops.corr import corr_lookup, init_corr
     b, h, w1, w2, d = FUSED_SHAPES["hires"][0]
     margin = b * h * w1 * w2 * 4 // 8
     f1, f2, center = fused_inputs((b, h, w1, w2, d), torch.float32,
                                   SEED + 80, dev, edges=False)
-    state = init_corr("fused", f1, f2, num_levels=4, radius=RADIUS)
+    state = init_corr(impl, f1, f2, num_levels=4, radius=RADIUS)
     coords = torch.stack([center, torch.zeros_like(center)], dim=-1)
     rows = {}
 
@@ -528,7 +594,7 @@ def run_fused_memory(dev, fc):
         extra = torch.cuda.max_memory_allocated(dev) - base
         rows[name] = dict(extra_bytes=extra, own_output_bytes=own,
                           limit_bytes=own + margin)
-        check(extra <= own + margin, f"fused_memory {name}: {extra} bytes "
+        check(extra <= own + margin, f"{phase} {name}: {extra} bytes "
                                      f"above the {own + margin} allowed")
         return out
     with torch.no_grad():
@@ -536,18 +602,252 @@ def run_fused_memory(dev, fc):
                       2 * b * h * w1 * 4 * (2 * RADIUS + 1) * 4)
     del out
     ct = torch.randn(tuple(center.shape) + (2 * RADIUS + 1,), device=dev)
-    grads = measure("backward_level0", lambda: fc.fused_corr_backward(
+    grads = measure("backward_level0", lambda: backward(
         f1, f2, center, ct, RADIUS), (f1.numel() + f2.numel()) * 4)
     del grads
     tb = FUSED_SHAPES["train_fused"][0]
     f1, f2, center = fused_inputs(tb, torch.bfloat16, SEED + 81, dev,
                                   edges=False)
     ct = torch.randn(tuple(center.shape) + (2 * RADIUS + 1,), device=dev)
-    grads = measure("backward_train_level0", lambda: fc.fused_corr_backward(
+    grads = measure("backward_train_level0", lambda: backward(
         f1, f2, center, ct, RADIUS), (f1.numel() + f2.numel()) * 2)
-    emit("fused_memory", margin_bytes=margin,
+    emit(phase, impl=impl, margin_bytes=margin,
          level0_volume_bytes=8 * margin, **rows)
     return rows
+
+
+def alt_slab_flops(center, w2, d):
+    """The flops of the slab tiles alt_corr's forward computes on these
+    centers: per (row, tile of SLAB_TILE pixels), every SLAB_TILE-wide
+    chunk of the span its in-range taps cover that some window touches,
+    2*D flops per (pixel, column) of the full tile (the kernel's own
+    walk, csrc/alt_corr.cu)."""
+    import torch
+    b, h, w1 = center.shape
+    k = 2 * RADIUS + 1
+    c = torch.nan_to_num(center, nan=0.0).clamp(-1e8, 1e8)
+    base = torch.floor(c).long() - RADIUS
+    lo, hi = base.clamp(min=0), (base + k + 1).clamp(max=w2)
+    valid = lo < hi
+    pad = (-w1) % SLAB_TILE
+    big = 1 << 40
+    lo = torch.nn.functional.pad(torch.where(valid, lo, big), (0, pad),
+                                 value=big).view(b, h, -1, SLAB_TILE)
+    hi = torch.nn.functional.pad(torch.where(valid, hi, -big), (0, pad),
+                                 value=-big).view(b, h, -1, SLAB_TILE)
+    span_lo, span_hi = lo.min(-1).values, hi.max(-1).values
+    chunks = 0
+    for j in range(-(-w2 // SLAB_TILE) + 1):
+        c0 = (span_lo + j * SLAB_TILE)[..., None]
+        hit = ((lo < c0 + SLAB_TILE) & (hi > c0)).any(-1)
+        chunks += int((hit & (c0[..., 0] < span_hi)).sum().item())
+    return chunks * SLAB_TILE * SLAB_TILE * 2 * d
+
+
+def feature_timing(flush, backward, cfg_name, dtype, shape, seed, dev,
+                   kernel_fn, plain_fn, extra=None):
+    """One level's row for a feature-lookup kernel (fused_corr or
+    alt_corr, one function): the kernel's and its plain version's time per
+    call (forward ``fn(f1, f2, center, R)``, or backward ``fn(f1, f2,
+    center, ct, R)``), the bound (fused_bytes_flops), and the reference's
+    several-call 'alt' formulation as a yardstick (alt_yardstick).
+    ``extra(f1, f2, center)`` adds columns."""
+    import torch
+    f1, f2, center = fused_inputs(shape, dtype, seed, dev, edges=False)
+    ct = None
+    if backward:
+        g = torch.Generator(device=dev).manual_seed(seed + 5)
+        ct = torch.randn(tuple(center.shape) + (2 * RADIUS + 1,),
+                         generator=g, device=dev)
+        args = (f1, f2, center, ct, RADIUS)
+    else:
+        args = (f1, f2, center, RADIUS)
+    nbytes, flops, product = fused_bytes_flops(f1, f2, center,
+                                               backward=backward)
+    bound, bound_by = bound_ms(nbytes, flops, product, dtype)
+    yard = alt_yardstick(f1, f2, center, ct)
+    got, want = yard(), plain_fn(*args)
+    if not backward:
+        got, want = (got,), (want,)
+    yard_err = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(got, want))
+    del got, want
+    row = dict(config=cfg_name, shape=list(shape),
+               dtype=str(dtype).replace("torch.", ""),
+               ms=cuda_ms(lambda: kernel_fn(*args), flush),
+               plain_ms=cuda_ms(lambda: plain_fn(*args), flush),
+               yardstick_ms=cuda_ms(yard, flush),
+               yardstick_max_abs_diff=yard_err,
+               bound_ms=bound, bound_by=bound_by,
+               bytes=nbytes, flops=flops + product,
+               **(extra(f1, f2, center) if extra else {}))
+    del yard, f1, f2, center, ct
+    return row
+
+
+def lookup_c1_inputs(shape, vdt, seed, device, edges=True):
+    """A 4-level volume pyramid ``(B, H, W1, W2 >> i)`` in ``vdt``, lookup
+    centers (window_centers: the edge centers at flat positions 0-10, NaN
+    at 9), and a convc1 kernel (36, 64) and bias (64,) in fp32."""
+    import torch
+    b, h, w1, w2 = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    levels = [torch.randn((b, h, w1, w2 >> i), generator=g,
+                          device=device).to(vdt) for i in range(4)]
+    coords = window_centers(b, h, w1, w2, g, device, edges)
+    kern = torch.randn((4 * (2 * RADIUS + 1), 64), generator=g,
+                       device=device) * 0.2
+    bias = torch.randn((64,), generator=g, device=device) * 0.1
+    return levels, coords, kern, bias
+
+
+def rel_dev(got, want):
+    """Max abs deviation over the reference's largest magnitude."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def run_fused_lookup_parity(dev, fl):
+    """fused_lookup's kernels against their plain versions at the default,
+    realtime and train shapes with the edge centers: the output and every
+    dvol within KERNEL_TOL (bf16: one bf16 ulp of the plain value where
+    that is larger), NaN patterns equal, far-out centers giving relu(bias)
+    and zero dvol rows; dk/db (on finite centers: one NaN center makes all
+    of dk NaN) within 1e-5 of their largest magnitude; two runs of each
+    kernel bitwise equal."""
+    import torch
+    errs = dict(fwd=0.0, dvol=0.0, dk_db_rel=0.0)
+    n_calls = 0
+    before = (fl.fused_lookup_c1.launches, fl.fused_lookup_c1.bwd_launches)
+    for i, (cfg_name, (vname, dname, shape)) in enumerate(LOOKUP_C1.items()):
+        vdt, dt = getattr(torch, vname), getattr(torch, dname)
+        levels, coords, kern, bias = lookup_c1_inputs(shape, vdt,
+                                                      SEED + 120 + i, dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 130 + i)
+        ct = torch.randn(shape[:3] + (64,), generator=g, device=dev).to(dt)
+        finite = coords.nan_to_num(0.0)
+        out = fl.fused_lookup_c1(levels, coords, kern, bias, RADIUS, dt)
+        again = fl.fused_lookup_c1(levels, coords, kern, bias, RADIUS, dt)
+        dv, _, _ = fl.fused_lookup_backward(levels, coords, kern, bias, ct,
+                                            RADIUS, dt)
+        dvb, _, _ = fl.fused_lookup_backward(levels, coords, kern, bias, ct,
+                                             RADIUS, dt)
+        _, dk, db = fl.fused_lookup_backward(levels, finite, kern, bias, ct,
+                                             RADIUS, dt)
+        _, dkb, dbb = fl.fused_lookup_backward(levels, finite, kern, bias,
+                                               ct, RADIUS, dt)
+        n_calls += 2
+        want = fl.fused_lookup_c1_plain(levels, coords, kern, bias, RADIUS,
+                                        dt)
+        w_dv, _, _ = fl.fused_lookup_c1_backward_plain(
+            levels, coords, kern, bias, ct, RADIUS, dt)
+        _, w_dk, w_db = fl.fused_lookup_c1_backward_plain(
+            levels, finite, kern, bias, ct, RADIUS, dt)
+        torch.cuda.synchronize()
+        err_f, ok_f = within_bound(out, want, dt)
+        dvol = [within_bound(a, b, vdt) for a, b in zip(dv, w_dv)]
+        rel = max(rel_dev(dk, w_dk), rel_dev(db, w_db))
+        det = dict(fwd=bitwise(out, again),
+                   dvol=all(bitwise(a, b) for a, b in zip(dv, dvb)),
+                   dk_db=torch.equal(dk, dkb) and torch.equal(db, dbb))
+        bitwise_plain = dict(fwd=bitwise(out, want),
+                             dvol=[bitwise(a, b) for a, b in zip(dv, w_dv)])
+        emit("fused_lookup_parity", config=cfg_name, shape=list(shape),
+             volume_dtype=vname, compute_dtype=dname, max_abs_err_fwd=err_f,
+             max_abs_err_dvol=[e for e, _ in dvol], rel_err_dk_db=rel,
+             bitwise_vs_plain=bitwise_plain, deterministic=det)
+        check(ok_f and bool(torch.isnan(out).any()),
+              f"fused_lookup forward differs at {cfg_name}")
+        check(all(ok for _, ok in dvol),
+              f"fused_lookup dvol differs at {cfg_name}")
+        check(rel <= KERNEL_TOL, f"fused_lookup dk/db differ by {rel} "
+                                 f"relative at {cfg_name}")
+        check(all(det.values()), f"fused_lookup kernels not deterministic "
+                                 f"at {cfg_name}: {det}")
+        check(bool((out.view(-1, 64)[6:8] == torch.relu(bias).to(dt)).all())
+              and all(bool((d.view(-1, d.shape[-1])[6:8] == 0).all())
+                      for d in dv), "far-out centers looked up taps")
+        errs["fwd"] = max(errs["fwd"], err_f)
+        errs["dvol"] = max([errs["dvol"]] + [e for e, _ in dvol])
+        errs["dk_db_rel"] = max(errs["dk_db_rel"], rel)
+        del levels, out, again, dv, dvb, want, w_dv
+    check((fl.fused_lookup_c1.launches - before[0],
+           fl.fused_lookup_c1.bwd_launches - before[1])
+          == (n_calls, 2 * n_calls),
+          "the parity calls did not launch the fused_lookup kernels")
+    return errs
+
+
+def lookup_c1_bytes_flops(levels, coords, dt, backward=False):
+    """Least bytes, flops and product flops of one fused_lookup launch on
+    these inputs; the products (corr x k, and in the backward dk and dcorr)
+    take operands in dt. Forward: the centers and each level's in-range
+    taps read once, the kernel and bias read, the 64-channel output
+    written in dt; per pixel 3 flops per blended value, 2 product flops per
+    term of the 36x64 product, 2 flops per channel for the bias and the
+    ReLU. Backward: the same reads plus the cotangent, every dvol written
+    whole and dk/db; the forward's flops plus the mask, db and the 3 flops
+    per window tap of dg, and the product flops of dk and dcorr."""
+    import torch
+    n_pix = coords.numel()
+    k = 2 * RADIUS + 1
+    c_ch = 4 * k
+    c = torch.nan_to_num(coords, nan=0.0).clamp(-1e8, 1e8)
+    taps = 0
+    for i, v in enumerate(levels):
+        base = torch.floor(c / (2 ** i)).long() - RADIUS
+        idx = base[..., None] + torch.arange(k + 1, device=c.device)
+        taps += int(((idx >= 0) & (idx < v.shape[-1])).sum().item())
+    es_v = levels[0].element_size()
+    es_dt = torch.empty((), dtype=dt).element_size()
+    reads = n_pix * 4 + taps * es_v + (c_ch * 64 + 64) * 4
+    flops = n_pix * (c_ch * 3 + 64 * 2)
+    product = n_pix * c_ch * 64 * 2
+    if not backward:
+        return reads + n_pix * 64 * es_dt, flops, product
+    writes = sum(v.numel() for v in levels) * es_v + (c_ch * 64 + 64) * 4
+    return (reads + n_pix * 64 * es_dt + writes,
+            flops + n_pix * (64 + 64 + 4 * (k + 1) * 3),
+            product + n_pix * (c_ch * 64 * 2 + 64 * c_ch * 2))
+
+
+def lookup_c1_yardstick(levels, coords, kern, bias, dt, ct=None):
+    """The unfused formulation as PyTorch calls: F.grid_sample of each
+    level at its 2r+1 tap positions (bilinear, zeros, align_corners), the
+    4 levels concatenated, a 1x1 F.conv2d in dt and a ReLU. Returns a call
+    computing it or, with a cotangent ``ct``, a call taking its gradients
+    in the levels, the kernel and the bias by torch.autograd.grad on a
+    prebuilt graph."""
+    import torch
+    import torch.nn.functional as F
+    dx = torch.arange(-RADIUS, RADIUS + 1, device=coords.device,
+                      dtype=torch.float32)
+    grids = []
+    for i, v in enumerate(levels):
+        x = (coords / (2 ** i)).reshape(-1, 1, 1, 1) + dx.view(1, 1, -1, 1)
+        xn = 2.0 * x / max(v.shape[-1] - 1, 1) - 1.0
+        grids.append(torch.cat([xn, torch.zeros_like(xn)], dim=-1).to(
+            v.dtype))
+    c_ch = kern.shape[0]
+
+    def fwd(lv, k, b):
+        corr = torch.cat([F.grid_sample(
+            v.reshape(-1, 1, 1, v.shape[-1]), grid, mode="bilinear",
+            padding_mode="zeros", align_corners=True).view(
+                *v.shape[:3], 2 * RADIUS + 1)
+            for v, grid in zip(lv, grids)], dim=-1).to(dt)
+        y = F.conv2d(corr.permute(0, 3, 1, 2),
+                     k.t().reshape(64, c_ch, 1, 1).to(dt), b.to(dt))
+        return torch.relu(y).permute(0, 2, 3, 1)
+
+    if ct is None:
+        return lambda: fwd(levels, kern, bias)
+    lv = [v.detach().requires_grad_() for v in levels]
+    k = kern.detach().requires_grad_()
+    b = bias.detach().requires_grad_()
+    out = fwd(lv, k, b)
+    return lambda: torch.autograd.grad(out, (*lv, k, b), ct.to(out.dtype),
+                                       retain_graph=True)
 
 
 def run_hires(dev, fc, windowed_sample, model_seed):
@@ -601,11 +901,13 @@ def run_hires(dev, fc, windowed_sample, model_seed):
     return result, state
 
 
-def run_train(dev, impl, kernel, other, model_seed, phase="train"):
-    """Timed training steps at the SceneFlow recipe's shape with ``impl``:
-    each step launches ``kernel``'s forward 4 x 22 times and as many again
-    recomputed, its backward 4 x 22 times, and ``other``'s kernels never.
-    For reg_cuda (phase "train"), then an injected NaN step."""
+def run_train(dev, impl, kernel, others, model_seed, phase="train",
+              per_iter=4, **overrides):
+    """Timed training steps at the SceneFlow recipe's shape with ``impl``
+    (and the config ``overrides``): each step launches ``kernel``'s forward
+    ``per_iter`` x 22 times and as many again recomputed, its backward
+    ``per_iter`` x 22 times, and the kernels of ``others`` never. For
+    reg_cuda (phase "train"), then an injected NaN step."""
     import torch
     from raft_stereo_tpu_torch.config import sceneflow_config
     from raft_stereo_tpu_torch.models import RAFTStereo
@@ -613,7 +915,7 @@ def run_train(dev, impl, kernel, other, model_seed, phase="train"):
     from raft_stereo_tpu_torch.training.state import (TrainState,
                                                       make_train_step)
     mcfg, tcfg = sceneflow_config()
-    mcfg = dataclasses.replace(mcfg, corr_implementation=impl)
+    mcfg = dataclasses.replace(mcfg, corr_implementation=impl, **overrides)
     b, (h, w), iters = tcfg.batch_size, tcfg.image_size, tcfg.train_iters
     model = RAFTStereo(mcfg)
     seeded_weights(model, model_seed)
@@ -626,11 +928,11 @@ def run_train(dev, impl, kernel, other, model_seed, phase="train"):
     torch.cuda.synchronize()
     start = [p.detach().clone() for p in model.parameters()]
     torch.cuda.reset_peak_memory_stats(dev)
-    want = (2 * mcfg.corr_levels * iters, mcfg.corr_levels * iters)
+    want = (2 * per_iter * iters, per_iter * iters)
     secs, losses, norms = [], [], []
     for _ in range(TRAIN_STEPS):
-        kernel.launches = kernel.bwd_launches = 0
-        other.launches = other.bwd_launches = 0
+        for k in (kernel, *others):
+            k.launches = k.bwd_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, batch)
@@ -639,7 +941,7 @@ def run_train(dev, impl, kernel, other, model_seed, phase="train"):
         got = (kernel.launches, kernel.bwd_launches)
         check(got == want, f"{phase}: (forward incl. recompute, backward) "
                            f"launches {got}, expected {want}")
-        check((other.launches, other.bwd_launches) == (0, 0),
+        check(all((k.launches, k.bwd_launches) == (0, 0) for k in others),
               f"{phase}: launched another implementation's kernels")
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
@@ -652,7 +954,9 @@ def run_train(dev, impl, kernel, other, model_seed, phase="train"):
     check(moved >= 0.9 * n_leaves, f"{phase}: only {moved} of {n_leaves} "
                                    "parameter leaves moved")
     ms = statistics.median(secs) * 1e3
-    result = dict(config=f"sceneflow_config() + {impl}", batch=b,
+    label = " + ".join([f"sceneflow_config() + {impl}"]
+                       + [f"{k}={v}" for k, v in overrides.items()])
+    result = dict(config=label, batch=b,
                   image_size=[h, w], iters=iters,
                   launches_fwd=want[0], launches_bwd=want[1],
                   ms_per_step_median=ms, ms_per_step_runs=[s * 1e3
@@ -689,23 +993,24 @@ def run_train(dev, impl, kernel, other, model_seed, phase="train"):
     return result
 
 
-def train_cpu_parity(dev, impl, kernel, state, modes):
-    """One fp32 training step of the default architecture with ``impl`` at
-    64x160, 2 iterations, on the card (``kernel``'s kernels, 16 forward and
-    8 backward launches) against the CPU (plain versions), in each cuDNN
-    mode of ``modes``, gated by check_grad_parity over NULL_RUNS CPU null
-    runs."""
+def train_cpu_parity(dev, impl, kernel, state, modes, size=(64, 160),
+                     launches=(16, 8), **overrides):
+    """One fp32 training step of the default architecture with ``impl``
+    (and the config ``overrides``) at ``size``, 2 iterations, on the card
+    (``kernel``'s kernels, ``launches`` forward and backward) against the
+    CPU (plain versions), in each cuDNN mode of ``modes``, gated by
+    check_grad_parity over NULL_RUNS CPU null runs."""
     import torch
     from raft_stereo_tpu_torch.config import RAFTStereoConfig
     from raft_stereo_tpu_torch.models import RAFTStereo
     from raft_stereo_tpu_torch.training.state import loss_and_grads
-    cfg = RAFTStereoConfig(corr_implementation=impl)
+    cfg = RAFTStereoConfig(corr_implementation=impl, **overrides)
     on_cpu = RAFTStereo(cfg)
     on_cpu.load_state_dict(state, strict=True)
     on_gpu = RAFTStereo(cfg)
     on_gpu.load_state_dict(state, strict=True)
     on_gpu.to(dev)
-    batch = train_batch(1, 64, 160, SEED + 4, "cpu", max_disp=16.0)
+    batch = train_batch(1, *size, SEED + 4, "cpu", max_disp=16.0)
     loss_c, _, grads_c = loss_and_grads(on_cpu, batch, 2)
     nulls = [loss_and_grads(perturbed_copy(on_cpu, NULL_PERTURBATION,
                                            SEED + i), batch, 2)[2]
@@ -718,9 +1023,9 @@ def train_cpu_parity(dev, impl, kernel, state, modes):
             kernel.launches = kernel.bwd_launches = 0
             loss_g, _, grads_g = loss_and_grads(on_gpu, batch, 2)
             torch.cuda.synchronize()
-            launches = (kernel.launches, kernel.bwd_launches)
-            check(launches == (16, 8), f"card step ({impl}) launches "
-                                       f"{launches} != (16, 8)")
+            got = (kernel.launches, kernel.bwd_launches)
+            check(got == tuple(launches), f"card step ({impl}) launches "
+                                          f"{got} != {tuple(launches)}")
             runs[label] = dict(
                 loss_rel_dev=abs(float(loss_g) - float(loss_c))
                 / abs(float(loss_c)),
@@ -744,10 +1049,15 @@ def main():
     from raft_stereo_tpu_torch.inference import StereoPredictor
     from raft_stereo_tpu_torch.models import RAFTStereo
     from raft_stereo_tpu_torch.ops.kernels import _build
+    from raft_stereo_tpu_torch.ops.kernels import alt_corr as ac
     from raft_stereo_tpu_torch.ops.kernels import fused_corr as fc
+    from raft_stereo_tpu_torch.ops.kernels import fused_lookup as fl
     from raft_stereo_tpu_torch.ops.kernels import windowed_sample as ws_mod
     windowed_sample = ws_mod.windowed_sample
     fused_corr = fc.fused_corr
+    alt_corr = ac.alt_corr
+    fused_lookup_c1 = fl.fused_lookup_c1
+    all_kernels = (windowed_sample, fused_corr, alt_corr, fused_lookup_c1)
     t_start = time.perf_counter()
 
     # 1. device
@@ -765,8 +1075,9 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    kernel_names = [ws_mod.KERNEL_NAME, fc.KERNEL_NAME]
-    _build.build_all(kernel_names)  # one nvcc each, started together
+    kernel_names = [ws_mod.KERNEL_NAME, fc.KERNEL_NAME, ac.KERNEL_NAME,
+                    fl.KERNEL_NAME]
+    _build.build_all(kernel_names)  # one nvcc a source, all together
     for name in kernel_names:
         _build.load_library(name)
     emit("build", kernels=kernel_names,
@@ -850,27 +1161,54 @@ def main():
           "the parity calls did not launch the backward kernel")
 
     # fused_corr: kernels against plain, and the memory contract
-    fused_err = run_fused_parity(dev, fc)
+    fused_err = run_feature_parity(
+        dev, "fused_parity", fused_corr,
+        (fused_corr, fc.fused_corr_backward, fc.fused_corr_plain,
+         fc.fused_corr_backward_plain), SEED + 60)
     check(fused_err["fwd"] <= KERNEL_TOL,
           f"fused forward error {fused_err['fwd']} > {KERNEL_TOL}")
-    run_fused_memory(dev, fc)
+    run_feature_memory(dev, "fused_memory", "fused", fc.fused_corr_backward)
 
-    # 5-6. main path, both configurations at full width
+    # alt_corr: kernels against plain and against fused_corr, the memory
+    # contract; fused_lookup: kernels against plain
+    alt_err = run_feature_parity(
+        dev, "alt_parity", alt_corr,
+        (alt_corr, ac.alt_corr_backward, ac.alt_corr_plain,
+         ac.alt_corr_backward_plain), SEED + 100,
+        against=(fused_corr, fc.fused_corr_backward))
+    run_feature_memory(dev, "alt_memory", "alt_pallas", ac.alt_corr_backward)
+    lookup_err = run_fused_lookup_parity(dev, fl)
+
+    # 5-6. main path at full width: both configurations through the
+    # volume lookup, the default architecture through alt_corr, and both
+    # through the fused lookup+convc1 kernel
     left, right = stereo_pair(375, 1242, SEED)
     main = {}
-    for name, cfg, iters in [
-            ("default", RAFTStereoConfig(corr_implementation="reg_cuda"), 32),
-            ("realtime", realtime_config(), 7)]:
+    for name, cfg, iters, kernel, per_iter in [
+            ("default", RAFTStereoConfig(corr_implementation="reg_cuda"), 32,
+             windowed_sample, 4),
+            ("realtime", realtime_config(), 7, windowed_sample, 4),
+            ("alt_pallas", RAFTStereoConfig(corr_implementation="alt_pallas"),
+             32, alt_corr, 4),
+            ("default_fused_lookup", RAFTStereoConfig(
+                corr_implementation="reg_cuda", fused_lookup=True), 32,
+             fused_lookup_c1, 1),
+            ("realtime_fused_lookup", dataclasses.replace(
+                realtime_config(), fused_lookup=True), 7, fused_lookup_c1,
+             1)]:
         state = seeded_weights(RAFTStereo(cfg), SEED)
         pred = StereoPredictor(cfg, state, valid_iters=iters, device=dev)
         pred(left, right)  # warm-up: cuDNN autotuning, allocator
         torch.cuda.reset_peak_memory_stats(dev)
-        windowed_sample.launches = fused_corr.launches = 0
+        for k in all_kernels:
+            k.launches = 0
         flow, _ = pred.predict_timed(left, right)
-        launches = windowed_sample.launches
-        want = cfg.corr_levels * iters
-        check(launches == want and fused_corr.launches == 0,
-              f"{name}: {launches} kernel launches, expected {want}")
+        launches = kernel.launches
+        want = per_iter * iters
+        others = [k.launches for k in all_kernels if k is not kernel]
+        check(launches == want and not any(others),
+              f"{name}: {launches} kernel launches, expected {want}; "
+              f"others {others}")
         check(flow.shape == (1, 375, 1242, 1), f"{name}: shape {flow.shape}")
         check(bool(np.isfinite(flow).all()), f"{name}: non-finite output")
         secs = [pred.predict_timed(left, right)[1] for _ in range(7)]
@@ -878,6 +1216,7 @@ def main():
                           ms_per_frame=statistics.median(secs) * 1e3,
                           ms_all=[s * 1e3 for s in secs])
         emit(name, padded=[384, 1248], iters=iters, launches=launches,
+             kernel=kernel.__name__,
              ms_per_frame_median=main[name]["ms_per_frame"],
              ms_per_frame_runs=main[name]["ms_all"],
              peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
@@ -889,45 +1228,68 @@ def main():
     # hires: alt_cuda at 2016x2880, peak memory beside reg_cuda's
     hires, _ = run_hires(dev, fc, windowed_sample, SEED)
 
-    # 7. device against CPU, same weights, through each kernel
-    small_l, small_r = stereo_pair(64, 160, SEED + 1, shift=6)
-    for impl, kernel in (("reg_cuda", windowed_sample),
-                         ("alt_cuda", fused_corr)):
-        cfg = RAFTStereoConfig(corr_implementation=impl)
+    # 7. device against CPU, same weights, through each kernel (the fused
+    # lookup at 64x352, the narrowest pair whose pyramid it takes)
+    for impl, kernel, (h, w), per_iter, extra in (
+            ("reg_cuda", windowed_sample, (64, 160), 4, {}),
+            ("alt_cuda", fused_corr, (64, 160), 4, {}),
+            ("alt_pallas", alt_corr, (64, 160), 4, {}),
+            ("reg_cuda", fused_lookup_c1, (64, 352), 1,
+             {"fused_lookup": True})):
+        small_l, small_r = stereo_pair(h, w, SEED + 1, shift=6)
+        cfg = RAFTStereoConfig(corr_implementation=impl, **extra)
         on_gpu = StereoPredictor(cfg, default_state, valid_iters=4,
                                  device=dev)
         on_cpu = StereoPredictor(cfg, default_state, valid_iters=4,
                                  device="cpu")
-        windowed_sample.launches = fused_corr.launches = 0
+        for k in all_kernels:
+            k.launches = 0
         f_gpu = on_gpu(small_l, small_r)
-        check(kernel.launches == 16, f"the card run of {impl} missed its "
-                                     "kernel")
+        check(kernel.launches == 4 * per_iter,
+              f"the card run of {impl} {extra} missed its kernel")
         f_cpu = on_cpu(small_l, small_r)
         dev_px = float(np.abs(f_gpu - f_cpu).max())
-        emit("cpu_parity", impl=impl, shape=[64, 160], iters=4,
-             max_abs_px=dev_px, bound_px=CPU_PARITY_TOL_PX,
+        emit("cpu_parity", impl=impl, kernel=kernel.__name__, shape=[h, w],
+             iters=4, max_abs_px=dev_px, bound_px=CPU_PARITY_TOL_PX,
              max_abs_flow=float(np.abs(f_cpu).max()))
         check(dev_px <= CPU_PARITY_TOL_PX,
               f"card vs CPU forward ({impl}) differ by {dev_px} px")
 
     # 8-9. training steps at the SceneFlow recipe's shape, a NaN step;
-    # then the same recipe with alt_cuda
-    train = run_train(dev, "reg_cuda", windowed_sample, fused_corr, SEED)
-    train_fused = run_train(dev, "alt_cuda", fused_corr, windowed_sample,
+    # then the same recipe with alt_cuda, with alt_pallas and with the
+    # fused lookup
+    def others(kernel):
+        return [k for k in all_kernels if k is not kernel]
+    train = run_train(dev, "reg_cuda", windowed_sample,
+                      others(windowed_sample), SEED)
+    train_fused = run_train(dev, "alt_cuda", fused_corr, others(fused_corr),
                             SEED, phase="train_fused")
+    train_alt = run_train(dev, "alt_pallas", alt_corr, others(alt_corr),
+                          SEED, phase="train_alt")
+    train_lookup = run_train(dev, "reg_cuda", fused_lookup_c1,
+                             others(fused_lookup_c1), SEED,
+                             phase="train_fused_lookup", per_iter=1,
+                             fused_lookup=True)
 
     # 10. one fp32 training step, card against CPU, same weights: reg_cuda
     # with the card's convolutions in cuDNN (the main path's) and outside
     # it, alt_cuda in cuDNN
-    for impl, kernel, modes in (
+    for impl, kernel, modes, size, launches, extra in (
             ("reg_cuda", windowed_sample, (("cudnn", True),
-                                           ("cudnn_off", False))),
-            ("alt_cuda", fused_corr, (("cudnn", True),))):
-        runs = train_cpu_parity(dev, impl, kernel, default_state, modes)
-        emit("train_cpu_parity", impl=impl, shape=[64, 160], iters=2,
-             launches=[16, 8], loss_bound=TRAIN_LOSS_TOL,
-             null_perturbation=NULL_PERTURBATION, null_runs=NULL_RUNS,
-             **runs)
+                                           ("cudnn_off", False)),
+             (64, 160), (16, 8), {}),
+            ("alt_cuda", fused_corr, (("cudnn", True),), (64, 160), (16, 8),
+             {}),
+            ("alt_pallas", alt_corr, (("cudnn", True),), (64, 160), (16, 8),
+             {}),
+            ("reg_cuda", fused_lookup_c1, (("cudnn", True),), (64, 352),
+             (4, 2), {"fused_lookup": True})):
+        runs = train_cpu_parity(dev, impl, kernel, default_state, modes,
+                                size, launches, **extra)
+        emit("train_cpu_parity", impl=impl, kernel=kernel.__name__,
+             shape=list(size), iters=2, launches=list(launches),
+             loss_bound=TRAIN_LOSS_TOL, null_perturbation=NULL_PERTURBATION,
+             null_runs=NULL_RUNS, **runs)
         for label, run in runs.items():
             check(run["loss_rel_dev"] <= TRAIN_LOSS_TOL,
                   f"card ({impl}, {label}) vs CPU loss differ by "
@@ -944,8 +1306,7 @@ def main():
             vol, center = lookup_inputs(shape, dtype, SEED + 10 + i, dev,
                                         edges=False)
             nbytes, flops = lookup_bytes_flops(vol, center)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_flops = flops / FP32_FLOPS_PER_S * 1e3
+            bound, bound_by = bound_ms(nbytes, flops, 0, torch.float32)
             lib_call = grid_sample_lookup(vol, center)
             lib_err = (lib_call().float().reshape(center.shape + (-1,))
                        - ws_mod.windowed_sample_plain(vol, center, RADIUS)
@@ -959,8 +1320,7 @@ def main():
                     vol, center, RADIUS), flush),
                 library_ms=cuda_ms(lib_call, flush),
                 library_max_abs_diff=lib_err,
-                bound_ms=max(t_bytes, t_flops),
-                bound_by="bytes" if t_bytes >= t_flops else "operations",
+                bound_ms=bound, bound_by=bound_by,
                 bytes=nbytes, flops=flops)
             per_level.append(row)
             emit("timings", **row)
@@ -974,8 +1334,7 @@ def main():
         ct = torch.randn(center.shape + (2 * RADIUS + 1,), generator=g,
                          device=dev)
         nbytes, flops = lookup_bwd_bytes_flops(vol, center)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_flops = flops / FP32_FLOPS_PER_S * 1e3
+        bound, bound_by = bound_ms(nbytes, flops, 0, torch.float32)
         lib_call = grid_sample_backward(vol, center, ct)
         want = ws_mod.windowed_sample_backward_plain(vol, center, ct, RADIUS)
         lib_err = (lib_call()[0].float().reshape(vol.shape)
@@ -989,56 +1348,92 @@ def main():
                 vol, center, ct, RADIUS), flush),
             library_ms=cuda_ms(lib_call, flush),
             library_max_abs_diff=lib_err,
-            bound_ms=max(t_bytes, t_flops),
-            bound_by="bytes" if t_bytes >= t_flops else "operations",
+            bound_ms=bound, bound_by=bound_by,
             bytes=nbytes, flops=flops)
         bwd_levels.append(row)
         emit("bwd_timings", **row)
 
-    # fused_corr per level: the forward at the hires levels (fp32), the
-    # backward at the train_fused levels (bf16). No single PyTorch call
-    # computes the function: the yardstick is the reference's several-call
-    # 'alt' formulation (alt_yardstick), reported as yardstick_ms.
+    # fused_corr and alt_corr per level: the forwards at the hires levels
+    # (fp32; alt_corr also at its own inference path's, the default frame
+    # with alt_pallas), the backwards at the train levels (bf16). No single
+    # PyTorch call computes their function: the yardstick is the
+    # reference's several-call 'alt' formulation (alt_yardstick), reported
+    # as yardstick_ms. alt_corr's rows add the slab's flops (alt_slab_flops)
+    # and their time at the fp32 peak, outside the bound.
+    def slab(f1, f2, center):
+        flops = alt_slab_flops(center, f2.shape[2], f1.shape[3])
+        return dict(slab_flops=flops,
+                    slab_fp32_ms=flops / FP32_FLOPS_PER_S * 1e3)
     fused_rows = {"fwd": [], "bwd": []}
-    for which, cfg_name, dtype in (("fwd", "hires", torch.float32),
-                                   ("bwd", "train_fused", torch.bfloat16)):
-        for i, shape in enumerate(FUSED_SHAPES[cfg_name]):
-            f1, f2, center = fused_inputs(shape, dtype, SEED + 90 + i, dev,
-                                          edges=False)
-            if which == "fwd":
-                ct = None
-                kernel = lambda: fc.fused_corr_forward(f1, f2, center, RADIUS)
-                plain = lambda: fc.fused_corr_plain(f1, f2, center, RADIUS)
-            else:
-                g = torch.Generator(device=dev).manual_seed(SEED + 95 + i)
-                ct = torch.randn(tuple(center.shape) + (2 * RADIUS + 1,),
-                                 generator=g, device=dev)
-                kernel = lambda: fc.fused_corr_backward(f1, f2, center, ct,
-                                                        RADIUS)
-                plain = lambda: fc.fused_corr_backward_plain(f1, f2, center,
-                                                             ct, RADIUS)
-            nbytes, flops = fused_bytes_flops(f1, f2, center,
-                                              backward=which == "bwd")
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_flops = flops / FP32_FLOPS_PER_S * 1e3
-            yard = alt_yardstick(f1, f2, center, ct)
-            got, want = yard(), plain()
-            if which == "fwd":
-                got, want = (got,), (want,)
-            yard_err = max((a.float() - b.float()).abs().max().item()
-                           for a, b in zip(got, want))
-            del got, want
-            row = dict(config=cfg_name, shape=list(shape),
-                       dtype=str(dtype).replace("torch.", ""),
-                       ms=cuda_ms(kernel, flush), plain_ms=cuda_ms(plain, flush),
-                       yardstick_ms=cuda_ms(yard, flush),
-                       yardstick_max_abs_diff=yard_err,
-                       bound_ms=max(t_bytes, t_flops),
-                       bound_by="bytes" if t_bytes >= t_flops
-                       else "operations", bytes=nbytes, flops=flops)
-            fused_rows[which].append(row)
-            emit("fused_timings", kernel=which, **row)
-            del yard, f1, f2, center, ct
+    alt_rows = {"fwd": [], "fwd_hires": [], "bwd": []}
+    for rows, which, backward, cfg_name, dtype, shapes, seed, fns, extra in (
+            (fused_rows, "fwd", False, "hires", torch.float32,
+             FUSED_SHAPES["hires"], SEED + 90,
+             (fc.fused_corr_forward, fc.fused_corr_plain), None),
+            (fused_rows, "bwd", True, "train_fused", torch.bfloat16,
+             FUSED_SHAPES["train_fused"], SEED + 95,
+             (fc.fused_corr_backward, fc.fused_corr_backward_plain), None),
+            (alt_rows, "fwd", False, "alt_pallas", torch.float32,
+             ALT_DEFAULT_SHAPES, SEED + 140,
+             (ac.alt_corr_forward, ac.alt_corr_plain), slab),
+            (alt_rows, "fwd_hires", False, "hires", torch.float32,
+             FUSED_SHAPES["hires"], SEED + 90,
+             (ac.alt_corr_forward, ac.alt_corr_plain), slab),
+            (alt_rows, "bwd", True, "train_alt", torch.bfloat16,
+             FUSED_SHAPES["train_fused"], SEED + 95,
+             (ac.alt_corr_backward, ac.alt_corr_backward_plain), None)):
+        for i, shape in enumerate(shapes):
+            row = feature_timing(flush, backward, cfg_name, dtype, shape,
+                                 seed + i, dev, *fns, extra=extra)
+            rows[which].append(row)
+            emit("fused_timings" if rows is fused_rows else "alt_timings",
+                 kernel=which, **row)
+
+    # fused_lookup: one launch looks up all 4 levels; forward at the
+    # default and realtime frames, backward at the train batch. The
+    # yardstick is the unfused formulation in PyTorch calls
+    # (lookup_c1_yardstick).
+    lookup_rows = {"fwd": [], "bwd": []}
+    for which, cfg_name in (("fwd", "default"), ("fwd", "realtime"),
+                            ("bwd", "train")):
+        vname, dname, shape = LOOKUP_C1[cfg_name]
+        dt = getattr(torch, dname)
+        levels, coords, kern, bias = lookup_c1_inputs(
+            shape, getattr(torch, vname), SEED + 150, dev, edges=False)
+        ct = None
+        args = (levels, coords, kern, bias)
+        if which == "fwd":
+            kernel = lambda: fl.fused_lookup_forward(*args, RADIUS, dt)
+            plain = lambda: fl.fused_lookup_c1_plain(*args, RADIUS, dt)
+        else:
+            g = torch.Generator(device=dev).manual_seed(SEED + 155)
+            ct = torch.randn(shape[:3] + (64,), generator=g,
+                             device=dev).to(dt)
+            kernel = lambda: fl.fused_lookup_backward(*args, ct, RADIUS, dt)
+            plain = lambda: fl.fused_lookup_c1_backward_plain(*args, ct,
+                                                              RADIUS, dt)
+        nbytes, flops, product = lookup_c1_bytes_flops(
+            levels, coords, dt, backward=which == "bwd")
+        bound, bound_by = bound_ms(nbytes, flops, product, dt)
+        yard = lookup_c1_yardstick(levels, coords, kern, bias, dt, ct)
+        got, want = yard(), plain()
+        if which == "fwd":
+            got, want = (got,), (want,)
+        else:
+            got, want = got, (*want[0], want[1], want[2])
+        yard_err = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(got, want))
+        del got, want
+        row = dict(config=cfg_name, shape=list(shape), volume_dtype=vname,
+                   compute_dtype=dname, ms=cuda_ms(kernel, flush),
+                   plain_ms=cuda_ms(plain, flush),
+                   yardstick_ms=cuda_ms(yard, flush),
+                   yardstick_max_abs_diff=yard_err,
+                   bound_ms=bound, bound_by=bound_by,
+                   bytes=nbytes, flops=flops + product)
+        lookup_rows[which].append(row)
+        emit("fused_lookup_timings", kernel=which, **row)
+        del yard, levels, coords, ct
 
     # kernels line: per-launch means over the levels each kernel runs at on
     # its main path (the default forward's four, the training step's four)
@@ -1090,7 +1485,54 @@ def main():
          "(1,504,720,{720,360,180,90},256) fp32, L2 flushed"),
         ("bwd", "_bwd", fc.REPLACES_BWD, train_fused["launches_bwd"], {},
          fused_rows["bwd"], "mean per launch over the train_fused step's 4 "
-         "levels (8,80,180,{180,90,45,22},256) bf16, L2 flushed"))]}),
+         "levels (8,80,180,{180,90,45,22},256) bf16, L2 flushed"))] + [{
+        "name": ac.KERNEL_NAME + suffix, "route": "cuda",
+        "source": ac.SOURCE, "replaces": replaces,
+        "launches": launches, **extra,
+        "max_abs_err": alt_err[which],
+        "max_abs_diff_fused_corr": alt_err[which + "_vs_other"],
+        "ms": mean(rows, "ms"), "plain_ms": mean(rows, "plain_ms"),
+        "bound_ms": mean(rows, "bound_ms"), "bound_by": rows[0]["bound_by"],
+        "library_ms": None, "yardstick_ms": mean(rows, "yardstick_ms"),
+        "yardstick": "several calls: the reference's alt formulation "
+                     "(F.grid_sample of fmap2 at the taps, product with "
+                     "fmap1, sum over D); no single PyTorch call computes "
+                     "the function",
+        "timed_at": timed_at,
+    } for which, suffix, replaces, launches, extra, rows, timed_at in (
+        ("fwd", "", ac.REPLACES, main["alt_pallas"]["launches"],
+         {"launches_train_step": train_alt["launches_fwd"],
+          "slab_fp32_ms": mean(alt_rows["fwd"], "slab_fp32_ms"),
+          "ms_hires": mean(alt_rows["fwd_hires"], "ms"),
+          "bound_ms_hires": mean(alt_rows["fwd_hires"], "bound_ms")},
+         alt_rows["fwd"], "mean per launch over the alt_pallas frame's 4 "
+         "levels (1,96,312,{312,156,78,39},256) fp32, L2 flushed"),
+        ("bwd", "_bwd", ac.REPLACES_BWD, train_alt["launches_bwd"], {},
+         alt_rows["bwd"], "mean per launch over the train_alt step's 4 "
+         "levels (8,80,180,{180,90,45,22},256) bf16, L2 flushed"))] + [{
+        "name": fl.KERNEL_NAME + suffix, "route": "cuda",
+        "source": fl.SOURCE, "replaces": replaces,
+        "launches": launches, **extra,
+        "max_abs_err": err,
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None, "yardstick_ms": row["yardstick_ms"],
+        "yardstick": "several calls: F.grid_sample x4, torch.cat, a 1x1 "
+                     "F.conv2d and relu (backward by torch.autograd.grad); "
+                     "no single PyTorch call computes the function",
+        "timed_at": timed_at,
+    } for suffix, replaces, launches, extra, err, row, timed_at in (
+        ("", fl.REPLACES, main["default_fused_lookup"]["launches"],
+         {"launches_realtime": main["realtime_fused_lookup"]["launches"],
+          "launches_train_step": train_lookup["launches_fwd"],
+          "ms_realtime": lookup_rows["fwd"][1]["ms"]},
+         lookup_err["fwd"], lookup_rows["fwd"][0], "per launch at the "
+         "default frame's pyramid (1,96,312,{312,156,78,39}) fp32, L2 "
+         "flushed"),
+        ("_bwd", fl.REPLACES_BWD, train_lookup["launches_bwd"],
+         {"max_rel_err_dk_db": lookup_err["dk_db_rel"]}, lookup_err["dvol"],
+         lookup_rows["bwd"][0], "per launch at the train batch's pyramid "
+         "(8,80,180,{180,90,45,22}) bf16, L2 flushed"))]}),
         flush=True)
     emit("total", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ The flag surface is the JAX package's (``raft_stereo_tpu/cli.py``
 only steer training memory or the JAX package's TPU kernels (such as
 ``--fused_block_w``) are accepted so that the same command lines parse;
 test-mode inference does not read them. ``--corr_implementation alt_cuda``
-runs the memoryless ``fused_corr`` kernels.
+runs the memoryless ``fused_corr`` kernels, ``alt_pallas`` the ``alt_corr``
+kernels, and ``--fused_lookup on`` the ``fused_lookup`` kernel.
 """
 
 from __future__ import annotations
@@ -26,12 +27,15 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
                             "reg_pallas", "alt_pallas", "ring", "fused",
                             "fused_cuda", "memoryless"], default="reg",
                    help="correlation implementation; the port runs 'reg' "
-                        "(plain PyTorch lookup), 'reg_cuda'/'reg_pallas' "
-                        "(the windowed_sample CUDA kernel) and "
+                        "(plain PyTorch lookup), 'alt' (plain PyTorch, the "
+                        "volume recomputed per lookup), "
+                        "'reg_cuda'/'reg_pallas' (the windowed_sample CUDA "
+                        "kernel), 'alt_pallas' (the alt_corr CUDA kernels: "
+                        "the correlation slab built on-chip) and "
                         "'alt_cuda'/'fused'/'fused_cuda'/'memoryless' (the "
                         "memoryless fused_corr CUDA kernels, for "
-                        "high-resolution pairs), and refuses 'alt', "
-                        "'alt_pallas' and 'ring', not ported yet")
+                        "high-resolution pairs), and refuses 'ring', not "
+                        "ported yet")
     g.add_argument("--shared_backbone", action="store_true",
                    help="use a single backbone for context and feature nets")
     g.add_argument("--corr_levels", type=int, default=4)
@@ -48,8 +52,9 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
                    help="bf16 compute dtype")
     g.add_argument("--corr_storage_dtype",
                    choices=["float32", "bfloat16"], default=None,
-                   help="correlation-volume storage precision; default fp32 "
-                        "for reg, the compute dtype for reg_cuda")
+                   help="correlation storage precision (the volume or the "
+                        "features); default fp32 for reg and alt, the "
+                        "compute dtype for the CUDA kernels' implementations")
     t = parser.add_argument_group(
         "training and TPU-kernel knobs",
         "accepted so JAX-package command lines parse; inference ignores "
@@ -61,8 +66,9 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
                         "and ignore it")
     t.add_argument("--fused_lookup", choices=["auto", "on", "off"],
                    default="auto",
-                   help="'on' is refused: the fused lookup+convc1 kernel is "
-                        "not ported yet (ROADMAP.md B4)")
+                   help="'on' runs the lookup and the motion encoder's "
+                        "convc1 as one fused_lookup CUDA kernel (reg and "
+                        "reg_cuda, where the pyramid fits); 'auto' is off")
     t.add_argument("--refinement_save_policy",
                    choices=["auto", "on", "off", "corr"], default="auto")
     t.add_argument("--batched_scan_wgrad", choices=["auto", "on", "off"],
@@ -73,9 +79,6 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
 
 
 def model_config(args: argparse.Namespace) -> RAFTStereoConfig:
-    if getattr(args, "fused_lookup", "auto") == "on":
-        raise ValueError("--fused_lookup on: the fused lookup+convc1 kernel "
-                         "is not ported yet (ROADMAP.md B4)")
     return RAFTStereoConfig(
         hidden_dims=tuple(args.hidden_dims),
         corr_implementation=args.corr_implementation,
@@ -88,6 +91,8 @@ def model_config(args: argparse.Namespace) -> RAFTStereoConfig:
         n_gru_layers=args.n_gru_layers,
         mixed_precision=args.mixed_precision,
         corr_storage_dtype=args.corr_storage_dtype,
+        fused_lookup={"auto": None, "on": True, "off": False}[
+            getattr(args, "fused_lookup", "auto")],
     )
 
 

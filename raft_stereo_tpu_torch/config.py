@@ -7,7 +7,7 @@ step read, plus ``sceneflow_config()``. Defaults, validation and the
 the same implementation in both packages. Corr implementations the port
 does not have yet are refused with a ``ValueError``: the port never
 substitutes another implementation. The JAX package's other knobs (remat
-modes, save policies, fused paths, parallelism) are not fields here at
+modes, save policies, fused loss, parallelism) are not fields here at
 all; ROADMAP.md queues them.
 """
 
@@ -23,13 +23,15 @@ CORR_IMPLEMENTATIONS = ("reg", "alt", "reg_pallas", "alt_pallas", "ring",
 # Reference spellings folded onto the implementation that delivers them.
 CORR_ALIASES = {"reg_cuda": "reg_pallas", "alt_cuda": "fused",
                 "fused_cuda": "fused", "memoryless": "fused"}
-# What the port runs today: "reg" is plain PyTorch, "reg_pallas" (spelled
-# "reg_cuda" on the reference's command line) is the hand-written
-# windowed_sample CUDA kernel, "fused" (spelled "alt_cuda") the
-# hand-written memoryless fused_corr CUDA kernels. The JAX package's
-# fused_block_w is a TPU tiling knob the CUDA kernels do not read, so it is
-# not a field here.
-PORTED_CORR_IMPLEMENTATIONS = ("reg", "reg_pallas", "fused")
+# What the port runs today: "reg" and "alt" are plain PyTorch, "reg_pallas"
+# (spelled "reg_cuda" on the reference's command line) is the hand-written
+# windowed_sample CUDA kernel, "alt_pallas" the hand-written alt_corr CUDA
+# kernels (the correlation slab built on-chip), "fused" (spelled
+# "alt_cuda") the hand-written memoryless fused_corr CUDA kernels. "ring"
+# (sequence-parallel) is not ported. The JAX package's fused_block_w is a
+# TPU tiling knob the CUDA kernels do not read, so it is not a field here.
+PORTED_CORR_IMPLEMENTATIONS = ("reg", "alt", "reg_pallas", "alt_pallas",
+                               "fused")
 
 NORM_FNS = ("group", "batch", "instance", "none")
 
@@ -57,6 +59,12 @@ class RAFTStereoConfig:
     # Training forward: recompute each refinement iteration in the backward
     # pass (torch.utils.checkpoint) instead of keeping its activations.
     remat_refinement: bool = True
+    # The 4-level lookup and the motion encoder's 1x1 convc1 + ReLU as one
+    # hand-written fused_lookup CUDA kernel, forward and backward. None
+    # (auto) is off, as in the JAX package; True engages it for "reg" and
+    # "reg_pallas" where the pyramid fits (4 levels, every level wider than
+    # 2r+2), and leaves the unfused path everywhere else.
+    fused_lookup: Optional[bool] = None
 
     def __post_init__(self):
         impl = CORR_ALIASES.get(self.corr_implementation,

@@ -54,52 +54,12 @@
 // the output and dg. Offsets are 64-bit: B*H*W*D passes 2^31 at
 // full-resolution widths.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "window.cuh"
 
 namespace {
 
-constexpr int kMaxRadius = 8;
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float load_as_float(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float load_as_float(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ float from_float(float v, float*) { return v; }
-
-__device__ __forceinline__ __nv_bfloat16 from_float(float v, __nv_bfloat16*) {
-  return __float2bfloat16_rn(v);
-}
-
-// floor(c) clamped to +-(w2 + r + 2) (a NaN center to 0), minus r; frac =
-// c - floor(c) taken before the clamp. The same as windowed_sample's.
-__device__ __forceinline__ int window_base(float c, int w2, int radius,
-                                           float* frac) {
-  float base_f = floorf(c);
-  *frac = c - base_f;
-  const float lim = (float)(w2 + radius + 2);
-  base_f = isnan(base_f) ? 0.0f : fminf(fmaxf(base_f, -lim), lim);
-  return (int)base_f - radius;
-}
-
-// dg_j = s * ((1 - f) * ct_j + f * ct_{j-1}) for j in [0, K], each operation
-// rounded (no FMA contraction), as the plain PyTorch version computes it.
-template <int K>
-__device__ __forceinline__ void tap_grads(const float* ctp, float frac, float scale,
-                                          float* dg) {
-#pragma unroll
-  for (int j = 0; j <= K; ++j) {
-    const float ct_j = j < K ? ctp[j] : 0.0f;
-    const float ct_prev = j > 0 ? ctp[j - 1] : 0.0f;
-    dg[j] = __fmul_rn(__fadd_rn(__fmul_rn(1.0f - frac, ct_j), __fmul_rn(frac, ct_prev)),
-                      scale);
-  }
-}
 
 template <typename T, int R>
 __global__ void fused_corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
@@ -315,24 +275,6 @@ cudaError_t launch_bwd(const void* f1, const void* f2, const void* center, const
   return cudaGetLastError();
 }
 
-// One instantiation per radius in [0, kMaxRadius]: the taps live in
-// registers, so their count is a compile-time constant.
-#define FUSED_CORR_DISPATCH(RADIUS, CALL) \
-  switch (RADIUS) {                       \
-    case 0: return (int)CALL(0);          \
-    case 1: return (int)CALL(1);          \
-    case 2: return (int)CALL(2);          \
-    case 3: return (int)CALL(3);          \
-    case 4: return (int)CALL(4);          \
-    case 5: return (int)CALL(5);          \
-    case 6: return (int)CALL(6);          \
-    case 7: return (int)CALL(7);          \
-    case 8: return (int)CALL(8);          \
-    default: return (int)cudaErrorInvalidValue; \
-  }
-
-static_assert(kMaxRadius == 8, "FUSED_CORR_DISPATCH lists radii 0..8");
-
 }  // namespace
 
 // dtype_code: 0 = float32 features, 1 = bfloat16 features. fmap1 (b_h, w1, d)
@@ -346,12 +288,12 @@ extern "C" int fused_corr_fwd(const void* f1, const void* f2, const void* center
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype_code == 0) {
 #define CALL_F32(R) launch_fwd<float, R>(f1, f2, center, out, b_h, w1, w2, d, s)
-    FUSED_CORR_DISPATCH(radius, CALL_F32)
+    RADIUS_DISPATCH(radius, CALL_F32)
 #undef CALL_F32
   }
   if (dtype_code == 1) {
 #define CALL_BF16(R) launch_fwd<__nv_bfloat16, R>(f1, f2, center, out, b_h, w1, w2, d, s)
-    FUSED_CORR_DISPATCH(radius, CALL_BF16)
+    RADIUS_DISPATCH(radius, CALL_BF16)
 #undef CALL_BF16
   }
   return (int)cudaErrorInvalidValue;
@@ -365,13 +307,13 @@ extern "C" int fused_corr_bwd(const void* f1, const void* f2, const void* center
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype_code == 0) {
 #define CALL_F32(R) launch_bwd<float, R>(f1, f2, center, ct, df1, df2, b_h, w1, w2, d, s)
-    FUSED_CORR_DISPATCH(radius, CALL_F32)
+    RADIUS_DISPATCH(radius, CALL_F32)
 #undef CALL_F32
   }
   if (dtype_code == 1) {
 #define CALL_BF16(R) \
   launch_bwd<__nv_bfloat16, R>(f1, f2, center, ct, df1, df2, b_h, w1, w2, d, s)
-    FUSED_CORR_DISPATCH(radius, CALL_BF16)
+    RADIUS_DISPATCH(radius, CALL_BF16)
 #undef CALL_BF16
   }
   return (int)cudaErrorInvalidValue;

@@ -58,34 +58,9 @@
 //
 // Offsets are 64-bit: B*H*W1*W2 passes 2^31 at Middlebury-F widths.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "window.cuh"
 
 namespace {
-
-__device__ __forceinline__ float load_as_float(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float load_as_float(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ float from_float(float v, float*) { return v; }
-
-__device__ __forceinline__ __nv_bfloat16 from_float(float v, __nv_bfloat16*) {
-  return __float2bfloat16_rn(v);
-}
-
-// floor(c) clamped to +-(w2 + r + 2) (a NaN center to 0), and frac = c -
-// floor(c) taken before the clamp.
-__device__ __forceinline__ int window_base(float c, int w2, int radius,
-                                           float* frac) {
-  float base_f = floorf(c);
-  *frac = c - base_f;
-  const float lim = (float)(w2 + radius + 2);
-  base_f = isnan(base_f) ? 0.0f : fminf(fmaxf(base_f, -lim), lim);
-  return (int)base_f - radius;
-}
 
 template <typename T>
 __global__ void windowed_sample_fwd_kernel(const T* __restrict__ vol,

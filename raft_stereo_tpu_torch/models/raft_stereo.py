@@ -7,6 +7,11 @@ convex upsample: once, of the final iteration, in test mode; of every
 iteration, as one batched upsample after the loop, in train mode (the JAX
 package's deferred-upsample schedule).
 
+With ``fused_lookup`` on and a volume-pyramid implementation whose
+pyramid fits (``ops/kernels/fused_lookup.fused_lookup_applicable``), each
+iteration skips the lookup and the motion encoder runs the lookup and
+``convc1`` as one fused kernel, as the JAX package gates it.
+
 Mixed precision follows the JAX package's policy, not ``autocast``:
 parameters stay fp32, convs run in the compute dtype (bf16 under
 ``mixed_precision``), norm statistics are fp32 and the correlation taps
@@ -30,6 +35,8 @@ from raft_stereo_tpu_torch.ops.geometry import (convex_upsample_tiles,
                                                 coords_grid,
                                                 upsample_disparity_convex,
                                                 upsample_tiles_to_image)
+from raft_stereo_tpu_torch.ops.kernels.fused_lookup import \
+    fused_lookup_applicable
 
 
 class RAFTStereo(nn.Module):
@@ -69,15 +76,25 @@ class RAFTStereo(nn.Module):
                                      downsample=cfg.n_downsample, dtype=dt)
 
     def storage_dtype(self) -> Optional[torch.dtype]:
-        """Correlation storage (the volume, or ``fused``'s features): the
-        config's choice, else the compute dtype for the kernel
-        implementations and fp32 for ``reg``."""
+        """Correlation storage (the volume, or the features of the
+        feature-pyramid implementations): the config's choice, else the
+        compute dtype for the kernel implementations and fp32 for ``reg``
+        and ``alt``."""
         cfg = self.cfg
         if cfg.corr_storage_dtype is not None:
             return getattr(torch, cfg.corr_storage_dtype)
-        if cfg.corr_implementation in ("reg_pallas", "fused"):
+        if cfg.corr_implementation in ("reg_pallas", "alt_pallas", "fused"):
             return self.compute_dtype
         return None
+
+    def uses_fused_lookup(self, corr_state) -> bool:
+        """Whether the iterations run the fused lookup+convc1 kernel: asked
+        for (``fused_lookup=True``; None is off), a volume pyramid (``reg``
+        or ``reg_pallas``) and a pyramid the kernel takes."""
+        return (bool(self.cfg.fused_lookup)
+                and corr_state.impl in ("reg", "reg_pallas")
+                and fused_lookup_applicable(corr_state.levels,
+                                            corr_state.radius))
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
                 iters: int = 12, flow_init: Optional[torch.Tensor] = None,
@@ -116,31 +133,39 @@ class RAFTStereo(nn.Module):
             coords1 = coords1 + torch.stack(
                 [flow_init[..., 0], torch.zeros_like(flow_init[..., 0])], -1)
 
+        fused = self.uses_fused_lookup(corr_state)
         if not test_mode:
             return self._train_refine(net_list, inp_list, corr_state,
-                                      coords0, coords1, iters)
+                                      coords0, coords1, iters, fused)
         mask = None
         for itr in range(iters):
             net_list, coords1, mask = self._iteration(
                 net_list, inp_list, corr_state, coords0, coords1,
-                compute_mask=itr == iters - 1)
+                compute_mask=itr == iters - 1, fused=fused)
         flow_lowres = coords1 - coords0
         flow_up = upsample_disparity_convex(flow_lowres, mask.float(),
                                             cfg.factor)
         return flow_lowres, flow_up
 
     def _iteration(self, net_list, inp_list, corr_state, coords0, coords1,
-                   compute_mask: bool):
+                   compute_mask: bool, fused: bool = False):
         """One refinement iteration: lookup at the (detached) coordinates,
         the update block, the epipolar coordinate update. Returns
         ``(net_list, coords1, mask)``; ``mask`` is None unless
-        ``compute_mask``."""
+        ``compute_mask``. With ``fused`` the lookup happens inside the
+        motion encoder's fused kernel."""
         cfg = self.cfg
         dt = self.compute_dtype
         block = self.update_block
         n = cfg.n_gru_layers
         coords1 = coords1.detach()
-        corr = corr_lookup(corr_state, coords1).to(dt)
+        if fused:
+            corr = None
+            fused_args = dict(corr_state=corr_state,
+                              coords_x=coords1[..., 0].contiguous())
+        else:
+            corr = corr_lookup(corr_state, coords1).to(dt)
+            fused_args = {}
         flow = (coords1 - coords0).to(dt)
         if cfg.slow_fast_gru and n == 3:
             net_list = block(net_list, inp_list, iter32=True, iter16=False,
@@ -150,7 +175,7 @@ class RAFTStereo(nn.Module):
                              iter08=False, update=False)
         net_list, mask, delta_flow = block(
             net_list, inp_list, corr, flow, iter32=n == 3, iter16=n >= 2,
-            compute_mask=compute_mask)
+            compute_mask=compute_mask, **fused_args)
         # stereo: project the update onto the epipolar line
         delta_x = delta_flow[..., 0].float()
         coords1 = coords1 + torch.stack([delta_x, torch.zeros_like(delta_x)],
@@ -158,7 +183,7 @@ class RAFTStereo(nn.Module):
         return net_list, coords1, mask
 
     def _train_refine(self, net_list, inp_list, corr_state, coords0,
-                      coords1, iters):
+                      coords1, iters, fused: bool = False):
         """Every iteration computes its upsampling mask; the low-res flows
         and masks are stacked and upsampled together after the loop (the
         JAX package's deferred schedule: the same numbers as upsampling
@@ -173,7 +198,7 @@ class RAFTStereo(nn.Module):
         def step(coords, *nets):
             nets, coords, mask = self._iteration(
                 list(nets), inp_list, corr_state, coords0, coords,
-                compute_mask=True)
+                compute_mask=True, fused=fused)
             return (coords, mask, *nets)
 
         lowres, masks = [], []

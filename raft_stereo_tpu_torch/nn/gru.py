@@ -20,6 +20,7 @@ from raft_stereo_tpu_torch.config import RAFTStereoConfig
 from raft_stereo_tpu_torch.nn.layers import Conv
 from raft_stereo_tpu_torch.ops.geometry import (pool2x,
                                                 resize_bilinear_align_corners)
+from raft_stereo_tpu_torch.ops.kernels.fused_lookup import fused_lookup_c1
 
 
 class FlowHead(nn.Module):
@@ -56,7 +57,12 @@ class ConvGRU(nn.Module):
 
 class BasicMotionEncoder(nn.Module):
     """Correlation + flow -> 128-d motion features (126 + the 2 flow
-    channels passed through)."""
+    channels passed through).
+
+    Given the correlation state and the lookup centers instead of ``corr``
+    (the ``fused_lookup`` path), the pyramid lookup, ``convc1`` and its
+    ReLU run as one fused kernel (``ops/kernels/fused_lookup.py``) on the
+    same parameters; no corr tensor exists."""
 
     def __init__(self, cfg: RAFTStereoConfig,
                  dtype: Optional[torch.dtype] = None):
@@ -67,8 +73,18 @@ class BasicMotionEncoder(nn.Module):
         self.convf2 = Conv(64, 64, 3, 1, 1, dtype)
         self.conv = Conv(128, 128 - 2, 3, 1, 1, dtype)
 
-    def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
-        cor = F.relu(self.convc2(F.relu(self.convc1(corr))))
+    def forward(self, flow: torch.Tensor, corr: Optional[torch.Tensor],
+                corr_state=None, coords_x: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        if corr_state is not None:
+            w = self.convc1.weight
+            cor = fused_lookup_c1(corr_state.levels, coords_x,
+                                  w.view(w.shape[0], -1).t(),
+                                  self.convc1.bias, corr_state.radius,
+                                  self.convc1.compute_dtype)
+        else:
+            cor = F.relu(self.convc1(corr))
+        cor = F.relu(self.convc2(cor))
         flo = F.relu(self.convf2(F.relu(self.convf1(flow))))
         out = F.relu(self.conv(torch.cat([cor, flo], dim=-1)))
         return torch.cat([out, flow], dim=-1)
@@ -86,7 +102,8 @@ class BasicMultiUpdateBlock(nn.Module):
     per-level ``(cz, cr, cq)`` context biases. ``iter08/16/32`` select which
     levels update in this call; ``update=False`` runs the GRUs only (the
     slow_fast_gru pre-iterations); ``compute_mask=False`` skips the mask
-    head (inference needs only the final iteration's mask).
+    head (inference needs only the final iteration's mask). ``corr_state``
+    and ``coords_x`` replace ``corr`` on the fused-lookup path.
     """
 
     def __init__(self, cfg: RAFTStereoConfig,
@@ -109,7 +126,8 @@ class BasicMultiUpdateBlock(nn.Module):
 
     def forward(self, net: Sequence[torch.Tensor], inp, corr=None, flow=None,
                 iter08: bool = True, iter16: bool = True, iter32: bool = True,
-                update: bool = True, compute_mask: bool = True):
+                update: bool = True, compute_mask: bool = True,
+                corr_state=None, coords_x=None):
         n = self.cfg.n_gru_layers
         net = list(net)
         if iter32:
@@ -121,7 +139,7 @@ class BasicMultiUpdateBlock(nn.Module):
             else:
                 net[1] = self.gru16(net[1], *inp[1], pool2x(net[0]))
         if iter08:
-            motion = self.encoder(flow, corr)
+            motion = self.encoder(flow, corr, corr_state, coords_x)
             if n > 1:
                 net[0] = self.gru08(net[0], *inp[0], motion,
                                     interp_to(net[1], net[0]))

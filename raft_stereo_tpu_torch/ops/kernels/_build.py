@@ -1,15 +1,18 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Each kernel is one source under ``raft_stereo_tpu_torch/csrc/`` with a
-plain C interface. It is compiled for Hopper (``sm_90a``) into a shared
-library under ``raft_stereo_tpu_torch/build/`` at first use, named by the
-hash of its source and flags, so a changed source is rebuilt and an
-unchanged one is loaded as it is. Nothing here runs at import time.
+plain C interface, and may include the shared headers (``csrc/*.cuh``).
+It is compiled for Hopper (``sm_90a``) into a shared library under
+``raft_stereo_tpu_torch/build/`` at first use, named by the hash of its
+source, the headers and the flags, so a changed source or header is
+rebuilt and an unchanged one is loaded as it is. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -45,9 +48,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where kernel ``name`` is built: keyed by its source and flags."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where kernel ``name`` is built: keyed by its source, the shared
+    headers and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu"),
+                 *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from raft_stereo_tpu_torch.ops.kernels._build import load_library
-from raft_stereo_tpu_torch.ops.sampler import window
+from raft_stereo_tpu_torch.ops.sampler import window, window_grads
 
 KERNEL_NAME = "fused_corr"
 SOURCE = "raft_stereo_tpu_torch/csrc/fused_corr.cu"
@@ -33,7 +33,7 @@ MAX_RADIUS = 8  # the kernels keep the 2r+2 taps in registers
 # shared memory a block may use on an H100 (227 KB, by opt-in)
 SMEM_PER_BLOCK = 232448
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _tap_index(base: torch.Tensor, j: int, w2: int, d: int):
@@ -84,10 +84,7 @@ def fused_corr_backward_plain(
     """
     w2, d = fmap2.shape[2], fmap2.shape[3]
     base, frac = window(center, w2, radius)
-    ct = ct.float()
-    zero = torch.zeros_like(ct[..., :1])
-    dg = ((1.0 - frac) * torch.cat([ct, zero], dim=-1)
-          + frac * torch.cat([zero, ct], dim=-1)) * (1.0 / math.sqrt(d))
+    dg = window_grads(ct, frac) * (1.0 / math.sqrt(d))
     f1 = fmap1.float()
     f2 = fmap2.float()
     df1 = torch.zeros_like(f1)
@@ -127,34 +124,40 @@ def df2_smem_bytes(w1: int, w2: int, radius: int) -> int:
     return 4 * (w1 * (2 * (2 * radius + 2) + 1) + w2 + 1)
 
 
-def _check(fmap1: torch.Tensor, fmap2: torch.Tensor, center: torch.Tensor,
-           radius: int) -> None:
+def check_feature_inputs(name: str, fmap1: torch.Tensor,
+                         fmap2: torch.Tensor, center: torch.Tensor,
+                         radius: int) -> None:
+    """Raise unless ``fmap1 (B, H, W1, D)``, ``fmap2 (B, H, W2, D)`` (both
+    fp32 or both bf16) and the fp32 ``center (B, H, W1)`` are contiguous
+    on one CUDA device and ``radius`` is in ``[0, MAX_RADIUS]``: what the
+    ``fused_corr`` and ``alt_corr`` kernels take. ``name`` heads the
+    message."""
     if (fmap1.device.type != "cuda" or fmap2.device != fmap1.device
             or center.device != fmap1.device):
         raise ValueError(
-            f"fused_corr: fmap1, fmap2 and center must lie on one CUDA "
+            f"{name}: fmap1, fmap2 and center must lie on one CUDA "
             f"device (got {fmap1.device}, {fmap2.device} and "
             f"{center.device})")
-    if fmap1.dtype not in _DTYPE_CODES or fmap2.dtype != fmap1.dtype:
-        raise TypeError(f"fused_corr: feature dtypes {fmap1.dtype} and "
+    if fmap1.dtype not in DTYPE_CODES or fmap2.dtype != fmap1.dtype:
+        raise TypeError(f"{name}: feature dtypes {fmap1.dtype} and "
                         f"{fmap2.dtype} are not both float32 or bfloat16")
     if center.dtype != torch.float32:
-        raise TypeError(f"fused_corr: center dtype {center.dtype} is not "
+        raise TypeError(f"{name}: center dtype {center.dtype} is not "
                         "float32")
     if (fmap1.dim() != 4 or fmap2.dim() != 4
             or fmap1.shape[:2] != fmap2.shape[:2]
             or fmap1.shape[3] != fmap2.shape[3]
             or tuple(center.shape) != tuple(fmap1.shape[:3])):
         raise ValueError(
-            f"fused_corr: want fmap1 (B, H, W1, D), fmap2 (B, H, W2, D) and "
+            f"{name}: want fmap1 (B, H, W1, D), fmap2 (B, H, W2, D) and "
             f"center (B, H, W1), got {tuple(fmap1.shape)}, "
             f"{tuple(fmap2.shape)} and {tuple(center.shape)}")
     if not (fmap1.is_contiguous() and fmap2.is_contiguous()
             and center.is_contiguous()):
-        raise ValueError("fused_corr: fmap1, fmap2 and center must be "
+        raise ValueError(f"{name}: fmap1, fmap2 and center must be "
                          "contiguous")
     if not 0 <= radius <= MAX_RADIUS:
-        raise ValueError(f"fused_corr: radius {radius} outside [0, "
+        raise ValueError(f"{name}: radius {radius} outside [0, "
                          f"{MAX_RADIUS}]")
 
 
@@ -169,7 +172,7 @@ def fused_corr_forward(fmap1: torch.Tensor, fmap2: torch.Tensor,
                        center: torch.Tensor, radius: int) -> torch.Tensor:
     """Launch the forward kernel on CUDA tensors (counted in
     ``fused_corr.launches``); no autograd."""
-    _check(fmap1, fmap2, center, radius)
+    check_feature_inputs("fused_corr", fmap1, fmap2, center, radius)
     b, h, w1, d = fmap1.shape
     out = torch.empty((b, h, w1, 2 * radius + 1), dtype=torch.float32,
                       device=fmap1.device)
@@ -182,7 +185,7 @@ def fused_corr_forward(fmap1: torch.Tensor, fmap2: torch.Tensor,
     rc = lib.fused_corr_fwd(fmap1.data_ptr(), fmap2.data_ptr(),
                             center.data_ptr(), out.data_ptr(), b * h, w1,
                             fmap2.shape[2], d, radius,
-                            _DTYPE_CODES[fmap1.dtype], stream)
+                            DTYPE_CODES[fmap1.dtype], stream)
     _raise_on(lib, rc, "forward")
     fused_corr.launches += 1
     return out
@@ -197,7 +200,7 @@ def fused_corr_backward(fmap1: torch.Tensor, fmap2: torch.Tensor,
     ``fused_corr.bwd_launches``): ``(df1, df2)`` in the feature dtype, each
     None unless asked for. ``df2`` is deterministic: two runs on the same
     inputs are bitwise equal."""
-    _check(fmap1, fmap2, center, radius)
+    check_feature_inputs("fused_corr", fmap1, fmap2, center, radius)
     b, h, w1, d = fmap1.shape
     w2 = fmap2.shape[2]
     k = 2 * radius + 1
@@ -226,13 +229,13 @@ def fused_corr_backward(fmap1: torch.Tensor, fmap2: torch.Tensor,
         fmap1.data_ptr(), fmap2.data_ptr(), center.data_ptr(), ct.data_ptr(),
         None if df1 is None else df1.data_ptr(),
         None if df2 is None else df2.data_ptr(), b * h, w1, w2, d, radius,
-        _DTYPE_CODES[fmap1.dtype], stream)
+        DTYPE_CODES[fmap1.dtype], stream)
     _raise_on(lib, rc, "backward")
     fused_corr.bwd_launches += 1
     return df1, df2
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
+def on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
@@ -245,7 +248,7 @@ class _FusedCorr(torch.autograd.Function):
     def forward(ctx, fmap1, fmap2, center, radius):
         ctx.radius = radius
         ctx.save_for_backward(fmap1, fmap2, center)
-        if _on_cpu(fmap1, fmap2, center):
+        if on_cpu(fmap1, fmap2, center):
             return fused_corr_plain(fmap1, fmap2, center, radius)
         return fused_corr_forward(fmap1, fmap2, center, radius)
 
@@ -253,7 +256,7 @@ class _FusedCorr(torch.autograd.Function):
     def backward(ctx, ct):
         fmap1, fmap2, center = ctx.saved_tensors
         need1, need2 = ctx.needs_input_grad[:2]
-        if _on_cpu(fmap1, fmap2, center):
+        if on_cpu(fmap1, fmap2, center):
             df1, df2 = fused_corr_backward_plain(fmap1, fmap2, center, ct,
                                                  ctx.radius)
         else:

@@ -17,7 +17,9 @@ from typing import Optional, Tuple
 import torch
 
 from raft_stereo_tpu_torch.ops.kernels._build import load_library
-from raft_stereo_tpu_torch.ops.sampler import window, windowed_linear_sample
+from raft_stereo_tpu_torch.ops.sampler import (scatter_window, window,
+                                               window_grads,
+                                               windowed_linear_sample)
 
 KERNEL_NAME = "windowed_sample"
 SOURCE = "raft_stereo_tpu_torch/csrc/windowed_sample.cu"
@@ -47,13 +49,7 @@ def windowed_sample_backward_plain(
     k = 2 * radius + 1
     base, frac = window(center, w, radius)
     ct = ct.float()
-    zero = torch.zeros_like(ct[..., :1])
-    dg = ((1.0 - frac) * torch.cat([ct, zero], dim=-1)
-          + frac * torch.cat([zero, ct], dim=-1))          # (..., 2r+2)
-    j = torch.arange(w, device=volume.device) - base[..., None]
-    inside = (j >= 0) & (j <= k)
-    dvol = torch.where(inside, torch.gather(dg, -1, j.clamp(0, k)),
-                       torch.zeros((), device=dg.device))
+    dvol = scatter_window(window_grads(ct, frac), base, w)
     idx = base[..., None] + torch.arange(k + 1, device=volume.device)
     g = torch.gather(volume, -1, idx.clamp(0, w - 1)).float()
     g = torch.where((idx >= 0) & (idx < w), g,

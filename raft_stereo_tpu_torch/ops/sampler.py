@@ -56,3 +56,26 @@ def windowed_linear_sample(values: torch.Tensor, center: torch.Tensor,
     g = torch.gather(values, -1, idx.clamp(0, w - 1)).float()
     g = torch.where(valid, g, torch.zeros((), device=g.device))
     return (1.0 - frac) * g[..., :-1] + frac * g[..., 1:]
+
+
+def window_grads(ct: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
+    """The taps' gradients of the blend for the output cotangent ``ct
+    (..., 2r+1)``: ``dg_j = (1-f)*ct_j + f*ct_{j-1}`` for ``j in [0, 2r+1]``
+    (cotangents outside ``[0, 2r]`` are 0), fp32, each operation rounded
+    as the CUDA kernels round it."""
+    ct = ct.float()
+    zero = torch.zeros_like(ct[..., :1])
+    return ((1.0 - frac) * torch.cat([ct, zero], dim=-1)
+            + frac * torch.cat([zero, ct], dim=-1))
+
+
+def scatter_window(dg: torch.Tensor, base: torch.Tensor,
+                   w: int) -> torch.Tensor:
+    """Dense rows ``(..., w)`` holding ``dg[..., j]`` at ``base + j`` where
+    that lies in ``[0, w)`` and 0 everywhere else (the inverse of the
+    window's gather)."""
+    j = torch.arange(w, device=dg.device) - base[..., None]
+    inside = (j >= 0) & (j < dg.shape[-1])
+    return torch.where(inside, torch.gather(dg, -1,
+                                            j.clamp(0, dg.shape[-1] - 1)),
+                       torch.zeros((), device=dg.device))

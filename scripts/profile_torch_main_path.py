@@ -5,6 +5,7 @@
     python3 scripts/profile_torch_main_path.py --corr_implementation alt_cuda \
         --size 1988x2880
     python3 scripts/profile_torch_main_path.py --train [--frames 2]
+    python3 scripts/profile_torch_main_path.py --fused_lookup [--train]
 
 For both served configurations — the default architecture with
 corr_implementation="reg_cuda" (fp32, 32 iterations) and realtime_config()
@@ -19,12 +20,16 @@ configuration:
 * ``device_busy_ms`` per frame: the summed duration of the device kernels
   (one stream, so they do not overlap) and ``idle_share = 1 - busy/wall``;
 * device time per kernel category (convolution, matmul, the
-  windowed_sample and fused_corr lookups, the rest) and the top kernels by
-  device time.
+  windowed_sample, fused_corr and alt_corr lookups, the fused_lookup
+  kernels, the rest), the top kernels by device time, and the operators
+  that spend the most host time themselves (``top_host_ops``: where a
+  host-bound frame's time goes).
 
 ``--corr_implementation`` profiles the default architecture alone with
 that implementation (e.g. ``alt_cuda``, the memoryless fused_corr
-kernels), and ``--size HxW`` sets the input pair (padded to /32; default
+kernels, or ``alt_pallas``, the alt_corr kernels), ``--fused_lookup``
+turns on the fused lookup+convc1 kernel in every configuration profiled,
+and ``--size HxW`` sets the input pair (padded to /32; default
 375x1242).
 
 With ``--train`` it profiles ``--frames`` training steps instead, at
@@ -59,6 +64,12 @@ def category(name: str, split: bool = False) -> str:
     """Kernel category by name; ``split`` separates forward from backward
     for the convolutions and the lookup."""
     n = name.lower()
+    for kernel in ("alt_corr", "fused_lookup"):
+        if kernel in n:
+            if not split:
+                return kernel
+            return ("lookup_bwd" if "bwd" in n or "reduce" in n
+                    else "lookup_fwd")
     if "fused_corr" in n:
         if not split:
             return "fused_corr"
@@ -95,10 +106,13 @@ def summarize(prof, n: int, split: bool):
         by_cat[category(e.name, split)] += us
         by_name[e.name] += us
         count[e.name] += 1
-    # the device time each operator launched itself, by operator name
+    # the device time each operator launched itself, by operator name, and
+    # the host time it spent itself
     ops = sorted(((getattr(e, "self_device_time_total", None)
-                   or getattr(e, "self_cuda_time_total", 0), e.key, e.count)
+                   or getattr(e, "self_cuda_time_total", 0), e.key, e.count,
+                   e.self_cpu_time_total)
                   for e in prof.key_averages()), reverse=True)
+    host_ops = sorted(ops, key=lambda o: -o[3])
     return {
         "device_busy_ms": sum(by_cat.values()) / 1e3 / n,
         "kernels_per_unit": len(kernels) / n,
@@ -108,7 +122,10 @@ def summarize(prof, n: int, split: bool):
                 for name, v in by_name.most_common(12)],
         "top_ops": [{"op": key[:60], "self_device_ms": us / 1e3 / n,
                      "calls": calls // n}
-                    for us, key, calls in ops[:15] if us > 0],
+                    for us, key, calls, _ in ops[:15] if us > 0],
+        "top_host_ops": [{"op": key[:60], "self_host_ms": cpu / 1e3 / n,
+                          "calls": calls // n}
+                         for _, key, calls, cpu in host_ops[:12]],
     }
 
 
@@ -129,7 +146,8 @@ def profile_train(args, dev) -> int:
                                                       make_train_step)
     mcfg, tcfg = sceneflow_config()
     impl = args.corr_implementation or "reg_cuda"
-    mcfg = dataclasses.replace(mcfg, corr_implementation=impl)
+    mcfg = dataclasses.replace(mcfg, corr_implementation=impl,
+                               fused_lookup=args.fused_lookup or None)
     model = RAFTStereo(mcfg)
     seeded_weights(model, SEED)
     model.to(dev)
@@ -182,7 +200,9 @@ def profile_train(args, dev) -> int:
               "kernels", file=sys.stderr)
         return 1
     print(json.dumps({
-        "config": f"train: sceneflow_config() + {impl}", "batch": b,
+        "config": f"train: sceneflow_config() + {impl}"
+                  + (" + fused_lookup" if args.fused_lookup else ""),
+        "batch": b,
         "unrepaired_pool": args.unrepaired_pool,
         "image_size": [h, w], "iters": tcfg.train_iters,
         "steps": args.frames, "wall_ms": wall_ms,
@@ -205,6 +225,9 @@ def main() -> int:
     ap.add_argument("--corr_implementation", default=None,
                     help="profile the default architecture alone with this "
                          "correlation implementation")
+    ap.add_argument("--fused_lookup", action="store_true",
+                    help="run the fused lookup+convc1 kernel "
+                         "(fused_lookup=True) in every configuration")
     ap.add_argument("--iters", type=int, default=None,
                     help="refinement iterations instead of the preset's "
                          "(1 profiles the encoders and one iteration)")
@@ -243,11 +266,16 @@ def main() -> int:
     h, w = (int(v) for v in args.size.split("x"))
     left, right = stereo_pair(h, w, 1234)
     padded = [-(-h // 32) * 32, -(-w // 32) * 32]
+    import dataclasses
     runs = [("default", RAFTStereoConfig(corr_implementation="reg_cuda"), 32),
             ("realtime", realtime_config(), 7)]
     if args.corr_implementation:
         runs = [(f"default+{args.corr_implementation}", RAFTStereoConfig(
             corr_implementation=args.corr_implementation), 32)]
+    if args.fused_lookup:
+        runs = [(f"{name}+fused_lookup",
+                 dataclasses.replace(cfg, fused_lookup=True), iters)
+                for name, cfg, iters in runs]
     for name, cfg, iters in runs:
         iters = args.iters or iters
         state = seeded_weights(RAFTStereo(cfg), 1234)
@@ -276,7 +304,7 @@ def main() -> int:
             "idle_share": 1 - out["device_busy_ms"] / wall_ms,
             "kernels_per_frame": out["kernels_per_unit"],
             "category_ms": out["category_ms"], "top": out["top"],
-            "top_ops": out["top_ops"],
+            "top_ops": out["top_ops"], "top_host_ops": out["top_host_ops"],
         }), flush=True)
         del pred
     return 0

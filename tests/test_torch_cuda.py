@@ -457,18 +457,18 @@ def test_fused_memory_contract(cuda):
         del out
 
 
-def test_fused_model_train_step_matches_reg(cuda):
-    # one fp32 training step through the fused kernels (alt_cuda) against
-    # the same step through the volume and the plain lookup (reg), both on
-    # the card: the same function, summed in another order. Bounds: loss
-    # 1e-5 relative; all gradients within 1e-3 relative L2 (the size of a
-    # 1e-6 weight perturbation's null run, PERF.md PR 2)
+def _model_step_matches_reg(cuda, impl, kernel, launches, **kw):
+    # one fp32 training step through a kernel path against the same step
+    # through the volume and the plain lookup (reg), both on the card.
+    # Bounds: loss 1e-5 relative; all gradients within 1e-3 relative L2
+    # (the size of a 1e-6 weight perturbation's null run, PERF.md)
     from raft_stereo_tpu_torch.training.state import loss_and_grads
-    kw = dict(hidden_dims=(32, 32, 32))
+    kw = dict(hidden_dims=(32, 32, 32), **kw)
     model_k = init_weights(
-        RAFTStereo(RAFTStereoConfig(corr_implementation="alt_cuda", **kw)),
+        RAFTStereo(RAFTStereoConfig(corr_implementation=impl, **kw)),
         torch.Generator().manual_seed(0))
-    model_p = RAFTStereo(RAFTStereoConfig(corr_implementation="reg", **kw))
+    model_p = RAFTStereo(RAFTStereoConfig(corr_implementation="reg",
+                                          hidden_dims=(32, 32, 32)))
     model_p.load_state_dict(model_k.state_dict(), strict=True)
     model_k.to(cuda)
     model_p.to(cuda)
@@ -476,21 +476,307 @@ def test_fused_model_train_step_matches_reg(cuda):
         model_k.update_block.flow_head.conv2.weight.mul_(0.1)
         model_p.update_block.flow_head.conv2.weight.mul_(0.1)
     g = torch.Generator(device=cuda).manual_seed(5)
-    left = torch.rand((2, 64, 128, 3), generator=g, device=cuda) * 255
+    left = torch.rand((2, 64, 384, 3), generator=g, device=cuda) * 255
     batch = {"image1": left, "image2": torch.roll(left, -4, dims=2),
-             "flow": -4 * torch.ones((2, 64, 128, 1), device=cuda),
-             "valid": torch.ones((2, 64, 128), device=cuda)}
-    fc.fused_corr.launches = fc.fused_corr.bwd_launches = 0
-    windowed_sample.launches = 0
+             "flow": -4 * torch.ones((2, 64, 384, 1), device=cuda),
+             "valid": torch.ones((2, 64, 384), device=cuda)}
+    kernels = (windowed_sample, fc.fused_corr, ac.alt_corr,
+               fl.fused_lookup_c1)
+    for k in kernels:
+        k.launches = k.bwd_launches = 0
     loss_k, _, grads_k = loss_and_grads(model_k, batch, 3)
-    assert (fc.fused_corr.launches, fc.fused_corr.bwd_launches,
-            windowed_sample.launches) == (2 * 4 * 3, 4 * 3, 0)
+    assert (kernel.launches, kernel.bwd_launches) == launches
+    assert all(k.launches == k.bwd_launches == 0 for k in kernels
+               if k is not kernel)
     loss_p, _, grads_p = loss_and_grads(model_p, batch, 3)
     assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * float(loss_p)
     flat_k = torch.cat([x.flatten() for x in grads_k]).double()
     flat_p = torch.cat([x.flatten() for x in grads_p]).double()
     assert float((flat_k - flat_p).norm() / flat_p.norm()) <= 1e-3
+    return {n: gr for (n, _), gr in zip(model_k.named_parameters(), grads_k)}
+
+
+def test_fused_model_train_step_matches_reg(cuda):
     # gradients reach the feature encoder through the fused lookup
-    fnet = [gr for (n, _), gr in zip(model_k.named_parameters(), grads_k)
-            if n.startswith("fnet.")]
-    assert all(float(gr.abs().max()) > 0 for gr in fnet)
+    grads = _model_step_matches_reg(cuda, "alt_cuda", fc.fused_corr,
+                                    (2 * 4 * 3, 4 * 3))
+    assert all(float(gr.abs().max()) > 0 for n, gr in grads.items()
+               if n.startswith("fnet."))
+
+
+# ------------------------------------------------------------- alt_corr
+#
+# alt_corr computes fused_corr's function through the on-chip slab, so it
+# is held to both plain versions and to fused_corr's kernels on the same
+# inputs. Bounds as for fused_corr: the forward 1e-5 abs; df1/df2 1e-5 abs
+# in fp32 and one bf16 ulp of the reference where larger in bf16; two runs
+# bitwise equal.
+
+from raft_stereo_tpu_torch.ops.kernels import alt_corr as ac  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_alt_kernels_match_plain_and_fused(cuda, dtype, shape):
+    f1, f2, center = _fused_inputs(shape, dtype, cuda, seed=7)
+    ct = _cotangent(shape[:4], cuda, seed=8)
+    before = (ac.alt_corr.launches, ac.alt_corr.bwd_launches)
+    out = ac.alt_corr(f1, f2, center, R)
+    df1, df2 = ac.alt_corr_backward(f1, f2, center, ct, R)
+    torch.cuda.synchronize()
+    assert (ac.alt_corr.launches, ac.alt_corr.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = ac.alt_corr_plain(f1, f2, center, R)
+    w1, w2 = ac.alt_corr_backward_plain(f1, f2, center, ct, R)
+    assert bool(torch.isnan(want).any())
+    assert _close(out, want, torch.float32)
+    assert df1.dtype == df2.dtype == dtype
+    assert _close(df1, w1, dtype) and _close(df2, w2, dtype)
+    assert _close(out, fc.fused_corr_forward(f1, f2, center, R),
+                  torch.float32)
+    g1, g2 = fc.fused_corr_backward(f1, f2, center, ct, R)
+    assert _close(df1, g1, dtype) and _close(df2, g2, dtype)
+    assert bool((out.view(-1, 2 * R + 1)[4:6] == 0).all())  # far out
+    assert bool((df1.view(-1, shape[-1])[4:6] == 0).all())
+
+
+def test_alt_other_radii(cuda):
+    f1, f2, center = _fused_inputs((2, 4, 70, 67, 40), torch.float32, cuda)
+    for radius in (0, 1, 3, 8):
+        ct = torch.randn(tuple(center.shape) + (2 * radius + 1,),
+                         device=cuda)
+        assert _close(ac.alt_corr(f1, f2, center, radius),
+                      ac.alt_corr_plain(f1, f2, center, radius),
+                      torch.float32)
+        got = ac.alt_corr_backward(f1, f2, center, ct, radius)
+        want = ac.alt_corr_backward_plain(f1, f2, center, ct, radius)
+        assert _close(got[0], want[0], torch.float32)
+        assert _close(got[1], want[1], torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_alt_kernels_are_deterministic(cuda, dtype):
+    f1, f2, center = _fused_inputs((8, 80, 180, 22, 256), dtype, cuda)
+    ct = _cotangent((8, 80, 180, 22), cuda)
+    assert _same(ac.alt_corr(f1, f2, center, R),
+                 ac.alt_corr(f1, f2, center, R))
+    a = ac.alt_corr_backward(f1, f2, center, ct, R)
+    b = ac.alt_corr_backward(f1, f2, center, ct, R)
+    assert _same(a[0], b[0]) and _same(a[1], b[1])
+
+
+def test_alt_autograd_launches_and_no_center_grad(cuda):
+    f1, f2, center = _fused_inputs((1, 4, 32, 32, 64), torch.float32, cuda)
+    f1.requires_grad_()
+    f2.requires_grad_()
+    center = center.nan_to_num(0.0).requires_grad_()
+    before = (ac.alt_corr.launches, ac.alt_corr.bwd_launches)
+    out = ac.alt_corr(f1, f2, center, R)
+    ct = torch.randn(out.shape, device=cuda)
+    df1, df2, dc = torch.autograd.grad(out, (f1, f2, center), ct,
+                                       allow_unused=True)
+    assert (ac.alt_corr.launches, ac.alt_corr.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert dc is None
+    want = ac.alt_corr_backward_plain(f1.detach(), f2.detach(),
+                                      center.detach(), ct, R)
+    assert _close(df1, want[0], torch.float32)
+    assert _close(df2, want[1], torch.float32)
+
+
+def test_alt_wrapper_refuses_bad_inputs(cuda):
+    f1, f2, center = _fused_inputs((1, 2, 8, 16, 32), torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ac.alt_corr(f1.transpose(1, 2).contiguous().transpose(1, 2), f2,
+                    center, R)
+    with pytest.raises(TypeError, match="dtype"):
+        ac.alt_corr(f1, f2.bfloat16(), center, R)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ac.alt_corr(f1, f2, center.cpu(), R)
+    with pytest.raises(ValueError, match="radius"):
+        ac.alt_corr(f1, f2, center, 9)
+    with pytest.raises(ValueError, match="cotangent"):
+        ac.alt_corr_backward(f1, f2, center, torch.zeros((1, 2, 8, 3),
+                                                         device=cuda), R)
+
+
+def test_alt_memory_contract(cuda):
+    # the 4-level lookup at the hires shape allocates its outputs and less
+    # than an eighth of one level-0 volume more: no (W1, W2) slab
+    from raft_stereo_tpu_torch.ops.corr import corr_lookup, init_corr
+    b, h, w, d = 1, 504, 720, 256
+    margin = b * h * w * w * 4 // 8
+    f1, f2, center = _fused_inputs((b, h, w, w, d), torch.float32, cuda)
+    center = center.nan_to_num(0.0)
+    state = init_corr("alt_pallas", f1, f2, num_levels=4, radius=R)
+    coords = torch.stack([center, torch.zeros_like(center)], dim=-1)
+    for fn, own in [
+            (lambda: corr_lookup(state, coords), 2 * b * h * w * 36 * 4),
+            (lambda: ac.alt_corr_backward(
+                f1, f2, center, torch.randn((b, h, w, 2 * R + 1),
+                                            device=cuda), R),
+             2 * f1.numel() * 4 + b * h * w * (2 * R + 1) * 4)]:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated(cuda) - base <= own + margin
+        del out
+
+
+def test_alt_model_train_step_matches_reg(cuda):
+    _model_step_matches_reg(cuda, "alt_pallas", ac.alt_corr,
+                            (2 * 4 * 3, 4 * 3))
+
+
+# --------------------------------------------------------- fused_lookup
+#
+# Bounds against the plain PyTorch versions on the same inputs: the forward
+# and dvol 1e-5 abs in fp32 and one bf16 ulp of the plain value where larger
+# in bf16 (both take the products in the same order and round each, so they
+# are expected to be equal); dk/db 1e-5 of their largest magnitude (sums
+# over every pixel in another order); every output bitwise equal from run
+# to run.
+
+from raft_stereo_tpu_torch.ops.kernels import fused_lookup as fl  # noqa: E402
+
+# (B, H, W1, level-0 W2): the default and realtime frames, the SceneFlow
+# batch, and a small odd pyramid down to W2 = 3
+LOOKUP_SHAPES = [(1, 96, 312, 312), (1, 48, 156, 156), (8, 80, 180, 180),
+                 (2, 3, 25, 25)]
+
+
+def _lookup_inputs(shape, vdt, device, seed=0, nan=True):
+    b, h, w1, w2 = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    levels = [torch.randn((b, h, w1, w2 >> i), generator=g,
+                          device=device).to(vdt) for i in range(4)]
+    coords = (torch.rand((b, h, w1), generator=g, device=device)
+              * (w2 + 4 * R + 4) - 2 * R - 2)
+    flat = coords.view(-1)
+    edge = [0.0, -1.0, float(w2 - 1), float(w2), 1e9, -1e9,
+            float("nan") if nan else 0.5]
+    flat[:len(edge)] = torch.tensor(edge, device=device)
+    kern = torch.randn((36, 64), generator=g, device=device) * 0.2
+    bias = torch.randn((64,), generator=g, device=device) * 0.1
+    return levels, coords, kern, bias
+
+
+def _rel_close(got, want):
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) <= 1e-5 * max(scale, 1e-30)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LOOKUP_SHAPES)
+def test_fused_lookup_kernels_match_plain(cuda, vdt, dt, shape):
+    levels, coords, kern, bias = _lookup_inputs(shape, vdt, cuda)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    ct = torch.randn(shape[:3] + (64,), generator=g, device=cuda).to(dt)
+    before = (fl.fused_lookup_c1.launches, fl.fused_lookup_c1.bwd_launches)
+    out = fl.fused_lookup_c1(levels, coords, kern, bias, R, dt)
+    dvols, dk, db = fl.fused_lookup_backward(levels, coords, kern, bias, ct,
+                                             R, dt)
+    torch.cuda.synchronize()
+    assert (fl.fused_lookup_c1.launches,
+            fl.fused_lookup_c1.bwd_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    want = fl.fused_lookup_c1_plain(levels, coords, kern, bias, R, dt)
+    w_dvols, w_dk, w_db = fl.fused_lookup_c1_backward_plain(
+        levels, coords, kern, bias, ct, R, dt)
+    assert out.dtype == dt and out.shape == shape[:3] + (64,)
+    assert bool(torch.isnan(want).any())
+    assert _close(out, want, dt)
+    for got, ref in zip(dvols, w_dvols):
+        assert got.dtype == vdt and got.shape == ref.shape
+        assert _close(got, ref, vdt)
+    assert bool((out.view(-1, 64)[4:6] == torch.relu(bias).to(dt)).all())
+    assert bool((dvols[0].view(-1, shape[-1])[4:6] == 0).all())
+    # a NaN center makes every dk element NaN: dk/db on finite centers
+    coords = coords.nan_to_num(0.0)
+    _, dk, db = fl.fused_lookup_backward(levels, coords, kern, bias, ct, R,
+                                         dt)
+    _, w_dk, w_db = fl.fused_lookup_c1_backward_plain(levels, coords, kern,
+                                                      bias, ct, R, dt)
+    assert _rel_close(dk, w_dk) and _rel_close(db, w_db)
+
+
+def test_fused_lookup_other_radii(cuda):
+    for radius in (0, 1, 3, 8):
+        levels, coords, _, bias = _lookup_inputs((2, 4, 40, 40),
+                                                 torch.float32, cuda,
+                                                 nan=False)
+        kern = torch.randn((4 * (2 * radius + 1), 64), device=cuda)
+        ct = torch.randn((2, 4, 40, 64), device=cuda)
+        assert _close(fl.fused_lookup_c1(levels, coords, kern, bias, radius),
+                      fl.fused_lookup_c1_plain(levels, coords, kern, bias,
+                                               radius), torch.float32)
+        got = fl.fused_lookup_backward(levels, coords, kern, bias, ct,
+                                       radius)
+        want = fl.fused_lookup_c1_backward_plain(levels, coords, kern, bias,
+                                                 ct, radius)
+        assert all(_close(a, b, torch.float32)
+                   for a, b in zip(got[0], want[0]))
+        assert _rel_close(got[1], want[1]) and _rel_close(got[2], want[2])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_fused_lookup_backward_is_deterministic(cuda, dt):
+    levels, coords, kern, bias = _lookup_inputs((8, 80, 180, 180),
+                                                torch.bfloat16, cuda,
+                                                nan=False)
+    ct = torch.randn((8, 80, 180, 64), device=cuda).to(dt)
+    a = fl.fused_lookup_backward(levels, coords, kern, bias, ct, R, dt)
+    b = fl.fused_lookup_backward(levels, coords, kern, bias, ct, R, dt)
+    assert all(_same(x, y) for x, y in zip(a[0], b[0]))
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+
+
+def test_fused_lookup_autograd_launches_and_no_coords_grad(cuda):
+    levels, coords, kern, bias = _lookup_inputs((1, 4, 32, 32),
+                                                torch.float32, cuda)
+    levels = [v.requires_grad_() for v in levels]
+    coords = coords.nan_to_num(0.0).requires_grad_()
+    kern = kern.t().contiguous().t().requires_grad_()  # a strided view
+    bias.requires_grad_()
+    before = (fl.fused_lookup_c1.launches, fl.fused_lookup_c1.bwd_launches)
+    out = fl.fused_lookup_c1(levels, coords, kern, bias, R)
+    ct = torch.randn(out.shape, device=cuda)
+    grads = torch.autograd.grad(out, (*levels, coords, kern, bias), ct,
+                                allow_unused=True)
+    assert (fl.fused_lookup_c1.launches,
+            fl.fused_lookup_c1.bwd_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    assert grads[4] is None
+    want = fl.fused_lookup_c1_backward_plain(
+        [v.detach() for v in levels], coords.detach(), kern.detach(),
+        bias.detach(), ct, R)
+    assert all(_close(a, b, torch.float32) for a, b in zip(grads[:4],
+                                                           want[0]))
+    assert _rel_close(grads[5], want[1]) and _rel_close(grads[6], want[2])
+
+
+def test_fused_lookup_wrapper_refuses_bad_inputs(cuda):
+    levels, coords, kern, bias = _lookup_inputs((1, 2, 16, 16),
+                                                torch.float32, cuda)
+    with pytest.raises(ValueError, match="4 levels|levels, want"):
+        fl.fused_lookup_c1(levels[:3], coords, kern, bias, R)
+    with pytest.raises(TypeError, match="dtype"):
+        fl.fused_lookup_c1([levels[0].bfloat16()] + levels[1:], coords, kern,
+                           bias, R)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fl.fused_lookup_c1(levels, coords.cpu(), kern, bias, R)
+    with pytest.raises(ValueError, match="radius"):
+        fl.fused_lookup_c1(levels, coords, kern, bias, 9)
+    with pytest.raises(ValueError, match="want kernel"):
+        fl.fused_lookup_c1(levels, coords, kern[:35], bias, R)
+
+
+@pytest.mark.parametrize("impl", ["reg", "reg_cuda"])
+def test_fused_lookup_model_train_step_matches_reg(cuda, impl):
+    # a 1/4-resolution grid 16x96: pyramid widths 96/48/24/12, all > 2r+2
+    _model_step_matches_reg(cuda, impl, fl.fused_lookup_c1,
+                            (2 * 3, 3), fused_lookup=True)

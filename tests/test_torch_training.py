@@ -131,10 +131,10 @@ def test_train_config_and_sceneflow_preset_match_jax():
                          ("refinement_save_policy", "corr"),
                          ("batched_scan_wgrad", True),
                          ("residual_dtype", "bfloat16"),
-                         ("deferred_upsample", False),
-                         ("fused_lookup", True)]:
+                         ("deferred_upsample", False)]:
         with pytest.raises(ValueError, match="not ported"):
             port_config(JConfig(**{field: value}))
+    assert port_config(JConfig(fused_lookup=True)).fused_lookup is True
     with pytest.raises(ValueError, match="grad_accum_steps"):
         tconfig.TrainConfig(grad_accum_steps=0)
 
