@@ -10,7 +10,7 @@ Phases, each reported as one JSON line, in the order they run:
 2. build   — builds every CUDA kernel of the paths (windowed_sample,
    fused_corr, alt_corr, fused_lookup) from the sources in
    raft_stereo_tpu_torch/csrc with nvcc (sm_90a), one nvcc each, all
-   started together; timed as set-up.
+   started together; timed as set-up, with each nvcc's seconds.
 3. parity  — the windowed_sample forward kernel against its plain PyTorch
    version on the card, at every pyramid-level shape of both inference
    configurations, with edge centers (integers, borders, +-1e9, NaN).
@@ -25,7 +25,10 @@ Phases, each reported as one JSON line, in the order they run:
    paths and at W2 <= 2r+2, the same edge centers: the forward 1e-5 abs,
    df1/df2 1e-5 abs (bf16 features: one bf16 ulp of the plain value where
    larger), NaN patterns equal, and two runs of each bitwise equal (df2 is
-   a deterministic scatter).
+   a deterministic scatter). fused_pyramid_parity: the one-launch forward
+   over 1 to 4 levels (the hires and train pyramids, smooth centers, a
+   pyramid down to W2 <= 2r+2) against its plain version, 1e-5 abs, two
+   runs bitwise equal and bitwise equal to the one-level launches.
 6. fused_memory — the memory contract: the 4-level fused lookup at the
    hires shape allocates its outputs plus less than 1/8 of one level-0
    volume, a level-0 backward df1 + df2 plus that margin.
@@ -48,9 +51,10 @@ Phases, each reported as one JSON line, in the order they run:
    median ms/frame, peak memory.
 10. hires — the default architecture with alt_cuda (the fused_corr
    kernels, fp32) on a 1988x2880 pair (padded to 2016x2880), 32
-   iterations: exactly 128 fused_corr launches and no windowed_sample
-   launch, finite output, median ms/frame over HIRES_RUNS warm frames;
-   peak memory at 2 iterations below reg_cuda's on the same pair.
+   iterations: exactly 32 fused_corr forward launches (one for the four
+   levels an iteration) and no windowed_sample launch, finite output,
+   median ms/frame over HIRES_RUNS warm frames; peak memory at 2
+   iterations below reg_cuda's on the same pair.
 11. cpu_parity — the default architecture on the same weights, fp32, 4
    iterations, on the card (kernel) and on the CPU (plain version), with
    reg_cuda, alt_cuda and alt_pallas at 64x160 and with reg_cuda +
@@ -68,7 +72,8 @@ Phases, each reported as one JSON line, in the order they run:
 14. train_fused, train_alt, train_fused_lookup — the same recipe with
    alt_cuda (bf16 features), with alt_pallas, and with reg_cuda +
    fused_lookup: the same checks, with the path's kernel launches
-   ((176, 88), (176, 88), (44, 22)) and none of the other kernels'.
+   ((44, 88): one forward launch an iteration, four backward; (176, 88);
+   (44, 22)) and none of the other kernels'.
 15. train_cpu_parity — one fp32 step of the default architecture, 2
    iterations, on the card (kernels) and on the CPU (plain versions):
    reg_cuda with the card's convolutions in cuDNN (as the main path runs
@@ -83,14 +88,17 @@ Phases, each reported as one JSON line, in the order they run:
    F.grid_sample for the forward, its backward (torch.autograd.grad on a
    prebuilt graph) for the backward (the reference's formulation; a
    yardstick only).
-17. fused_timings, alt_timings — per level, fused_corr's and alt_corr's
-   forwards at the hires levels (fp32; alt_corr also at the alt_pallas
-   frame's) and backwards at the train levels (bf16): time per launch,
-   bound (B2's function for both), plain time, and the reference's
-   several-call 'alt' formulation as a yardstick (no single PyTorch call
-   computes the function, so their kernels-line entries have library_ms
-   null); alt_corr's rows add the slab's flops and their time at the fp32
-   peak, outside the bound.
+17. fused_timings, alt_timings — fused_corr's forward in one launch for
+   the four hires levels (fp32) and the four train levels (bf16), and per
+   level; alt_corr's forward per level at the alt_pallas frame's, the
+   hires and the train levels; both backwards per train level (bf16).
+   Each on random centers (an independent disparity a pixel) with time
+   per launch, bound (B2's function for both), plain time and the
+   reference's several-call 'alt' formulation as a yardstick (no single
+   PyTorch call computes the function, so their kernels-line entries have
+   library_ms null), and on smooth centers (a low-frequency disparity
+   field, as a model makes) with time and bound; alt_corr's rows add the
+   slab's flops and their time at the fp32 peak, outside the bound.
 18. fused_lookup_timings — fused_lookup's forward at the default and
    realtime pyramids and its backward at the train pyramid: time per
    launch, bound, plain time and the unfused formulation (F.grid_sample
@@ -193,6 +201,21 @@ def window_centers(b, h, w1, w2, g, device, edges=True):
     return center
 
 
+def smooth_centers(b, h, w1, w2, g, device):
+    """Lookup centers as a model makes them: each pixel's own x less a
+    smooth, low-frequency disparity in [0, w2/4] (one period across the
+    row and one down the image, a random phase per batch element), so
+    neighbouring pixels look up nearly the same window."""
+    import torch
+    x = torch.arange(w1, device=device, dtype=torch.float32) * (w2 / w1)
+    phase = torch.rand((b, 2, 1, 1), generator=g, device=device)
+    xs = torch.arange(w1, device=device, dtype=torch.float32) / w1
+    ys = torch.arange(h, device=device, dtype=torch.float32)[:, None] / h
+    disp = (w2 / 8) * (1 + torch.sin(2 * math.pi * (xs + phase[:, 0]))
+                       * torch.cos(2 * math.pi * (ys + phase[:, 1])))
+    return (x - disp).contiguous()
+
+
 def lookup_inputs(shape, dtype, seed, device, edges=True):
     import torch
     b, h, w1, w2 = shape
@@ -201,15 +224,28 @@ def lookup_inputs(shape, dtype, seed, device, edges=True):
     return vol, window_centers(b, h, w1, w2, g, device, edges)
 
 
-def fused_inputs(shape, dtype, seed, device, edges=True):
+def fused_inputs(shape, dtype, seed, device, edges=True, field="random"):
     """Features ``fmap1 (B, H, W1, D)``, ``fmap2 (B, H, W2, D)`` and
-    centers for a ``(B, H, W1, W2, D)`` level shape."""
+    centers for a ``(B, H, W1, W2, D)`` level shape: ``field`` "random"
+    (window_centers, with ``edges``) or "smooth" (smooth_centers)."""
     import torch
     b, h, w1, w2, d = shape
     g = torch.Generator(device=device).manual_seed(seed)
     f1 = torch.randn((b, h, w1, d), generator=g, device=device).to(dtype)
     f2 = torch.randn((b, h, w2, d), generator=g, device=device).to(dtype)
+    if field == "smooth":
+        return f1, f2, smooth_centers(b, h, w1, w2, g, device)
     return f1, f2, window_centers(b, h, w1, w2, g, device, edges)
+
+
+def feature_pyramid(f2, n_levels):
+    """``f2`` and its pools along W (ops/geometry.pool_w2), as the model's
+    feature-pyramid state holds them: ``n_levels`` contiguous levels."""
+    from raft_stereo_tpu_torch.ops.geometry import pool_w2
+    levels = [f2]
+    for _ in range(n_levels - 1):
+        levels.append(pool_w2(levels[-1]).contiguous())
+    return levels
 
 
 def bound_ms(nbytes, flops, product_flops, product_dtype):
@@ -226,33 +262,42 @@ def bound_ms(nbytes, flops, product_flops, product_dtype):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def fused_bytes_flops(f1, f2, center, backward=False):
+def fused_bytes_flops(f1, levels, center, backward=False):
     """Least bytes, flops and product flops of one fused_corr launch on
-    these inputs. Forward: fmap1 and the fmap2 rows some in-range tap
-    touches read once, the center read and the fp32 output written; 2*D
-    product flops (on the features) per in-range tap and 3 flops per
-    output. Backward: the same reads plus the fp32 cotangent, df1 and df2
-    written whole; 4*D product flops per in-range tap (df1 and df2, read
-    from the features; counted at the features' peak, as a bound may only
-    err low) and 4 flops per tap for dg."""
+    these inputs; ``levels`` is one fmap2 level or a list of them, level i
+    looked up around center / 2**i (the one-launch forward). Forward:
+    fmap1 read once for all the levels, per level the fmap2 rows some
+    in-range tap touches read once, the center read and the fp32 output
+    written; 2*D product flops (on the features) per in-range tap and 3
+    flops per output. Backward (one level): the same reads plus the fp32
+    cotangent, df1 and df2 written whole; 4*D product flops per in-range
+    tap (df1 and df2, read from the features; counted at the features'
+    peak, as a bound may only err low) and 4 flops per tap for dg."""
     import torch
+    if torch.is_tensor(levels):
+        levels = [levels]
     b, h, w1, d = f1.shape
-    w2 = f2.shape[2]
     k = 2 * RADIUS + 1
-    c = torch.nan_to_num(center, nan=0.0).clamp(-1e8, 1e8)
-    taps = torch.floor(c).long()[..., None] - RADIUS + torch.arange(
-        k + 1, device=c.device)
-    valid = (taps >= 0) & (taps < w2)
-    n_valid = int(valid.sum().item())
-    touched = torch.zeros((b, h, w2 + 1), dtype=torch.bool, device=c.device)
-    touched.scatter_(2, torch.where(valid, taps, w2).reshape(b, h, -1), True)
-    rows = int(touched[..., :w2].sum().item())
     es = f1.element_size()
     n_pix = center.numel()
-    reads = f1.numel() * es + rows * d * es + n_pix * 4
+    reads = f1.numel() * es + n_pix * 4
+    n_valid = 0
+    c0 = torch.nan_to_num(center, nan=0.0).clamp(-1e8, 1e8)
+    for i, f2 in enumerate(levels):
+        w2 = f2.shape[2]
+        taps = torch.floor(c0 / (2 ** i)).long()[..., None] - RADIUS \
+            + torch.arange(k + 1, device=c0.device)
+        valid = (taps >= 0) & (taps < w2)
+        n_valid += int(valid.sum().item())
+        touched = torch.zeros((b, h, w2 + 1), dtype=torch.bool,
+                              device=c0.device)
+        touched.scatter_(2, torch.where(valid, taps, w2).reshape(b, h, -1),
+                         True)
+        reads += int(touched[..., :w2].sum().item()) * d * es
+    n_out = n_pix * k * len(levels)
     if not backward:
-        return reads + n_pix * k * 4, n_pix * k * 3, n_valid * 2 * d
-    writes = (f1.numel() + f2.numel()) * es
+        return reads + n_out * 4, n_out * 3, n_valid * 2 * d
+    writes = (f1.numel() + sum(f2.numel() for f2 in levels)) * es
     return reads + n_pix * k * 4 + writes, n_valid * 4, n_valid * 4 * d
 
 
@@ -568,6 +613,64 @@ def run_feature_parity(dev, phase, kernel, fns, seed, against=None):
     return errs
 
 
+def run_pyramid_parity(dev, fc):
+    """fused_corr's one-launch forward over 1 to 4 pyramid levels (level i
+    around center / 2**i), through the fused_corr_pyramid autograd Function
+    the model calls, against its plain version (the levels' plain
+    lookups concatenated): the hires pyramid (fp32, 4 levels), the
+    train_fused pyramid (bf16, 1 to 4 levels), the train pyramid on smooth
+    centers, and a narrow pyramid whose last levels have W2 <= 2r+2, with
+    the edge centers (random fields). Within KERNEL_TOL, NaN patterns
+    equal, far-out centers zero, two runs bitwise equal, bitwise equal to
+    the one-level launches concatenated, and one launch a call."""
+    import torch
+    err = 0.0
+    cases = [("hires", torch.float32, FUSED_SHAPES["hires"][0], "random",
+              (4,)),
+             ("train_fused", torch.bfloat16, FUSED_SHAPES["train_fused"][0],
+              "random", (1, 2, 3, 4)),
+             ("train_fused", torch.bfloat16, FUSED_SHAPES["train_fused"][0],
+              "smooth", (4,)),
+             ("narrow", torch.float32, (1, 4, 15, 15, 256), "random", (4,))]
+    for i, (cfg_name, dtype, shape, field, counts) in enumerate(cases):
+        f1, f2, center = fused_inputs(shape, dtype, SEED + 70 + i, dev,
+                                      field=field)
+        levels = feature_pyramid(f2, 4)
+        for n in counts:
+            before = fc.fused_corr.launches
+            out = fc.fused_corr_pyramid(f1, levels[:n], center, RADIUS)
+            again = fc.fused_corr_pyramid(f1, levels[:n], center, RADIUS)
+            check(fc.fused_corr.launches - before == 2,
+                  "fused_pyramid_parity: not one launch a call")
+            ones = torch.cat([fc.fused_corr(
+                f1, lv, center / (2 ** j), RADIUS)
+                for j, lv in enumerate(levels[:n])], dim=-1)
+            want = fc.fused_corr_pyramid_plain(f1, levels[:n], center,
+                                               RADIUS)
+            torch.cuda.synchronize()
+            e, ok = within_bound(out, want, torch.float32)
+            det = bitwise(out, again)
+            same = bitwise(out, ones)
+            emit("fused_pyramid_parity", config=cfg_name, field=field,
+                 shape=list(shape), levels=[lv.shape[2] for lv in
+                                            levels[:n]],
+                 dtype=str(dtype).replace("torch.", ""), max_abs_err=e,
+                 deterministic=det, bitwise_vs_one_level_launches=same)
+            check(ok, f"fused pyramid differs at {cfg_name} {field} {n}")
+            check(det and same, f"fused pyramid at {cfg_name} {field} {n}: "
+                                f"deterministic {det}, equal to the "
+                                f"one-level launches {same}")
+            if field == "random":
+                k = 2 * RADIUS + 1
+                check(bool(torch.isnan(out).any())
+                      and bool((out.view(-1, n * k)[6:8] == 0).all()),
+                      "fused pyramid: NaN or far-out centers mishandled")
+            err = max(err, e)
+            del out, again, ones, want
+        del f1, f2, levels, center
+    return err
+
+
 def run_feature_memory(dev, phase, impl, backward):
     """The memory contract of a feature-pyramid implementation (``fused``
     or ``alt_pallas``): the 4-level lookup at the hires shape allocates no
@@ -645,43 +748,61 @@ def alt_slab_flops(center, w2, d):
 
 
 def feature_timing(flush, backward, cfg_name, dtype, shape, seed, dev,
-                   kernel_fn, plain_fn, extra=None):
-    """One level's row for a feature-lookup kernel (fused_corr or
-    alt_corr, one function): the kernel's and its plain version's time per
-    call (forward ``fn(f1, f2, center, R)``, or backward ``fn(f1, f2,
-    center, ct, R)``), the bound (fused_bytes_flops), and the reference's
-    several-call 'alt' formulation as a yardstick (alt_yardstick).
-    ``extra(f1, f2, center)`` adds columns."""
+                   kernel_fn, plain_fn, extra=None, field="random",
+                   n_levels=0, full=True):
+    """One row for a feature-lookup kernel (fused_corr or alt_corr, one
+    function): the kernel's time per call (forward ``fn(f1, f2, center,
+    R)``, or backward ``fn(f1, f2, center, ct, R)``; with ``n_levels`` the
+    one-launch forward ``fn(f1, levels, center, R)`` over that many pooled
+    levels of ``shape``'s fmap2) on the ``field`` centers (fused_inputs),
+    and its bound (fused_bytes_flops). With ``full``, also the plain
+    version's time and the reference's several-call 'alt' formulation as a
+    yardstick (alt_yardstick, per level). ``extra(f1, f2, center)`` adds
+    columns."""
     import torch
-    f1, f2, center = fused_inputs(shape, dtype, seed, dev, edges=False)
+    f1, f2, center = fused_inputs(shape, dtype, seed, dev, edges=False,
+                                  field=field)
+    levels = feature_pyramid(f2, n_levels) if n_levels else [f2]
     ct = None
     if backward:
         g = torch.Generator(device=dev).manual_seed(seed + 5)
         ct = torch.randn(tuple(center.shape) + (2 * RADIUS + 1,),
                          generator=g, device=dev)
         args = (f1, f2, center, ct, RADIUS)
+    elif n_levels:
+        args = (f1, levels, center, RADIUS)
     else:
         args = (f1, f2, center, RADIUS)
-    nbytes, flops, product = fused_bytes_flops(f1, f2, center,
+    nbytes, flops, product = fused_bytes_flops(f1, levels, center,
                                                backward=backward)
     bound, bound_by = bound_ms(nbytes, flops, product, dtype)
-    yard = alt_yardstick(f1, f2, center, ct)
-    got, want = yard(), plain_fn(*args)
-    if not backward:
-        got, want = (got,), (want,)
-    yard_err = max((a.float() - b.float()).abs().max().item()
-                   for a, b in zip(got, want))
-    del got, want
-    row = dict(config=cfg_name, shape=list(shape),
+    row = dict(config=cfg_name, field=field, shape=list(shape),
+               levels=[lv.shape[2] for lv in levels],
                dtype=str(dtype).replace("torch.", ""),
                ms=cuda_ms(lambda: kernel_fn(*args), flush),
-               plain_ms=cuda_ms(lambda: plain_fn(*args), flush),
-               yardstick_ms=cuda_ms(yard, flush),
-               yardstick_max_abs_diff=yard_err,
                bound_ms=bound, bound_by=bound_by,
-               bytes=nbytes, flops=flops + product,
-               **(extra(f1, f2, center) if extra else {}))
-    del yard, f1, f2, center, ct
+               bytes=nbytes, flops=flops + product)
+    if full:
+        yards = [alt_yardstick(f1, lv, center / (2 ** i), ct)
+                 for i, lv in enumerate(levels)]
+
+        def yard():
+            return [y() for y in yards]
+        got, want = yard(), plain_fn(*args)
+        if backward:
+            got = got[0]
+        else:
+            got, want = (torch.cat(got, dim=-1),), (want,)
+        yard_err = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(got, want))
+        del got, want
+        row.update(plain_ms=cuda_ms(lambda: plain_fn(*args), flush),
+                   yardstick_ms=cuda_ms(yard, flush),
+                   yardstick_max_abs_diff=yard_err)
+        del yards
+    if extra:
+        row.update(extra(f1, f2, center))
+    del f1, f2, levels, center, ct
     return row
 
 
@@ -870,7 +991,7 @@ def run_hires(dev, fc, windowed_sample, model_seed):
     windowed_sample.launches = 0
     flow, _ = pred.predict_timed(left, right)
     launches = (fc.fused_corr.launches, windowed_sample.launches)
-    want = (cfg.corr_levels * iters, 0)
+    want = (iters, 0)  # one fused_corr launch for the four levels
     check(launches == want, f"hires: (fused_corr, windowed_sample) "
                             f"launches {launches}, expected {want}")
     check(flow.shape == (1, h, w, 1), f"hires: shape {flow.shape}")
@@ -902,12 +1023,13 @@ def run_hires(dev, fc, windowed_sample, model_seed):
 
 
 def run_train(dev, impl, kernel, others, model_seed, phase="train",
-              per_iter=4, **overrides):
+              per_iter=4, per_iter_bwd=None, **overrides):
     """Timed training steps at the SceneFlow recipe's shape with ``impl``
     (and the config ``overrides``): each step launches ``kernel``'s forward
     ``per_iter`` x 22 times and as many again recomputed, its backward
-    ``per_iter`` x 22 times, and the kernels of ``others`` never. For
-    reg_cuda (phase "train"), then an injected NaN step."""
+    ``per_iter_bwd`` (default ``per_iter``) x 22 times, and the kernels of
+    ``others`` never. For reg_cuda (phase "train"), then an injected NaN
+    step."""
     import torch
     from raft_stereo_tpu_torch.config import sceneflow_config
     from raft_stereo_tpu_torch.models import RAFTStereo
@@ -928,7 +1050,8 @@ def run_train(dev, impl, kernel, others, model_seed, phase="train",
     torch.cuda.synchronize()
     start = [p.detach().clone() for p in model.parameters()]
     torch.cuda.reset_peak_memory_stats(dev)
-    want = (2 * per_iter * iters, per_iter * iters)
+    want = (2 * per_iter * iters,
+            (per_iter if per_iter_bwd is None else per_iter_bwd) * iters)
     secs, losses, norms = [], [], []
     for _ in range(TRAIN_STEPS):
         for k in (kernel, *others):
@@ -1077,11 +1200,13 @@ def main():
     t0 = time.perf_counter()
     kernel_names = [ws_mod.KERNEL_NAME, fc.KERNEL_NAME, ac.KERNEL_NAME,
                     fl.KERNEL_NAME]
-    _build.build_all(kernel_names)  # one nvcc a source, all together
+    # one nvcc a source, all started together
+    nvcc_seconds = _build.build_all(kernel_names)
     for name in kernel_names:
         _build.load_library(name)
     emit("build", kernels=kernel_names,
-         seconds=round(time.perf_counter() - t0, 3))
+         seconds=round(time.perf_counter() - t0, 3),
+         nvcc_seconds={k: round(v, 1) for k, v in nvcc_seconds.items()})
 
     # level shapes of both inference configurations (384x1248 padded) and
     # of the training batch (8 x 320x720, bf16 volume)
@@ -1167,6 +1292,10 @@ def main():
          fc.fused_corr_backward_plain), SEED + 60)
     check(fused_err["fwd"] <= KERNEL_TOL,
           f"fused forward error {fused_err['fwd']} > {KERNEL_TOL}")
+    pyramid_err = run_pyramid_parity(dev, fc)
+    check(pyramid_err <= KERNEL_TOL,
+          f"fused pyramid error {pyramid_err} > {KERNEL_TOL}")
+    fused_err["fwd"] = max(fused_err["fwd"], pyramid_err)
     run_feature_memory(dev, "fused_memory", "fused", fc.fused_corr_backward)
 
     # alt_corr: kernels against plain and against fused_corr, the memory
@@ -1232,7 +1361,7 @@ def main():
     # lookup at 64x352, the narrowest pair whose pyramid it takes)
     for impl, kernel, (h, w), per_iter, extra in (
             ("reg_cuda", windowed_sample, (64, 160), 4, {}),
-            ("alt_cuda", fused_corr, (64, 160), 4, {}),
+            ("alt_cuda", fused_corr, (64, 160), 1, {}),
             ("alt_pallas", alt_corr, (64, 160), 4, {}),
             ("reg_cuda", fused_lookup_c1, (64, 352), 1,
              {"fused_lookup": True})):
@@ -1263,7 +1392,8 @@ def main():
     train = run_train(dev, "reg_cuda", windowed_sample,
                       others(windowed_sample), SEED)
     train_fused = run_train(dev, "alt_cuda", fused_corr, others(fused_corr),
-                            SEED, phase="train_fused")
+                            SEED, phase="train_fused", per_iter=1,
+                            per_iter_bwd=4)
     train_alt = run_train(dev, "alt_pallas", alt_corr, others(alt_corr),
                           SEED, phase="train_alt")
     train_lookup = run_train(dev, "reg_cuda", fused_lookup_c1,
@@ -1278,7 +1408,7 @@ def main():
             ("reg_cuda", windowed_sample, (("cudnn", True),
                                            ("cudnn_off", False)),
              (64, 160), (16, 8), {}),
-            ("alt_cuda", fused_corr, (("cudnn", True),), (64, 160), (16, 8),
+            ("alt_cuda", fused_corr, (("cudnn", True),), (64, 160), (4, 8),
              {}),
             ("alt_pallas", alt_corr, (("cudnn", True),), (64, 160), (16, 8),
              {}),
@@ -1353,41 +1483,63 @@ def main():
         bwd_levels.append(row)
         emit("bwd_timings", **row)
 
-    # fused_corr and alt_corr per level: the forwards at the hires levels
-    # (fp32; alt_corr also at its own inference path's, the default frame
-    # with alt_pallas), the backwards at the train levels (bf16). No single
-    # PyTorch call computes their function: the yardstick is the
-    # reference's several-call 'alt' formulation (alt_yardstick), reported
-    # as yardstick_ms. alt_corr's rows add the slab's flops (alt_slab_flops)
-    # and their time at the fp32 peak, outside the bound.
+    # fused_corr and alt_corr: fused_corr's forward as the main paths run it
+    # (one launch for the four levels of the hires frame and of the
+    # train_fused step) and per level; alt_corr's forward at its own
+    # inference path's levels (the default frame with alt_pallas), at the
+    # hires and the train levels; both backwards at the train levels. Each
+    # on two center fields: "random" (an independent disparity a pixel,
+    # the worst case for the staged span) with the plain version and the
+    # yardstick, and "smooth" (smooth_centers, as a model's disparities
+    # are) with the kernel's time and bound only. No single PyTorch call
+    # computes their function: the yardstick is the reference's several-call
+    # 'alt' formulation (alt_yardstick), reported as yardstick_ms. alt_corr's
+    # rows add the slab's flops (alt_slab_flops) and their time at the fp32
+    # peak, outside the bound.
     def slab(f1, f2, center):
         flops = alt_slab_flops(center, f2.shape[2], f1.shape[3])
         return dict(slab_flops=flops,
                     slab_fp32_ms=flops / FP32_FLOPS_PER_S * 1e3)
-    fused_rows = {"fwd": [], "bwd": []}
-    alt_rows = {"fwd": [], "fwd_hires": [], "bwd": []}
-    for rows, which, backward, cfg_name, dtype, shapes, seed, fns, extra in (
-            (fused_rows, "fwd", False, "hires", torch.float32,
-             FUSED_SHAPES["hires"], SEED + 90,
-             (fc.fused_corr_forward, fc.fused_corr_plain), None),
+    hires0, train0 = FUSED_SHAPES["hires"][0], FUSED_SHAPES["train_fused"][0]
+    fused_fwd = (fc.fused_corr_forward, fc.fused_corr_plain)
+    fused_pyr = (fc.fused_corr_pyramid_forward, fc.fused_corr_pyramid_plain)
+    alt_fwd = (ac.alt_corr_forward, ac.alt_corr_plain)
+    fused_rows = {k: [] for k in ("fwd", "fwd_level", "fwd_train",
+                                  "fwd_train_level", "bwd")}
+    alt_rows = {k: [] for k in ("fwd", "fwd_hires", "fwd_train", "bwd")}
+    for rows, which, backward, cfg_name, dtype, shapes, seed, fns, extra, \
+            n_levels in (
+            (fused_rows, "fwd", False, "hires", torch.float32, [hires0],
+             SEED + 90, fused_pyr, None, 4),
+            (fused_rows, "fwd_level", False, "hires", torch.float32,
+             FUSED_SHAPES["hires"], SEED + 90, fused_fwd, None, 0),
+            (fused_rows, "fwd_train", False, "train_fused", torch.bfloat16,
+             [train0], SEED + 95, fused_pyr, None, 4),
+            (fused_rows, "fwd_train_level", False, "train_fused",
+             torch.bfloat16, FUSED_SHAPES["train_fused"], SEED + 95,
+             fused_fwd, None, 0),
             (fused_rows, "bwd", True, "train_fused", torch.bfloat16,
              FUSED_SHAPES["train_fused"], SEED + 95,
-             (fc.fused_corr_backward, fc.fused_corr_backward_plain), None),
+             (fc.fused_corr_backward, fc.fused_corr_backward_plain), None,
+             0),
             (alt_rows, "fwd", False, "alt_pallas", torch.float32,
-             ALT_DEFAULT_SHAPES, SEED + 140,
-             (ac.alt_corr_forward, ac.alt_corr_plain), slab),
+             ALT_DEFAULT_SHAPES, SEED + 140, alt_fwd, slab, 0),
             (alt_rows, "fwd_hires", False, "hires", torch.float32,
-             FUSED_SHAPES["hires"], SEED + 90,
-             (ac.alt_corr_forward, ac.alt_corr_plain), slab),
+             FUSED_SHAPES["hires"], SEED + 90, alt_fwd, slab, 0),
+            (alt_rows, "fwd_train", False, "train_alt", torch.bfloat16,
+             FUSED_SHAPES["train_fused"], SEED + 95, alt_fwd, slab, 0),
             (alt_rows, "bwd", True, "train_alt", torch.bfloat16,
              FUSED_SHAPES["train_fused"], SEED + 95,
-             (ac.alt_corr_backward, ac.alt_corr_backward_plain), None)):
-        for i, shape in enumerate(shapes):
-            row = feature_timing(flush, backward, cfg_name, dtype, shape,
-                                 seed + i, dev, *fns, extra=extra)
-            rows[which].append(row)
-            emit("fused_timings" if rows is fused_rows else "alt_timings",
-                 kernel=which, **row)
+             (ac.alt_corr_backward, ac.alt_corr_backward_plain), None, 0)):
+        for field in ("random", "smooth"):
+            for i, shape in enumerate(shapes):
+                row = feature_timing(flush, backward, cfg_name, dtype, shape,
+                                     seed + i, dev, *fns, extra=extra,
+                                     field=field, n_levels=n_levels,
+                                     full=field == "random")
+                rows[which].append(row)
+                emit("fused_timings" if rows is fused_rows else
+                     "alt_timings", kernel=which, **row)
 
     # fused_lookup: one launch looks up all 4 levels; forward at the
     # default and realtime frames, backward at the train batch. The
@@ -1441,6 +1593,12 @@ def main():
 
     def mean(rows, key):
         return sum(r[key] for r in rows) / len(rows)
+
+    def rnd(rows):
+        return [r for r in rows if r["field"] == "random"]
+
+    def smooth(rows):
+        return [r for r in rows if r["field"] == "smooth"]
     print(json.dumps({"kernels": [{
         "name": ws_mod.KERNEL_NAME, "route": "cuda",
         "source": ws_mod.SOURCE, "replaces": ws_mod.REPLACES,
@@ -1470,9 +1628,11 @@ def main():
         "source": fc.SOURCE, "replaces": replaces,
         "launches": launches, **extra,
         "max_abs_err": fused_err[which],
-        "ms": mean(rows, "ms"), "plain_ms": mean(rows, "plain_ms"),
-        "bound_ms": mean(rows, "bound_ms"), "bound_by": rows[0]["bound_by"],
-        "library_ms": None, "yardstick_ms": mean(rows, "yardstick_ms"),
+        "ms": mean(rnd(rows), "ms"), "plain_ms": mean(rnd(rows), "plain_ms"),
+        "bound_ms": mean(rnd(rows), "bound_ms"),
+        "bound_by": rnd(rows)[0]["bound_by"],
+        "library_ms": None, "yardstick_ms": mean(rnd(rows), "yardstick_ms"),
+        "ms_smooth_centers": mean(smooth(rows), "ms"),
         "yardstick": "several calls: the reference's alt formulation "
                      "(F.grid_sample of fmap2 at the taps, product with "
                      "fmap1, sum over D); no single PyTorch call computes "
@@ -1480,20 +1640,27 @@ def main():
         "timed_at": timed_at,
     } for which, suffix, replaces, launches, extra, rows, timed_at in (
         ("fwd", "", fc.REPLACES, hires["launches"],
-         {"launches_train_step": train_fused["launches_fwd"]},
-         fused_rows["fwd"], "mean per launch over the hires path's 4 levels "
-         "(1,504,720,{720,360,180,90},256) fp32, L2 flushed"),
+         {"launches_train_step": train_fused["launches_fwd"],
+          "ms_train": rnd(fused_rows["fwd_train"])[0]["ms"],
+          "ms_levels_one_each": [r["ms"] for r in rnd(
+              fused_rows["fwd_level"])]},
+         fused_rows["fwd"], "per launch: one launch for the hires path's 4 "
+         "levels (1,504,720,{720,360,180,90},256) fp32 on random centers, "
+         "L2 flushed"),
         ("bwd", "_bwd", fc.REPLACES_BWD, train_fused["launches_bwd"], {},
          fused_rows["bwd"], "mean per launch over the train_fused step's 4 "
-         "levels (8,80,180,{180,90,45,22},256) bf16, L2 flushed"))] + [{
+         "levels (8,80,180,{180,90,45,22},256) bf16 on random centers, L2 "
+         "flushed"))] + [{
         "name": ac.KERNEL_NAME + suffix, "route": "cuda",
         "source": ac.SOURCE, "replaces": replaces,
         "launches": launches, **extra,
         "max_abs_err": alt_err[which],
         "max_abs_diff_fused_corr": alt_err[which + "_vs_other"],
-        "ms": mean(rows, "ms"), "plain_ms": mean(rows, "plain_ms"),
-        "bound_ms": mean(rows, "bound_ms"), "bound_by": rows[0]["bound_by"],
-        "library_ms": None, "yardstick_ms": mean(rows, "yardstick_ms"),
+        "ms": mean(rnd(rows), "ms"), "plain_ms": mean(rnd(rows), "plain_ms"),
+        "bound_ms": mean(rnd(rows), "bound_ms"),
+        "bound_by": rnd(rows)[0]["bound_by"],
+        "library_ms": None, "yardstick_ms": mean(rnd(rows), "yardstick_ms"),
+        "ms_smooth_centers": mean(smooth(rows), "ms"),
         "yardstick": "several calls: the reference's alt formulation "
                      "(F.grid_sample of fmap2 at the taps, product with "
                      "fmap1, sum over D); no single PyTorch call computes "
@@ -1502,14 +1669,18 @@ def main():
     } for which, suffix, replaces, launches, extra, rows, timed_at in (
         ("fwd", "", ac.REPLACES, main["alt_pallas"]["launches"],
          {"launches_train_step": train_alt["launches_fwd"],
-          "slab_fp32_ms": mean(alt_rows["fwd"], "slab_fp32_ms"),
-          "ms_hires": mean(alt_rows["fwd_hires"], "ms"),
-          "bound_ms_hires": mean(alt_rows["fwd_hires"], "bound_ms")},
+          "slab_fp32_ms": mean(rnd(alt_rows["fwd"]), "slab_fp32_ms"),
+          "ms_hires": mean(rnd(alt_rows["fwd_hires"]), "ms"),
+          "bound_ms_hires": mean(rnd(alt_rows["fwd_hires"]), "bound_ms"),
+          "ms_train": mean(rnd(alt_rows["fwd_train"]), "ms"),
+          "bound_ms_train": mean(rnd(alt_rows["fwd_train"]), "bound_ms")},
          alt_rows["fwd"], "mean per launch over the alt_pallas frame's 4 "
-         "levels (1,96,312,{312,156,78,39},256) fp32, L2 flushed"),
+         "levels (1,96,312,{312,156,78,39},256) fp32 on random centers, L2 "
+         "flushed"),
         ("bwd", "_bwd", ac.REPLACES_BWD, train_alt["launches_bwd"], {},
          alt_rows["bwd"], "mean per launch over the train_alt step's 4 "
-         "levels (8,80,180,{180,90,45,22},256) bf16, L2 flushed"))] + [{
+         "levels (8,80,180,{180,90,45,22},256) bf16 on random centers, L2 "
+         "flushed"))] + [{
         "name": fl.KERNEL_NAME + suffix, "route": "cuda",
         "source": fl.SOURCE, "replaces": replaces,
         "launches": launches, **extra,

@@ -1,7 +1,7 @@
 // Helpers shared by the port's lookup kernels (windowed_sample, fused_corr,
-// alt_corr, fused_lookup): loads and stores in the tensor's dtype, the
-// window's base, the taps' gradient and the dispatch of a radius onto its
-// compile-time instantiation.
+// alt_corr, fused_lookup): loads and stores in the tensor's dtype, 16-byte
+// feature chunks, the window's base, the taps' gradient and the dispatch of
+// a radius onto its compile-time instantiation.
 //
 // Every kernel must compute window_base bit for bit alike (their results are
 // compared with each other and with the plain PyTorch versions), so it lives
@@ -53,6 +53,67 @@ __device__ __forceinline__ void tap_grads(const float* ctp, float frac, float sc
     dg[j] = __fmul_rn(__fadd_rn(__fmul_rn(1.0f - frac, ct_j), __fmul_rn(frac, ct_prev)),
                       scale);
   }
+}
+
+// ---------------------------------------------- 16-byte feature chunks
+//
+// The staged kernels (fused_corr's forward, alt_corr's backward) move
+// feature rows between device and shared memory 16 bytes at a time: V16<T>
+// elements of T, widened to fp32 for the arithmetic (exactly: a bf16 is the
+// high half of an fp32).
+
+template <typename T>
+struct V16 {
+  static constexpr int n = 16 / (int)sizeof(T);
+};
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Elements [first, first + V16) of `row`, zero past d. With `vec` (row
+// 16-byte aligned and d a multiple of V16) one 16-byte load.
+template <typename T>
+__device__ __forceinline__ uint4 load16(const T* row, int first, int d, bool vec) {
+  constexpr int V = V16<T>::n;
+  if (vec && first + V <= d) return __ldg(reinterpret_cast<const uint4*>(row + first));
+  alignas(16) T t[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) t[e] = first + e < d ? row[first + e] : from_float(0.0f, (T*)nullptr);
+  return *reinterpret_cast<const uint4*>(t);
+}
+
+__device__ __forceinline__ void unpack16(uint4 u, float* x, float*) {
+  x[0] = __uint_as_float(u.x);
+  x[1] = __uint_as_float(u.y);
+  x[2] = __uint_as_float(u.z);
+  x[3] = __uint_as_float(u.w);
+}
+
+__device__ __forceinline__ void unpack16(uint4 u, float* x, __nv_bfloat16*) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Writes x[0, V16) rounded to T as elements [first, first + V16) of `row`,
+// none past d.
+template <typename T>
+__device__ __forceinline__ void store16(T* row, int first, int d, bool vec, const float* x) {
+  constexpr int V = V16<T>::n;
+  if (vec && first + V <= d) {
+    alignas(16) T t[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) t[e] = from_float(x[e], (T*)nullptr);
+    *reinterpret_cast<uint4*>(row + first) = *reinterpret_cast<const uint4*>(t);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+    if (first + e < d) row[first + e] = from_float(x[e], (T*)nullptr);
 }
 
 }  // namespace

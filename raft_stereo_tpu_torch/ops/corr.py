@@ -15,8 +15,9 @@ current disparity coordinates. Five implementations are registered:
   kernels build each level's correlation slab tile by tile on-chip and
   take its window, forward and backward.
 * ``fused`` (``alt_cuda``, ``fused_cuda``, ``memoryless``) — the same
-  state; the hand-written ``fused_corr`` CUDA kernels compute each level's
-  taps from the features, forward and backward.
+  state; the hand-written ``fused_corr`` CUDA kernels compute the taps
+  from the features: one forward launch for the four levels, and a
+  backward launch per level.
 
 On CPU tensors the kernels' wrappers take their plain versions; on CUDA
 tensors they launch the kernels or raise.
@@ -33,7 +34,8 @@ import torch
 
 from raft_stereo_tpu_torch.ops.geometry import pool_last_axis2, pool_w2
 from raft_stereo_tpu_torch.ops.kernels.alt_corr import alt_corr
-from raft_stereo_tpu_torch.ops.kernels.fused_corr import fused_corr
+from raft_stereo_tpu_torch.ops.kernels.fused_corr import (MAX_LEVELS,
+                                                          fused_corr_pyramid)
 from raft_stereo_tpu_torch.ops.kernels.windowed_sample import windowed_sample
 from raft_stereo_tpu_torch.ops.sampler import windowed_linear_sample
 
@@ -111,6 +113,16 @@ def _lookup_features(corr: Callable) -> Callable:
     return lookup
 
 
+def _lookup_fused(state: CorrState, coords_x: torch.Tensor) -> torch.Tensor:
+    """The ``fused`` lookup: one ``fused_corr_pyramid`` call (one forward
+    launch) per MAX_LEVELS levels, level ``i`` at ``coords_x / 2**i``, in
+    the ``reg`` channel order."""
+    out = [fused_corr_pyramid(state.fmap1, state.levels[i:i + MAX_LEVELS],
+                              coords_x / (2 ** i), state.radius)
+           for i in range(0, len(state.levels), MAX_LEVELS)]
+    return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
+
+
 def _lookup_with(sample: Callable) -> Callable:
     def lookup(state: CorrState, coords_x: torch.Tensor) -> torch.Tensor:
         """Per-level window sample at ``coords_x / 2**i``; channel order is
@@ -144,7 +156,7 @@ register_corr("alt", functools.partial(_build_features, impl="alt"),
 register_corr("alt_pallas",
               functools.partial(_build_features, impl="alt_pallas"),
               _lookup_features(alt_corr))
-register_corr("fused", _build_features, _lookup_features(fused_corr))
+register_corr("fused", _build_features, _lookup_fused)
 
 
 def init_corr(impl: str, fmap1: torch.Tensor, fmap2: torch.Tensor, *,

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from typing import Dict, Iterable
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -59,8 +60,8 @@ def library_path(name: str) -> str:
 
 
 def _start_build(name: str):
-    """Start nvcc for kernel ``name``; returns (popen, tmp, final) or None
-    when the library is already built."""
+    """Start nvcc for kernel ``name``; returns (popen, tmp, final, log) or
+    None when the library is already built."""
     final = library_path(name)
     if os.path.exists(final):
         return None
@@ -68,26 +69,42 @@ def _start_build(name: str):
     tmp = f"{final}.{os.getpid()}.tmp"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
            os.path.join(CSRC_DIR, f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-    return proc, tmp, final
+    log = open(f"{tmp}.log", "w+")  # a file: nvcc never blocks on a pipe
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, final, log
 
 
 def _finish_build(name: str, job) -> None:
-    proc, tmp, final = job
-    out, err = proc.communicate()
+    proc, tmp, final, log = job
+    proc.wait()
+    log.seek(0)
+    out = log.read()
+    log.close()
+    os.remove(log.name)
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise RuntimeError(f"nvcc failed to build kernel {name!r} "
-                           f"(exit {proc.returncode}):\n{err}{out}")
+                           f"(exit {proc.returncode}):\n{out}")
     os.replace(tmp, final)  # atomic: a reader never sees a partial library
 
 
-def build_all(names: Iterable[str]) -> None:
+def build_all(names: Iterable[str]) -> Dict[str, float]:
     """Build every kernel in ``names`` with one nvcc each, all started
-    together; raises with nvcc's stderr if any build fails."""
+    together; raises with nvcc's output if any build fails. Returns each
+    built kernel's seconds from the common start to its nvcc's exit (an
+    already built kernel is left out)."""
+    start = time.perf_counter()
     jobs = {name: _start_build(name) for name in names}
+    pending = {name: job for name, job in jobs.items() if job is not None}
+    seconds: Dict[str, float] = {}
+    while pending:
+        for name, job in list(pending.items()):
+            if job[0].poll() is not None:
+                seconds[name] = time.perf_counter() - start
+                del pending[name]
+        time.sleep(0.05)
     errors = []
     for name, job in jobs.items():
         if job is None:
@@ -98,6 +115,7 @@ def build_all(names: Iterable[str]) -> None:
             errors.append(str(exc))
     if errors:
         raise RuntimeError("\n".join(errors))
+    return seconds
 
 
 def load_library(name: str) -> ctypes.CDLL:

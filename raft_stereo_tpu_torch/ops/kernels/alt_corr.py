@@ -85,7 +85,7 @@ def _library() -> ctypes.CDLL:
         lib.alt_corr_bwd.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.alt_corr_bwd.restype = ctypes.c_int
         lib.alt_corr_error_string.argtypes = [ctypes.c_int]
@@ -130,8 +130,9 @@ def alt_corr_backward(fmap1: torch.Tensor, fmap2: torch.Tensor,
                                  Optional[torch.Tensor]]:
     """Launch the backward kernels on CUDA tensors (one launch counted in
     ``alt_corr.bwd_launches``): ``(df1, df2)`` in the feature dtype, each
-    None unless asked for. Two runs on the same inputs are bitwise
-    equal."""
+    None unless asked for. The band (each pixel's window base and tap
+    gradients) is computed once into a scratch buffer of ``2r+3`` words a
+    pixel. Two runs on the same inputs are bitwise equal."""
     check_feature_inputs("alt_corr", fmap1, fmap2, center, radius)
     b, h, w1, d = fmap1.shape
     w2 = fmap2.shape[2]
@@ -152,11 +153,13 @@ def alt_corr_backward(fmap1: torch.Tensor, fmap2: torch.Tensor,
                 None if df2 is None else df2.zero_())
     stream = torch.cuda.current_stream(fmap1.device).cuda_stream
     lib = _library()
+    scratch = torch.empty(b * h * w1 * (k + 2), dtype=torch.int32,
+                          device=fmap1.device)
     rc = lib.alt_corr_bwd(
         fmap1.data_ptr(), fmap2.data_ptr(), center.data_ptr(), ct.data_ptr(),
         None if df1 is None else df1.data_ptr(),
-        None if df2 is None else df2.data_ptr(), b * h, w1, w2, d, radius,
-        DTYPE_CODES[fmap1.dtype], stream)
+        None if df2 is None else df2.data_ptr(), scratch.data_ptr(), b * h,
+        w1, w2, d, radius, DTYPE_CODES[fmap1.dtype], stream)
     _raise_on(lib, rc, "backward")
     alt_corr.bwd_launches += 1
     return df1, df2

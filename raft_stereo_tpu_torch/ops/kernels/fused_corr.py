@@ -5,11 +5,17 @@ The kernels (``csrc/fused_corr.cu``) replace the forward and the backward of
 ``raft_stereo_tpu/ops/pallas/corr_kernels.py::fused_windowed_corr_pallas``:
 the ``2r+1`` windowed taps of the correlation of ``fmap1`` with one pyramid
 level of ``fmap2``, computed from the features directly, so no ``(W1, W2)``
-volume exists, forward or backward. :func:`fused_corr` is a
-``torch.autograd.Function``: CUDA tensors launch the forward kernel, and
-the backward kernels when a gradient is taken, or raise; CPU tensors take
-the plain PyTorch versions (:func:`fused_corr_plain` and
-:func:`fused_corr_backward_plain`), which gather one tap at a time and
+volume exists, forward or backward. One forward launch serves 1 to 4
+levels (level ``i`` around ``center / 2**i``), reading ``fmap1`` once.
+
+* :func:`fused_corr` — one level, a ``torch.autograd.Function``;
+* :func:`fused_corr_pyramid` — 1 to 4 levels in one forward launch, their
+  taps concatenated as the ``reg`` lookup orders them; its backward runs
+  the per-level backward kernels.
+
+CUDA tensors launch the kernels, or raise; CPU tensors take the plain
+PyTorch versions (:func:`fused_corr_plain`, :func:`fused_corr_pyramid_plain`
+and :func:`fused_corr_backward_plain`), which gather one tap at a time and
 never build a volume either. There is no gradient for the center.
 """
 
@@ -30,6 +36,7 @@ REPLACES = "raft_stereo_tpu/ops/pallas/corr_kernels.py:546"
 REPLACES_BWD = "raft_stereo_tpu/ops/pallas/corr_kernels.py:575"
 
 MAX_RADIUS = 8  # the kernels keep the 2r+2 taps in registers
+MAX_LEVELS = 4  # fmap2 levels one forward launch takes
 # shared memory a block may use on an H100 (227 KB, by opt-in)
 SMEM_PER_BLOCK = 232448
 
@@ -71,6 +78,15 @@ def fused_corr_plain(fmap1: torch.Tensor, fmap2: torch.Tensor,
     return (1.0 - frac) * g[..., :k] + frac * g[..., 1:]
 
 
+def fused_corr_pyramid_plain(fmap1: torch.Tensor, levels, center: torch.Tensor,
+                             radius: int) -> torch.Tensor:
+    """:func:`fused_corr_plain` of ``fmap1`` with each level ``levels[i]
+    (B, H, W2_i, D)`` around ``center / 2**i``, concatenated: ``(B, H, W1,
+    len(levels) * (2r+1))`` float32."""
+    return torch.cat([fused_corr_plain(fmap1, f2, center / (2 ** i), radius)
+                      for i, f2 in enumerate(levels)], dim=-1)
+
+
 def fused_corr_backward_plain(
         fmap1: torch.Tensor, fmap2: torch.Tensor, center: torch.Tensor,
         ct: torch.Tensor, radius: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -102,9 +118,10 @@ def _library() -> ctypes.CDLL:
     lib = load_library(KERNEL_NAME)
     if lib.fused_corr_fwd.argtypes is None:
         lib.fused_corr_fwd.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.fused_corr_fwd.restype = ctypes.c_int
         lib.fused_corr_bwd.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -168,27 +185,44 @@ def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
             f"({lib.fused_corr_error_string(rc).decode()})")
 
 
-def fused_corr_forward(fmap1: torch.Tensor, fmap2: torch.Tensor,
-                       center: torch.Tensor, radius: int) -> torch.Tensor:
-    """Launch the forward kernel on CUDA tensors (counted in
-    ``fused_corr.launches``); no autograd."""
-    check_feature_inputs("fused_corr", fmap1, fmap2, center, radius)
+def fused_corr_pyramid_forward(fmap1: torch.Tensor, levels, center: torch.Tensor,
+                               radius: int) -> torch.Tensor:
+    """Launch the forward kernel once for 1 to MAX_LEVELS levels on CUDA
+    tensors (counted in ``fused_corr.launches``): ``(B, H, W1, len(levels)
+    * (2r+1))`` float32, level ``i`` around ``center / 2**i``; no
+    autograd. Every level must match ``fmap1``'s batch, height, D, dtype
+    and device."""
+    levels = tuple(levels)
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f"fused_corr: {len(levels)} levels, want 1 to "
+                         f"{MAX_LEVELS}")
+    for f2 in levels:
+        check_feature_inputs("fused_corr", fmap1, f2, center, radius)
     b, h, w1, d = fmap1.shape
-    out = torch.empty((b, h, w1, 2 * radius + 1), dtype=torch.float32,
+    k = 2 * radius + 1
+    out = torch.empty((b, h, w1, len(levels) * k), dtype=torch.float32,
                       device=fmap1.device)
     if out.numel() == 0:
         return out
-    if fmap2.shape[2] == 0 or d == 0:
+    if d == 0 or all(f2.shape[2] == 0 for f2 in levels):
         return out.zero_()
     stream = torch.cuda.current_stream(fmap1.device).cuda_stream
     lib = _library()
-    rc = lib.fused_corr_fwd(fmap1.data_ptr(), fmap2.data_ptr(),
-                            center.data_ptr(), out.data_ptr(), b * h, w1,
-                            fmap2.shape[2], d, radius,
-                            DTYPE_CODES[fmap1.dtype], stream)
+    ptrs = (ctypes.c_void_p * MAX_LEVELS)(*[f2.data_ptr() for f2 in levels])
+    widths = (ctypes.c_int * MAX_LEVELS)(*[f2.shape[2] for f2 in levels])
+    rc = lib.fused_corr_fwd(fmap1.data_ptr(), ptrs, widths, len(levels),
+                            center.data_ptr(), out.data_ptr(), b * h, w1, d,
+                            radius, DTYPE_CODES[fmap1.dtype], stream)
     _raise_on(lib, rc, "forward")
     fused_corr.launches += 1
     return out
+
+
+def fused_corr_forward(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                       center: torch.Tensor, radius: int) -> torch.Tensor:
+    """Launch the forward kernel for one level on CUDA tensors (counted in
+    ``fused_corr.launches``); no autograd."""
+    return fused_corr_pyramid_forward(fmap1, (fmap2,), center, radius)
 
 
 def fused_corr_backward(fmap1: torch.Tensor, fmap2: torch.Tensor,
@@ -239,31 +273,44 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-class _FusedCorr(torch.autograd.Function):
-    """The memoryless lookup with its hand-written backward: the kernels for
-    CUDA tensors, the plain versions for CPU tensors. Only the inputs are
-    saved; the backward recomputes the window from the center."""
+class _FusedCorrPyramid(torch.autograd.Function):
+    """1 to MAX_LEVELS levels: one forward launch, and the per-level
+    backward kernels (``df1`` summed over the levels from the last to the
+    first, in the feature dtype). CPU tensors take the plain versions."""
 
     @staticmethod
-    def forward(ctx, fmap1, fmap2, center, radius):
+    def forward(ctx, fmap1, center, radius, *levels):
         ctx.radius = radius
-        ctx.save_for_backward(fmap1, fmap2, center)
-        if on_cpu(fmap1, fmap2, center):
-            return fused_corr_plain(fmap1, fmap2, center, radius)
-        return fused_corr_forward(fmap1, fmap2, center, radius)
+        ctx.save_for_backward(fmap1, center, *levels)
+        if on_cpu(fmap1, center, *levels):
+            return fused_corr_pyramid_plain(fmap1, levels, center, radius)
+        return fused_corr_pyramid_forward(fmap1, levels, center, radius)
 
     @staticmethod
     def backward(ctx, ct):
-        fmap1, fmap2, center = ctx.saved_tensors
-        need1, need2 = ctx.needs_input_grad[:2]
-        if on_cpu(fmap1, fmap2, center):
-            df1, df2 = fused_corr_backward_plain(fmap1, fmap2, center, ct,
-                                                 ctx.radius)
-        else:
-            df1, df2 = fused_corr_backward(fmap1, fmap2, center, ct,
-                                           ctx.radius, need_df1=need1,
-                                           need_df2=need2)
-        return (df1 if need1 else None, df2 if need2 else None, None, None)
+        fmap1, center, *levels = ctx.saved_tensors
+        k = 2 * ctx.radius + 1
+        need1 = ctx.needs_input_grad[0]
+        df1, dlevels = None, [None] * len(levels)
+        # from the last level to the first: the order in which JAX's
+        # backward sums fmap1's cotangents (bitwise equal in bf16)
+        for i in reversed(range(len(levels))):
+            f2 = levels[i]
+            need2 = ctx.needs_input_grad[3 + i]
+            c_i, ct_i = center / (2 ** i), ct[..., i * k:(i + 1) * k]
+            if on_cpu(fmap1, f2, center):
+                d1, d2 = fused_corr_backward_plain(fmap1, f2, c_i, ct_i,
+                                                   ctx.radius)
+            elif need1 or need2:
+                d1, d2 = fused_corr_backward(fmap1, f2, c_i, ct_i,
+                                             ctx.radius, need_df1=need1,
+                                             need_df2=need2)
+            else:
+                d1 = d2 = None
+            if need1:
+                df1 = d1 if df1 is None else df1 + d1
+            dlevels[i] = d2 if need2 else None
+        return (df1, None, None, *dlevels)
 
 
 def fused_corr(fmap1: torch.Tensor, fmap2: torch.Tensor,
@@ -276,9 +323,27 @@ def fused_corr(fmap1: torch.Tensor, fmap2: torch.Tensor,
     CUDA tensors launch the kernels (forward launches counted in
     ``fused_corr.launches``, backward launches in
     ``fused_corr.bwd_launches``) or raise; CPU tensors take the plain
-    versions, forward and backward.
+    versions, forward and backward. It is :func:`fused_corr_pyramid` of
+    one level.
     """
-    return _FusedCorr.apply(fmap1, fmap2, center, radius)
+    return _FusedCorrPyramid.apply(fmap1, center, radius, fmap2)
+
+
+def fused_corr_pyramid(fmap1: torch.Tensor, levels, center: torch.Tensor,
+                       radius: int) -> torch.Tensor:
+    """Memoryless windowed correlation of ``fmap1 (B, H, W1, D)`` with 1 to
+    MAX_LEVELS pyramid levels ``levels[i] (B, H, W2_i, D)``, level ``i``
+    around ``center / 2**i`` -> ``(B, H, W1, len(levels) * (2r+1))``
+    float32, level ``i``'s taps at ``[i (2r+1), (i+1) (2r+1))``;
+    differentiable in ``fmap1`` and every level (the center gets no
+    gradient).
+
+    CUDA tensors launch the forward kernel once (counted in
+    ``fused_corr.launches``) and the per-level backward kernels (one count
+    each in ``fused_corr.bwd_launches``), or raise; CPU tensors take the
+    plain versions.
+    """
+    return _FusedCorrPyramid.apply(fmap1, center, radius, *levels)
 
 
 #: forward kernel launches since the count was last set to 0

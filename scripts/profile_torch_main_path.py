@@ -43,7 +43,10 @@ TF32 is off, as in chip_smoke.py. At 2016x2880 cuDNN's heuristic picks an
 FFT algorithm for a convolution of the update block that launches ~99,000
 small kernels an iteration; ``--cudnn_benchmark`` times the frame with
 the algorithms cuDNN's own benchmark picks instead, and ``--iters 1``
-keeps a profile with the heuristic's choice small. ``--unrepaired_pool`` (with
+keeps a profile with the heuristic's choice small. ``--conv_kernels``
+adds, per convolution (its input and weight shapes), the kernels cuDNN
+launched for it a frame, their device time, how many are FFT kernels and
+the commonest kernel names: which convolution takes the FFT path. ``--unrepaired_pool`` (with
 ``--train``) times the step with the GRU links' pool on PyTorch's
 channels-last CUDA backward, as before ``ops/geometry.avg_pool2d`` copied
 its input to channels first (see scripts/card_vs_cpu_grads.py): the
@@ -127,6 +130,36 @@ def summarize(prof, n: int, split: bool):
                           "calls": calls // n}
                          for _, key, calls, cpu in host_ops[:12]],
     }
+
+
+def conv_kernels(prof, n: int, top: int = 8):
+    """Per convolution shape (input, weight) of a profile recorded with
+    shapes: calls, kernels launched, device ms and FFT kernels per unit
+    (``n`` units), and its commonest kernel names; the ``top`` by kernel
+    count."""
+    rows = {}
+    for e in prof.events():
+        if e.name != "aten::cudnn_convolution" or not e.kernels:
+            continue
+        key = str([list(s) for s in e.input_shapes[:2]])
+        row = rows.setdefault(key, dict(shapes=key, calls=0, kernels=0,
+                                        device_us=0.0, fft_kernels=0,
+                                        names=collections.Counter()))
+        row["calls"] += 1
+        for k in e.kernels:
+            row["kernels"] += 1
+            row["device_us"] += k.duration
+            row["fft_kernels"] += "fft" in k.name.lower()
+            row["names"][k.name[:70]] += 1
+    out = []
+    for row in sorted(rows.values(), key=lambda r: -r["kernels"])[:top]:
+        out.append(dict(shapes=row["shapes"], calls=row["calls"] // n,
+                        kernels=row["kernels"] // n,
+                        device_ms=row["device_us"] / 1e3 / n,
+                        fft_kernels=row["fft_kernels"] // n,
+                        names=[f"{name} x{c // n}" for name, c in
+                               row["names"].most_common(4)]))
+    return out
 
 
 def profile_train(args, dev) -> int:
@@ -237,6 +270,9 @@ def main() -> int:
                          "heuristic choice")
     ap.add_argument("--warmup", type=int, default=2,
                     help="unprofiled warm-up frames before the timed ones")
+    ap.add_argument("--conv_kernels", action="store_true",
+                    help="list each convolution's kernels by input shape "
+                         "(records shapes)")
     ap.add_argument("--size", default="375x1242",
                     help="input pair HxW for inference (padded to /32)")
     args = ap.parse_args()
@@ -287,10 +323,13 @@ def main() -> int:
         wall = sum(pred.predict_timed(left, right)[1]
                    for _ in range(args.frames)) / args.frames
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     record_shapes=args.conv_kernels) as prof:
             for _ in range(args.frames):
                 pred.predict_timed(left, right)
         out = summarize(prof, args.frames, split=False)
+        if args.conv_kernels and out is not None:
+            out["conv_kernels"] = conv_kernels(prof, args.frames)
         if out is None:
             print("profile_torch_main_path: the profiler recorded no "
                   "device kernels", file=sys.stderr)
@@ -305,6 +344,8 @@ def main() -> int:
             "kernels_per_frame": out["kernels_per_unit"],
             "category_ms": out["category_ms"], "top": out["top"],
             "top_ops": out["top_ops"], "top_host_ops": out["top_host_ops"],
+            **({"conv_kernels": out["conv_kernels"]}
+               if "conv_kernels" in out else {}),
         }), flush=True)
         del pred
     return 0

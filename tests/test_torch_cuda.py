@@ -498,10 +498,128 @@ def _model_step_matches_reg(cuda, impl, kernel, launches, **kw):
 
 def test_fused_model_train_step_matches_reg(cuda):
     # gradients reach the feature encoder through the fused lookup
+    # one forward launch for the four levels an iteration (and its remat
+    # recompute), four backward launches
     grads = _model_step_matches_reg(cuda, "alt_cuda", fc.fused_corr,
-                                    (2 * 4 * 3, 4 * 3))
+                                    (2 * 1 * 3, 4 * 3))
     assert all(float(gr.abs().max()) > 0 for n, gr in grads.items()
                if n.startswith("fnet."))
+
+
+# The one-launch forward over 1 to 4 pyramid levels (level i around
+# center / 2**i): the same bound against the plain levels concatenated, two
+# runs bitwise equal, and bitwise equal to the one-level launches.
+
+
+def _pyramid(f2, n):
+    from raft_stereo_tpu_torch.ops.geometry import pool_w2
+    levels = [f2]
+    for _ in range(n - 1):
+        levels.append(pool_w2(levels[-1]).contiguous())
+    return levels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_fused_pyramid_matches_plain(cuda, dtype, n):
+    # level widths 96 .. 12 and, at a 13-wide level 0, 13 .. 1 (W2 <= 2r+2)
+    for shape in [(2, 8, 96, 96, 64), (1, 4, 13, 13, 256)]:
+        f1, f2, center = _fused_inputs(shape, dtype, cuda)
+        levels = _pyramid(f2, n)
+        before = fc.fused_corr.launches
+        out = fc.fused_corr_pyramid_forward(f1, levels, center, R)
+        again = fc.fused_corr_pyramid_forward(f1, levels, center, R)
+        torch.cuda.synchronize()
+        assert fc.fused_corr.launches == before + 2
+        want = fc.fused_corr_pyramid_plain(f1, levels, center, R)
+        assert out.shape == want.shape == shape[:3] + (n * (2 * R + 1),)
+        assert bool(torch.isnan(want).any())
+        assert _close(out, want, torch.float32)
+        assert _same(out, again)
+        ones = torch.cat([fc.fused_corr_forward(f1, lv, center / (2 ** i), R)
+                          for i, lv in enumerate(levels)], dim=-1)
+        assert _same(out, ones)
+        assert bool((out.view(-1, n * (2 * R + 1))[4:6] == 0).all())
+
+
+def test_fused_pyramid_other_radii(cuda):
+    f1, f2, center = _fused_inputs((2, 4, 40, 40, 64), torch.float32, cuda)
+    levels = _pyramid(f2, 4)
+    for radius in (0, 1, 3, 8):
+        assert _close(fc.fused_corr_pyramid_forward(f1, levels, center,
+                                                    radius),
+                      fc.fused_corr_pyramid_plain(f1, levels, center, radius),
+                      torch.float32)
+
+
+def test_fused_pyramid_64bit_offsets(cuda):
+    # B*H*W*D = 8320*1024*256 > 2**31 elements in fmap1 and level 0: the
+    # last rows lie past 2**31
+    shape = (1, 8320, 1024, 1024, 256)
+    f1 = torch.zeros(shape[:3] + (256,), dtype=torch.bfloat16, device=cuda)
+    f2 = torch.zeros_like(f1)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    f1[0, -1] = torch.randn((1024, 256), generator=g, device=cuda).to(
+        torch.bfloat16)
+    f2[0, -1] = torch.randn((1024, 256), generator=g, device=cuda).to(
+        torch.bfloat16)
+    levels = _pyramid(f2, 4)
+    center = torch.rand(shape[:3], generator=g, device=cuda) * 1024
+    out = fc.fused_corr_pyramid_forward(f1, levels, center, R)
+    torch.cuda.synchronize()
+    last = (slice(None), slice(-1, None))
+    want = fc.fused_corr_pyramid_plain(f1[last], [lv[last] for lv in levels],
+                                       center[last], R)
+    assert bool(want.abs().max() > 0)
+    assert _close(out[last], want, torch.float32)
+    del f1, f2, levels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_pyramid_is_deterministic(cuda, dtype):
+    f1, f2, center = _fused_inputs((8, 80, 180, 180, 256), dtype, cuda)
+    levels = _pyramid(f2, 4)
+    assert _same(fc.fused_corr_pyramid_forward(f1, levels, center, R),
+                 fc.fused_corr_pyramid_forward(f1, levels, center, R))
+
+
+def test_fused_pyramid_refuses_mismatched_levels(cuda):
+    f1, f2, center = _fused_inputs((2, 4, 16, 16, 32), torch.float32, cuda)
+    good = _pyramid(f2, 2)
+    for bad, match in [
+            (torch.zeros((1, 4, 8, 32), device=cuda), "want fmap1"),  # batch
+            (torch.zeros((2, 3, 8, 32), device=cuda), "want fmap1"),  # height
+            (torch.zeros((2, 4, 8, 16), device=cuda), "want fmap1"),  # D
+            (good[1].bfloat16(), "dtype")]:
+        err = TypeError if match == "dtype" else ValueError
+        with pytest.raises(err, match=match):
+            fc.fused_corr_pyramid_forward(f1, [good[0], bad], center, R)
+    with pytest.raises(ValueError, match="levels"):
+        fc.fused_corr_pyramid_forward(f1, good * 3, center, R)
+
+
+def test_fused_pyramid_autograd_launches(cuda):
+    # one forward launch for the four levels, one backward launch a level;
+    # the gradients are the per-level backward's
+    f1, f2, center = _fused_inputs((1, 4, 32, 32, 64), torch.float32, cuda)
+    center = center.nan_to_num(0.0)
+    levels = [lv.requires_grad_() for lv in _pyramid(f2, 4)]
+    f1.requires_grad_()
+    before = (fc.fused_corr.launches, fc.fused_corr.bwd_launches)
+    out = fc.fused_corr_pyramid(f1, levels, center, R)
+    ct = torch.randn(out.shape, device=cuda)
+    grads = torch.autograd.grad(out, [f1, *levels], ct)
+    assert (fc.fused_corr.launches, fc.fused_corr.bwd_launches) == (
+        before[0] + 1, before[1] + 4)
+    k = 2 * R + 1
+    want1 = 0
+    for i, lv in enumerate(levels):
+        d1, d2 = fc.fused_corr_backward_plain(
+            f1.detach(), lv.detach(), center / (2 ** i),
+            ct[..., i * k:(i + 1) * k], R)
+        want1 = want1 + d1
+        assert _close(grads[1 + i], d2, torch.float32)
+    assert _close(grads[0], want1, torch.float32)
 
 
 # ------------------------------------------------------------- alt_corr
@@ -552,6 +670,24 @@ def test_alt_other_radii(cuda):
         want = ac.alt_corr_backward_plain(f1, f2, center, ct, radius)
         assert _close(got[0], want[0], torch.float32)
         assert _close(got[1], want[1], torch.float32)
+
+
+@pytest.mark.parametrize("radius", list(range(9)))
+def test_alt_backward_every_radius(cuda, radius):
+    # the band's backward at every radius, both dtypes, wide and narrow
+    # rows: within the bound of plain and bitwise equal run to run
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in [(2, 4, 70, 67, 40), (1, 3, 300, 300, 64),
+                      (1, 2, 15, 3, 256)]:
+            f1, f2, center = _fused_inputs(shape, dtype, cuda, seed=radius)
+            ct = torch.randn(tuple(center.shape) + (2 * radius + 1,),
+                             device=cuda)
+            a = ac.alt_corr_backward(f1, f2, center, ct, radius)
+            b = ac.alt_corr_backward(f1, f2, center, ct, radius)
+            want = ac.alt_corr_backward_plain(f1, f2, center, ct, radius)
+            assert _same(a[0], b[0]) and _same(a[1], b[1])
+            assert _close(a[0], want[0], dtype)
+            assert _close(a[1], want[1], dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -16,6 +16,15 @@ Bounds, with what these inputs measured when the bound was set:
   to near 0, where fp32 order moves the rounded value by more than an
   ulp of the result; measured bitwise equal); the center's cotangent is
   None (the port) and 0 (JAX);
+* the pyramid (``fused_corr_pyramid``, 1 to 4 levels in one forward
+  launch on the card) against the JAX kernel per level at ``center /
+  2**i``, at radii 0, 4 and 8 on pyramids whose last level has W2 <= 2r+2:
+  the forward 1e-5 abs per level and concatenated (measured <= 9.5e-7);
+  its autograd gradients against ``jax.vjp`` of the concatenated JAX
+  levels 1e-5 abs in fp32 (measured <= 9.5e-7); in bf16 one bf16 ulp of
+  the JAX value or 1e-5 abs (the ``fmap1`` gradient sums the levels' bf16
+  values from the last level to the first, as JAX does: measured bitwise
+  equal; the levels' gradients within one ulp);
 * ``pool_w2``: bitwise (one rounding of ``a+b`` in the input's dtype);
 * registry lookup: 1e-5 abs in fp32, and 1e-5 abs with bf16 storage
   (both round the same features to bf16; measured <= 4.8e-7);
@@ -53,7 +62,8 @@ from raft_stereo_tpu_torch.models import RAFTStereo
 from raft_stereo_tpu_torch.ops import geometry as tgeo
 from raft_stereo_tpu_torch.ops.corr import corr_lookup, init_corr
 from raft_stereo_tpu_torch.ops.kernels.fused_corr import (
-    fused_corr, fused_corr_backward_plain, fused_corr_plain)
+    fused_corr, fused_corr_backward_plain, fused_corr_plain,
+    fused_corr_pyramid, fused_corr_pyramid_forward, fused_corr_pyramid_plain)
 from raft_stereo_tpu_torch.ops.kernels.windowed_sample import windowed_sample
 from raft_stereo_tpu_torch.training.state import loss_and_grads
 from raft_stereo_tpu_torch.utils.weights import state_dict_from_jax
@@ -223,6 +233,118 @@ def test_wrapper_never_falls_back_off_cpu():
     c = torch.empty((1, 2, 15), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         fused_corr(f, f, c, 4)
+
+
+# ------------------------------------------------------------ the pyramid
+
+# (radius, (B, H, W1, D)): level widths W1 >> i, so the last level (W1 / 8)
+# has W2 <= 2r+2 and takes the JAX reference path, the wider ones the
+# Pallas kernel in interpret mode
+PYRAMIDS = [(0, (2, 3, 16, 32)), (4, (2, 3, 48, 32)), (8, (1, 3, 48, 32))]
+
+
+def _pyramid_inputs(radius, shape, seed):
+    b, h, w1, d = shape
+    rng = np.random.default_rng(seed)
+    f1 = rng.normal(size=(b, h, w1, d)).astype(np.float32)
+    levels = [rng.normal(size=(b, h, w1 >> i, d)).astype(np.float32)
+              for i in range(4)]
+    center = rng.uniform(-2 * radius - 2, w1 + 2 * radius + 2,
+                         size=(b, h, w1)).astype(np.float32)
+    flat_c = center.reshape(-1)
+    edge = [0.0, -1.0, float(w1 - 1), float(w1), 1e9, -1e9, 0.999999]
+    flat_c[:len(edge)] = edge
+    return f1, levels, center
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_pyramid(radius):
+    def pyr(f1, levels, c):
+        return jnp.concatenate([fused_windowed_corr_pallas(
+            f1, f2, c / (2 ** i), radius) for i, f2 in enumerate(levels)],
+            axis=-1)
+
+    def vjp(f1, levels, c, ct):
+        _, f = jax.vjp(lambda a, lv: pyr(a, lv, c), f1, levels)
+        return f(ct)
+    return jax.jit(pyr), jax.jit(vjp)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("radius,shape", PYRAMIDS,
+                         ids=[f"r{r}" for r, _ in PYRAMIDS])
+def test_pyramid_forward_matches_jax(radius, shape, dtype, record_property):
+    f1, levels, center = _pyramid_inputs(radius, shape, seed=20 + radius)
+    k = 2 * radius + 1
+    assert shape[2] >> 3 <= 2 * radius + 2  # the last level is narrow
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    t_levels = [_t(x).to(tdt) for x in levels]
+    before = (fused_corr.launches, fused_corr.bwd_launches)
+    got = fused_corr_pyramid(_t(f1).to(tdt), t_levels, _t(center),
+                             radius).numpy()
+    assert (fused_corr.launches, fused_corr.bwd_launches) == before
+    want = np.asarray(_jax_pyramid(radius)[0](
+        jnp.asarray(f1, jdt), [jnp.asarray(x, jdt) for x in levels],
+        jnp.asarray(center)))
+    assert got.dtype == np.float32 and got.shape == shape[:3] + (4 * k,)
+    for i in range(4):  # level by level: the per-level entry point too
+        one = fused_corr_plain(_t(f1).to(tdt), t_levels[i],
+                               _t(center) / (2 ** i), radius).numpy()
+        assert np.array_equal(got[..., i * k:(i + 1) * k], one)
+        assert max_abs(one, want[..., i * k:(i + 1) * k]) <= 1e-5
+    record_property("max_abs", max_abs(got, want))
+    assert max_abs(got, want) <= 1e-5
+    assert np.all(got.reshape(-1, 4 * k)[4:6] == 0.0)  # far out: zeros
+    assert np.array_equal(got, fused_corr_pyramid_plain(
+        _t(f1).to(tdt), t_levels, _t(center), radius).numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("radius,shape", PYRAMIDS,
+                         ids=[f"r{r}" for r, _ in PYRAMIDS])
+def test_pyramid_gradients_match_jax(radius, shape, dtype, record_property):
+    f1, levels, center = _pyramid_inputs(radius, shape, seed=30 + radius)
+    k = 2 * radius + 1
+    ct = np.random.default_rng(radius + 5).normal(
+        size=shape[:3] + (4 * k,)).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tf1 = _t(f1).to(tdt).requires_grad_()
+    t_levels = [_t(x).to(tdt).requires_grad_() for x in levels]
+    out = fused_corr_pyramid(tf1, t_levels, _t(center), radius)
+    got = torch.autograd.grad(out, [tf1, *t_levels], _t(ct))
+    assert all(g.dtype == tdt for g in got)
+    w1, wl = _jax_pyramid(radius)[1](
+        jnp.asarray(f1, jdt), [jnp.asarray(x, jdt) for x in levels],
+        jnp.asarray(center), jnp.asarray(ct))
+    errs = []
+    for i, (g, w) in enumerate(zip(got, [w1, *wl])):
+        g = g.float().numpy()
+        w = np.asarray(w.astype(jnp.float32))
+        assert g.shape == w.shape
+        errs.append(max_abs(g, w))
+        if dtype == "float32":
+            assert errs[-1] <= 1e-5
+        else:
+            bound = np.maximum(np.abs(w) * BF16_ULP, 1e-5)
+            assert np.all(np.abs(g - w) <= bound)
+    record_property("max_abs_df1", errs[0])
+    record_property("max_abs_dlevels", max(errs[1:]))
+    assert np.abs(got[0].float().numpy()).max() > 0
+
+
+def test_pyramid_refusals():
+    f1 = torch.zeros((1, 2, 8, 16))
+    c = torch.zeros((1, 2, 8))
+    with pytest.raises(ValueError, match="levels"):
+        fused_corr_pyramid_forward(f1, [f1] * 5, c, 4)
+    with pytest.raises(ValueError, match="levels"):
+        fused_corr_pyramid_forward(f1, [], c, 4)
+    with pytest.raises(ValueError, match="CUDA"):  # never a CPU fallback
+        fused_corr_pyramid_forward(f1, [f1], c, 4)
+    m = torch.empty((1, 2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_corr_pyramid(m, [m, m], torch.empty((1, 2, 8), device="meta"),
+                           4)
 
 
 # -------------------------------------------------------- pool and registry
