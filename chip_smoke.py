@@ -29,12 +29,18 @@ Phases, each reported as one JSON line, in the order they run:
    over 1 to 4 levels (the hires and train pyramids, smooth centers, a
    pyramid down to W2 <= 2r+2) against its plain version, 1e-5 abs, two
    runs bitwise equal and bitwise equal to the one-level launches.
+   fused_bwd_wide: the backward kernels on rows of W1 = W2 = 4000 (tiled
+   over W2; one block a row refused them before) in fp32 and bf16 against
+   the plain version, the same bounds, two runs bitwise equal.
 6. fused_memory — the memory contract: the 4-level fused lookup at the
    hires shape allocates its outputs plus less than 1/8 of one level-0
    volume, a level-0 backward df1 + df2 plus that margin.
 7. alt_parity, alt_memory — the same two checks for the alt_corr kernels
-   (the on-chip slab), held to their plain versions and to fused_corr's
-   kernels on the same inputs (one function).
+   (the slab entries a window reads), held to their plain versions and to
+   fused_corr's kernels on the same inputs (one function).
+   alt_pyramid_parity: alt_corr's one-launch forward over 1 to 4 levels,
+   as fused_pyramid_parity, bitwise equal to its plain version (which
+   sums in the kernel's order) and to the one-level launches.
 8. fused_lookup_parity — the fused_lookup kernels (lookup + convc1 + ReLU)
    against their plain versions at the default, realtime and train
    pyramids with the edge centers: output and dvol 1e-5 abs (one bf16 ulp
@@ -47,14 +53,17 @@ Phases, each reported as one JSON line, in the order they run:
    iterations; realtime_config() (bf16), 7 iterations; the default
    architecture with alt_pallas (fp32); and both with fused_lookup=True:
    finite output of the right shape, exactly 4 launches an iteration of
-   the path's lookup kernel (1 of fused_lookup) and none of the others,
-   median ms/frame, peak memory.
+   the path's lookup kernel (1 of alt_corr and of fused_lookup) and none of
+   the others, median ms/frame, peak memory.
 10. hires — the default architecture with alt_cuda (the fused_corr
    kernels, fp32) on a 1988x2880 pair (padded to 2016x2880), 32
    iterations: exactly 32 fused_corr forward launches (one for the four
    levels an iteration) and no windowed_sample launch, finite output,
-   median ms/frame over HIRES_RUNS warm frames; peak memory at 2
-   iterations below reg_cuda's on the same pair.
+   median ms/frame over HIRES_RUNS warm frames and the device time of one
+   profiled frame; no FFT kernel in one profiled iteration (cuDNN's
+   heuristic once ran update_block.gru32's convs as FFTs of ~99,000
+   kernels an iteration, nn/layers.py); peak memory at 2 iterations below
+   reg_cuda's on the same pair.
 11. cpu_parity — the default architecture on the same weights, fp32, 4
    iterations, on the card (kernel) and on the CPU (plain version), with
    reg_cuda, alt_cuda and alt_pallas at 64x160 and with reg_cuda +
@@ -72,7 +81,7 @@ Phases, each reported as one JSON line, in the order they run:
 14. train_fused, train_alt, train_fused_lookup — the same recipe with
    alt_cuda (bf16 features), with alt_pallas, and with reg_cuda +
    fused_lookup: the same checks, with the path's kernel launches
-   ((44, 88): one forward launch an iteration, four backward; (176, 88);
+   ((44, 88): one forward launch an iteration, four backward; (44, 88);
    (44, 22)) and none of the other kernels'.
 15. train_cpu_parity — one fp32 step of the default architecture, 2
    iterations, on the card (kernels) and on the CPU (plain versions):
@@ -90,15 +99,16 @@ Phases, each reported as one JSON line, in the order they run:
    yardstick only).
 17. fused_timings, alt_timings — fused_corr's forward in one launch for
    the four hires levels (fp32) and the four train levels (bf16), and per
-   level; alt_corr's forward per level at the alt_pallas frame's, the
-   hires and the train levels; both backwards per train level (bf16).
+   level; alt_corr's forward in one launch for the four levels of the
+   alt_pallas frame (fp32), of the train step (bf16) and of the hires
+   frame, and per level at the first two; both backwards per train level
+   (bf16).
    Each on random centers (an independent disparity a pixel) with time
    per launch, bound (B2's function for both), plain time and the
    reference's several-call 'alt' formulation as a yardstick (no single
    PyTorch call computes the function, so their kernels-line entries have
    library_ms null), and on smooth centers (a low-frequency disparity
-   field, as a model makes) with time and bound; alt_corr's rows add the
-   slab's flops and their time at the fp32 peak, outside the bound.
+   field, as a model makes) with time and bound.
 18. fused_lookup_timings — fused_lookup's forward at the default and
    realtime pyramids and its backward at the train pyramid: time per
    launch, bound, plain time and the unfused formulation (F.grid_sample
@@ -141,12 +151,13 @@ FUSED_SHAPES = {"hires": [(1, 504, 720, 720 >> i, 256) for i in range(4)],
                                 for i in range(4)]}
 # alt_corr's own inference path: the default architecture at 384x1248 (fp32)
 ALT_DEFAULT_SHAPES = [(1, 96, 312, 312 >> i, 256) for i in range(4)]
+# fused_corr's backward on rows wider than one block's shared memory held
+WIDE_BWD_SHAPE = (1, 4, 4000, 4000, 256)
 # fused_lookup's configurations: (volume dtype, compute dtype, (B, H, W1,
 # level-0 W2)) of the default and realtime frames and the SceneFlow batch
 LOOKUP_C1 = {"default": ("float32", "float32", (1, 96, 312, 312)),
              "realtime": ("bfloat16", "bfloat16", (1, 48, 156, 156)),
              "train": ("bfloat16", "bfloat16", (8, 80, 180, 180))}
-SLAB_TILE = 64               # alt_corr's slab tile edge (csrc/alt_corr.cu)
 
 
 def emit(phase, **fields):
@@ -613,16 +624,19 @@ def run_feature_parity(dev, phase, kernel, fns, seed, against=None):
     return errs
 
 
-def run_pyramid_parity(dev, fc):
-    """fused_corr's one-launch forward over 1 to 4 pyramid levels (level i
-    around center / 2**i), through the fused_corr_pyramid autograd Function
-    the model calls, against its plain version (the levels' plain
+def run_pyramid_parity(dev, phase, kernel, pyramid, pyramid_plain, one_level,
+                       bitwise_plain=False):
+    """A one-launch forward over 1 to 4 pyramid levels (level i around
+    center / 2**i; fused_corr's or alt_corr's: ``kernel`` holds the launch
+    count), through the autograd Function the model calls (``pyramid``),
+    against its plain version (``pyramid_plain``, the levels' plain
     lookups concatenated): the hires pyramid (fp32, 4 levels), the
     train_fused pyramid (bf16, 1 to 4 levels), the train pyramid on smooth
     centers, and a narrow pyramid whose last levels have W2 <= 2r+2, with
-    the edge centers (random fields). Within KERNEL_TOL, NaN patterns
-    equal, far-out centers zero, two runs bitwise equal, bitwise equal to
-    the one-level launches concatenated, and one launch a call."""
+    the edge centers (random fields). Within KERNEL_TOL (with
+    ``bitwise_plain``, bitwise equal), NaN patterns equal, far-out centers
+    zero, two runs bitwise equal, bitwise equal to the one-level launches
+    (``one_level``) concatenated, and one launch a call."""
     import torch
     err = 0.0
     cases = [("hires", torch.float32, FUSED_SHAPES["hires"][0], "random",
@@ -637,37 +651,73 @@ def run_pyramid_parity(dev, fc):
                                       field=field)
         levels = feature_pyramid(f2, 4)
         for n in counts:
-            before = fc.fused_corr.launches
-            out = fc.fused_corr_pyramid(f1, levels[:n], center, RADIUS)
-            again = fc.fused_corr_pyramid(f1, levels[:n], center, RADIUS)
-            check(fc.fused_corr.launches - before == 2,
-                  "fused_pyramid_parity: not one launch a call")
-            ones = torch.cat([fc.fused_corr(
-                f1, lv, center / (2 ** j), RADIUS)
-                for j, lv in enumerate(levels[:n])], dim=-1)
-            want = fc.fused_corr_pyramid_plain(f1, levels[:n], center,
-                                               RADIUS)
+            before = kernel.launches
+            out = pyramid(f1, levels[:n], center, RADIUS)
+            again = pyramid(f1, levels[:n], center, RADIUS)
+            check(kernel.launches - before == 2,
+                  f"{phase}: not one launch a call")
+            ones = torch.cat([one_level(f1, lv, center / (2 ** j), RADIUS)
+                              for j, lv in enumerate(levels[:n])], dim=-1)
+            want = pyramid_plain(f1, levels[:n], center, RADIUS)
             torch.cuda.synchronize()
             e, ok = within_bound(out, want, torch.float32)
             det = bitwise(out, again)
             same = bitwise(out, ones)
-            emit("fused_pyramid_parity", config=cfg_name, field=field,
+            same_plain = bitwise(out, want)
+            emit(phase, config=cfg_name, field=field,
                  shape=list(shape), levels=[lv.shape[2] for lv in
                                             levels[:n]],
                  dtype=str(dtype).replace("torch.", ""), max_abs_err=e,
-                 deterministic=det, bitwise_vs_one_level_launches=same)
-            check(ok, f"fused pyramid differs at {cfg_name} {field} {n}")
-            check(det and same, f"fused pyramid at {cfg_name} {field} {n}: "
+                 deterministic=det, bitwise_vs_one_level_launches=same,
+                 bitwise_vs_plain=same_plain)
+            check(ok and (same_plain or not bitwise_plain),
+                  f"{phase}: differs from plain at {cfg_name} {field} {n}")
+            check(det and same, f"{phase} at {cfg_name} {field} {n}: "
                                 f"deterministic {det}, equal to the "
                                 f"one-level launches {same}")
             if field == "random":
                 k = 2 * RADIUS + 1
                 check(bool(torch.isnan(out).any())
                       and bool((out.view(-1, n * k)[6:8] == 0).all()),
-                      "fused pyramid: NaN or far-out centers mishandled")
+                      f"{phase}: NaN or far-out centers mishandled")
             err = max(err, e)
             del out, again, ones, want
         del f1, f2, levels, center
+    return err
+
+
+def run_wide_backward(dev, fc):
+    """fused_corr's backward kernels on rows of WIDE_BWD_SHAPE (W1 = W2 =
+    4000: the row is tiled over W2 across blocks; the first df2 kernel held
+    a whole row in one block's shared memory and refused rows this wide),
+    fp32 and bf16, random centers with the edge values, against the plain
+    version: the bounds of run_feature_parity, and two runs bitwise
+    equal."""
+    import torch
+    err = 0.0
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+        f1, f2, center = fused_inputs(WIDE_BWD_SHAPE, dtype, SEED + 160 + i,
+                                      dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 165 + i)
+        ct = torch.randn(tuple(center.shape) + (2 * RADIUS + 1,),
+                         generator=g, device=dev)
+        before = fc.fused_corr.bwd_launches
+        df1, df2 = fc.fused_corr_backward(f1, f2, center, ct, RADIUS)
+        df1b, df2b = fc.fused_corr_backward(f1, f2, center, ct, RADIUS)
+        w1, w2 = fc.fused_corr_backward_plain(f1, f2, center, ct, RADIUS)
+        torch.cuda.synchronize()
+        check(fc.fused_corr.bwd_launches - before == 2,
+              "fused_bwd_wide: the backward kernels did not launch")
+        e1, ok1 = within_bound(df1, w1, dtype)
+        e2, ok2 = within_bound(df2, w2, dtype)
+        det = bitwise(df1, df1b) and bitwise(df2, df2b)
+        emit("fused_bwd_wide", shape=list(WIDE_BWD_SHAPE),
+             dtype=str(dtype).replace("torch.", ""), max_abs_err_df1=e1,
+             max_abs_err_df2=e2, deterministic=det)
+        check(ok1 and ok2, f"fused_bwd_wide: differs from plain in {dtype}")
+        check(det, f"fused_bwd_wide: not deterministic in {dtype}")
+        err = max(err, e1, e2)
+        del f1, f2, center, ct, df1, df2, df1b, df2b, w1, w2
     return err
 
 
@@ -719,37 +769,9 @@ def run_feature_memory(dev, phase, impl, backward):
     return rows
 
 
-def alt_slab_flops(center, w2, d):
-    """The flops of the slab tiles alt_corr's forward computes on these
-    centers: per (row, tile of SLAB_TILE pixels), every SLAB_TILE-wide
-    chunk of the span its in-range taps cover that some window touches,
-    2*D flops per (pixel, column) of the full tile (the kernel's own
-    walk, csrc/alt_corr.cu)."""
-    import torch
-    b, h, w1 = center.shape
-    k = 2 * RADIUS + 1
-    c = torch.nan_to_num(center, nan=0.0).clamp(-1e8, 1e8)
-    base = torch.floor(c).long() - RADIUS
-    lo, hi = base.clamp(min=0), (base + k + 1).clamp(max=w2)
-    valid = lo < hi
-    pad = (-w1) % SLAB_TILE
-    big = 1 << 40
-    lo = torch.nn.functional.pad(torch.where(valid, lo, big), (0, pad),
-                                 value=big).view(b, h, -1, SLAB_TILE)
-    hi = torch.nn.functional.pad(torch.where(valid, hi, -big), (0, pad),
-                                 value=-big).view(b, h, -1, SLAB_TILE)
-    span_lo, span_hi = lo.min(-1).values, hi.max(-1).values
-    chunks = 0
-    for j in range(-(-w2 // SLAB_TILE) + 1):
-        c0 = (span_lo + j * SLAB_TILE)[..., None]
-        hit = ((lo < c0 + SLAB_TILE) & (hi > c0)).any(-1)
-        chunks += int((hit & (c0[..., 0] < span_hi)).sum().item())
-    return chunks * SLAB_TILE * SLAB_TILE * 2 * d
-
-
 def feature_timing(flush, backward, cfg_name, dtype, shape, seed, dev,
-                   kernel_fn, plain_fn, extra=None, field="random",
-                   n_levels=0, full=True):
+                   kernel_fn, plain_fn, field="random", n_levels=0,
+                   full=True):
     """One row for a feature-lookup kernel (fused_corr or alt_corr, one
     function): the kernel's time per call (forward ``fn(f1, f2, center,
     R)``, or backward ``fn(f1, f2, center, ct, R)``; with ``n_levels`` the
@@ -757,8 +779,7 @@ def feature_timing(flush, backward, cfg_name, dtype, shape, seed, dev,
     levels of ``shape``'s fmap2) on the ``field`` centers (fused_inputs),
     and its bound (fused_bytes_flops). With ``full``, also the plain
     version's time and the reference's several-call 'alt' formulation as a
-    yardstick (alt_yardstick, per level). ``extra(f1, f2, center)`` adds
-    columns."""
+    yardstick (alt_yardstick, per level)."""
     import torch
     f1, f2, center = fused_inputs(shape, dtype, seed, dev, edges=False,
                                   field=field)
@@ -800,8 +821,6 @@ def feature_timing(flush, backward, cfg_name, dtype, shape, seed, dev,
                    yardstick_ms=cuda_ms(yard, flush),
                    yardstick_max_abs_diff=yard_err)
         del yards
-    if extra:
-        row.update(extra(f1, f2, center))
     del f1, f2, levels, center, ct
     return row
 
@@ -971,6 +990,17 @@ def lookup_c1_yardstick(levels, coords, kern, bias, dt, ct=None):
                                        retain_graph=True)
 
 
+def device_kernels(fn):
+    """The device kernels one ``fn()`` call launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def run_hires(dev, fc, windowed_sample, model_seed):
     """The hires path: the default architecture with alt_cuda through
     StereoPredictor on a 1988x2880 pair (padded to 2016x2880), 32
@@ -997,6 +1027,13 @@ def run_hires(dev, fc, windowed_sample, model_seed):
     check(flow.shape == (1, h, w, 1), f"hires: shape {flow.shape}")
     check(bool(np.isfinite(flow).all()), "hires: non-finite output")
     secs = [pred.predict_timed(left, right)[1] for _ in range(HIRES_RUNS)]
+    # one profiled iteration: no FFT convolution (cuDNN's heuristic once
+    # launched ~99,000 FFT kernels an iteration here); one profiled frame:
+    # its device time beside the wall time
+    one_it = device_kernels(lambda: pred(left, right, iters=1))
+    fft = sum("fft" in e.name.lower() for e in one_it)
+    check(fft == 0, f"hires: {fft} FFT kernels in one iteration")
+    frame = device_kernels(lambda: pred(left, right))
     peaks = {}
     for impl in ("alt_cuda", "reg_cuda"):
         p = pred if impl == "alt_cuda" else StereoPredictor(
@@ -1013,6 +1050,11 @@ def run_hires(dev, fc, windowed_sample, model_seed):
                   launches_windowed_sample=launches[1],
                   ms_per_frame_median=statistics.median(secs) * 1e3,
                   ms_per_frame_runs=[s * 1e3 for s in secs],
+                  device_ms_per_frame=sum(e.time_range.elapsed_us()
+                                          for e in frame) / 1e3,
+                  kernels_per_frame=len(frame),
+                  kernels_one_iteration=len(one_it),
+                  fft_kernels_one_iteration=fft,
                   peak_mem_bytes_2it=peaks,
                   disparity_range=[float(-flow.max()), float(-flow.min())])
     emit("hires", **result)
@@ -1292,10 +1334,13 @@ def main():
          fc.fused_corr_backward_plain), SEED + 60)
     check(fused_err["fwd"] <= KERNEL_TOL,
           f"fused forward error {fused_err['fwd']} > {KERNEL_TOL}")
-    pyramid_err = run_pyramid_parity(dev, fc)
+    pyramid_err = run_pyramid_parity(
+        dev, "fused_pyramid_parity", fused_corr, fc.fused_corr_pyramid,
+        fc.fused_corr_pyramid_plain, fused_corr)
     check(pyramid_err <= KERNEL_TOL,
           f"fused pyramid error {pyramid_err} > {KERNEL_TOL}")
     fused_err["fwd"] = max(fused_err["fwd"], pyramid_err)
+    fused_err["bwd"] = max(fused_err["bwd"], run_wide_backward(dev, fc))
     run_feature_memory(dev, "fused_memory", "fused", fc.fused_corr_backward)
 
     # alt_corr: kernels against plain and against fused_corr, the memory
@@ -1305,6 +1350,9 @@ def main():
         (alt_corr, ac.alt_corr_backward, ac.alt_corr_plain,
          ac.alt_corr_backward_plain), SEED + 100,
         against=(fused_corr, fc.fused_corr_backward))
+    alt_err["fwd"] = max(alt_err["fwd"], run_pyramid_parity(
+        dev, "alt_pyramid_parity", alt_corr, ac.alt_corr_pyramid,
+        ac.alt_corr_pyramid_plain, alt_corr, bitwise_plain=True))
     run_feature_memory(dev, "alt_memory", "alt_pallas", ac.alt_corr_backward)
     lookup_err = run_fused_lookup_parity(dev, fl)
 
@@ -1318,7 +1366,7 @@ def main():
              windowed_sample, 4),
             ("realtime", realtime_config(), 7, windowed_sample, 4),
             ("alt_pallas", RAFTStereoConfig(corr_implementation="alt_pallas"),
-             32, alt_corr, 4),
+             32, alt_corr, 1),
             ("default_fused_lookup", RAFTStereoConfig(
                 corr_implementation="reg_cuda", fused_lookup=True), 32,
              fused_lookup_c1, 1),
@@ -1362,7 +1410,7 @@ def main():
     for impl, kernel, (h, w), per_iter, extra in (
             ("reg_cuda", windowed_sample, (64, 160), 4, {}),
             ("alt_cuda", fused_corr, (64, 160), 1, {}),
-            ("alt_pallas", alt_corr, (64, 160), 4, {}),
+            ("alt_pallas", alt_corr, (64, 160), 1, {}),
             ("reg_cuda", fused_lookup_c1, (64, 352), 1,
              {"fused_lookup": True})):
         small_l, small_r = stereo_pair(h, w, SEED + 1, shift=6)
@@ -1395,7 +1443,8 @@ def main():
                             SEED, phase="train_fused", per_iter=1,
                             per_iter_bwd=4)
     train_alt = run_train(dev, "alt_pallas", alt_corr, others(alt_corr),
-                          SEED, phase="train_alt")
+                          SEED, phase="train_alt", per_iter=1,
+                          per_iter_bwd=4)
     train_lookup = run_train(dev, "reg_cuda", fused_lookup_c1,
                              others(fused_lookup_c1), SEED,
                              phase="train_fused_lookup", per_iter=1,
@@ -1410,7 +1459,7 @@ def main():
              (64, 160), (16, 8), {}),
             ("alt_cuda", fused_corr, (("cudnn", True),), (64, 160), (4, 8),
              {}),
-            ("alt_pallas", alt_corr, (("cudnn", True),), (64, 160), (16, 8),
+            ("alt_pallas", alt_corr, (("cudnn", True),), (64, 160), (4, 8),
              {}),
             ("reg_cuda", fused_lookup_c1, (("cudnn", True),), (64, 352),
              (4, 2), {"fused_lookup": True})):
@@ -1483,59 +1532,59 @@ def main():
         bwd_levels.append(row)
         emit("bwd_timings", **row)
 
-    # fused_corr and alt_corr: fused_corr's forward as the main paths run it
-    # (one launch for the four levels of the hires frame and of the
-    # train_fused step) and per level; alt_corr's forward at its own
-    # inference path's levels (the default frame with alt_pallas), at the
-    # hires and the train levels; both backwards at the train levels. Each
-    # on two center fields: "random" (an independent disparity a pixel,
-    # the worst case for the staged span) with the plain version and the
-    # yardstick, and "smooth" (smooth_centers, as a model's disparities
-    # are) with the kernel's time and bound only. No single PyTorch call
-    # computes their function: the yardstick is the reference's several-call
-    # 'alt' formulation (alt_yardstick), reported as yardstick_ms. alt_corr's
-    # rows add the slab's flops (alt_slab_flops) and their time at the fp32
-    # peak, outside the bound.
-    def slab(f1, f2, center):
-        flops = alt_slab_flops(center, f2.shape[2], f1.shape[3])
-        return dict(slab_flops=flops,
-                    slab_fp32_ms=flops / FP32_FLOPS_PER_S * 1e3)
+    # fused_corr and alt_corr: each forward as the main paths run it (one
+    # launch for the four levels: fused_corr's at the hires frame and the
+    # train_fused step, alt_corr's at the alt_pallas frame, the train_alt
+    # step and the hires frame) and per level; both backwards at the train
+    # levels. Each on two center fields: "random" (an independent disparity
+    # a pixel, the worst case for the staged span) with the plain version
+    # and the yardstick, and "smooth" (smooth_centers, as a model's
+    # disparities are) with the kernel's time and bound only. No single
+    # PyTorch call computes their function: the yardstick is the
+    # reference's several-call 'alt' formulation (alt_yardstick), reported
+    # as yardstick_ms.
     hires0, train0 = FUSED_SHAPES["hires"][0], FUSED_SHAPES["train_fused"][0]
     fused_fwd = (fc.fused_corr_forward, fc.fused_corr_plain)
     fused_pyr = (fc.fused_corr_pyramid_forward, fc.fused_corr_pyramid_plain)
     alt_fwd = (ac.alt_corr_forward, ac.alt_corr_plain)
+    alt_pyr = (ac.alt_corr_pyramid_forward, ac.alt_corr_pyramid_plain)
     fused_rows = {k: [] for k in ("fwd", "fwd_level", "fwd_train",
                                   "fwd_train_level", "bwd")}
-    alt_rows = {k: [] for k in ("fwd", "fwd_hires", "fwd_train", "bwd")}
-    for rows, which, backward, cfg_name, dtype, shapes, seed, fns, extra, \
+    alt_rows = {k: [] for k in ("fwd", "fwd_level", "fwd_train",
+                                "fwd_train_level", "fwd_hires", "bwd")}
+    for rows, which, backward, cfg_name, dtype, shapes, seed, fns, \
             n_levels in (
             (fused_rows, "fwd", False, "hires", torch.float32, [hires0],
-             SEED + 90, fused_pyr, None, 4),
+             SEED + 90, fused_pyr, 4),
             (fused_rows, "fwd_level", False, "hires", torch.float32,
-             FUSED_SHAPES["hires"], SEED + 90, fused_fwd, None, 0),
+             FUSED_SHAPES["hires"], SEED + 90, fused_fwd, 0),
             (fused_rows, "fwd_train", False, "train_fused", torch.bfloat16,
-             [train0], SEED + 95, fused_pyr, None, 4),
+             [train0], SEED + 95, fused_pyr, 4),
             (fused_rows, "fwd_train_level", False, "train_fused",
              torch.bfloat16, FUSED_SHAPES["train_fused"], SEED + 95,
-             fused_fwd, None, 0),
+             fused_fwd, 0),
             (fused_rows, "bwd", True, "train_fused", torch.bfloat16,
              FUSED_SHAPES["train_fused"], SEED + 95,
-             (fc.fused_corr_backward, fc.fused_corr_backward_plain), None,
-             0),
+             (fc.fused_corr_backward, fc.fused_corr_backward_plain), 0),
             (alt_rows, "fwd", False, "alt_pallas", torch.float32,
-             ALT_DEFAULT_SHAPES, SEED + 140, alt_fwd, slab, 0),
-            (alt_rows, "fwd_hires", False, "hires", torch.float32,
-             FUSED_SHAPES["hires"], SEED + 90, alt_fwd, slab, 0),
+             ALT_DEFAULT_SHAPES[:1], SEED + 140, alt_pyr, 4),
+            (alt_rows, "fwd_level", False, "alt_pallas", torch.float32,
+             ALT_DEFAULT_SHAPES, SEED + 140, alt_fwd, 0),
             (alt_rows, "fwd_train", False, "train_alt", torch.bfloat16,
-             FUSED_SHAPES["train_fused"], SEED + 95, alt_fwd, slab, 0),
+             [train0], SEED + 95, alt_pyr, 4),
+            (alt_rows, "fwd_train_level", False, "train_alt",
+             torch.bfloat16, FUSED_SHAPES["train_fused"], SEED + 95,
+             alt_fwd, 0),
+            (alt_rows, "fwd_hires", False, "hires", torch.float32, [hires0],
+             SEED + 90, alt_pyr, 4),
             (alt_rows, "bwd", True, "train_alt", torch.bfloat16,
              FUSED_SHAPES["train_fused"], SEED + 95,
-             (ac.alt_corr_backward, ac.alt_corr_backward_plain), None, 0)):
+             (ac.alt_corr_backward, ac.alt_corr_backward_plain), 0)):
         for field in ("random", "smooth"):
             for i, shape in enumerate(shapes):
                 row = feature_timing(flush, backward, cfg_name, dtype, shape,
-                                     seed + i, dev, *fns, extra=extra,
-                                     field=field, n_levels=n_levels,
+                                     seed + i, dev, *fns, field=field,
+                                     n_levels=n_levels,
                                      full=field == "random")
                 rows[which].append(row)
                 emit("fused_timings" if rows is fused_rows else
@@ -1669,14 +1718,17 @@ def main():
     } for which, suffix, replaces, launches, extra, rows, timed_at in (
         ("fwd", "", ac.REPLACES, main["alt_pallas"]["launches"],
          {"launches_train_step": train_alt["launches_fwd"],
-          "slab_fp32_ms": mean(rnd(alt_rows["fwd"]), "slab_fp32_ms"),
-          "ms_hires": mean(rnd(alt_rows["fwd_hires"]), "ms"),
-          "bound_ms_hires": mean(rnd(alt_rows["fwd_hires"]), "bound_ms"),
-          "ms_train": mean(rnd(alt_rows["fwd_train"]), "ms"),
-          "bound_ms_train": mean(rnd(alt_rows["fwd_train"]), "bound_ms")},
-         alt_rows["fwd"], "mean per launch over the alt_pallas frame's 4 "
-         "levels (1,96,312,{312,156,78,39},256) fp32 on random centers, L2 "
-         "flushed"),
+          "ms_levels_one_each": [r["ms"] for r in rnd(
+              alt_rows["fwd_level"])],
+          "ms_train": rnd(alt_rows["fwd_train"])[0]["ms"],
+          "bound_ms_train": rnd(alt_rows["fwd_train"])[0]["bound_ms"],
+          "ms_train_levels_one_each": [r["ms"] for r in rnd(
+              alt_rows["fwd_train_level"])],
+          "ms_hires": rnd(alt_rows["fwd_hires"])[0]["ms"],
+          "bound_ms_hires": rnd(alt_rows["fwd_hires"])[0]["bound_ms"]},
+         alt_rows["fwd"], "per launch: one launch for the alt_pallas "
+         "frame's 4 levels (1,96,312,{312,156,78,39},256) fp32 on random "
+         "centers, L2 flushed"),
         ("bwd", "_bwd", ac.REPLACES_BWD, train_alt["launches_bwd"], {},
          alt_rows["bwd"], "mean per launch over the train_alt step's 4 "
          "levels (8,80,180,{180,90,45,22},256) bf16 on random centers, L2 "

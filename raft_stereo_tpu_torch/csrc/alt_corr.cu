@@ -1,4 +1,4 @@
-// alt_corr: the windowed lookup of a correlation slab computed on-chip,
+// alt_corr: the windowed lookup of the correlation slab fmap1 . fmap2^T,
 // forward and backward.
 //
 // Replaces raft_stereo_tpu/ops/pallas/corr_kernels.py::
@@ -24,18 +24,28 @@
 //
 // Design. The TPU kernel builds each row block's whole (W1, W2) slab on the
 // MXU in VMEM and moves the window into place with a barrel-shifter rotate
-// network. Here the slab is cut into 64x64 tiles that live in shared memory
-// and registers only: no (W1, W2) buffer exists in device memory at any
-// shape, and no shape needs another branch (W2 <= 2r+2 included).
+// network. On Hopper no slab is needed at all: only the 2r+2 slab entries a
+// window reads are ever used, and each is one dot product of two feature
+// rows.
 //
-// * forward: one block per (b, h, tile of 64 W1 pixels). The block finds the
-//   W2 span its pixels' windows cover, [min base, max base + 2r+2) clipped
-//   to [0, W2), and walks it in 64-wide chunks (a chunk no window touches is
-//   skipped). Each chunk's 64x64 slab tile is a product over D in 32-wide
-//   slices staged in shared memory, 4x4 outputs a thread in fp32 FMAs (bf16
-//   features are widened on the load: no tensor cores yet). Each pixel then
-//   picks the taps that fall in the chunk; each tap is one finished dot
-//   product, scaled once, so taps never accumulate across chunks.
+// * forward: one launch for 1 to 4 pyramid levels (level i looks up
+//   center / 2**i), the staged-span tap split of span_fwd.cuh (shared with
+//   fused_corr): fmap1's tile is staged once for all the levels, each
+//   level's span of fmap2 rows a 128-byte slice of D at a time, and lane
+//   (pixel, tap) sums one slab entry. Its order of summation
+//   (alt_corr_order below) is one plain PyTorch can repeat exactly:
+//   products rounded, element d into partial sum (d / V) mod 4 (V elements
+//   a 16-byte chunk) in ascending d, then (s0 + s1) + (s2 + s3), scaled
+//   once; so the kernel is bitwise equal to alt_corr_plain, and the
+//   pyramid launch to its one-level launches.
+//   Why: the first forward built 64x64 slab tiles with fp32 FMAs
+//   (bf16 widened: no tensor cores), one launch a level, multiplying every
+//   (pixel, span column) pair: 0.36 / 0.21 / 0.21 / 0.21 ms at the four
+//   train levels (bf16) against fused_corr's 0.32 ms for all four in one
+//   launch; this design takes 0.34 ms for the four (scripts/
+//   time_corr_kernels.py, NVIDIA H100 80GB HBM3, 700 W).
+//   Bound: bytes, as fused_corr's: fmap1 and the fmap2 rows some tap
+//   touches read once, the center read and the output written once.
 // * backward: route (b), the products over the band's nonzeros only. dvol's
 //   row p holds at most 2r+2 nonzeros, dg_j(p) at w2 = base(p) + j, in a
 //   span of ~100-250 columns at the train shape, so a dense band product
@@ -64,12 +74,7 @@
 //   it still multiplies the band's zeros (~6-12x the products of (b) on
 //   random disparities, 2-3x that again for the hi + lo split), while (b)
 //   moves the same bytes with no wasted product; its time against the
-//   bound is in PERF.md.
-// Bound. The function is B2's (fused_corr): bytes, fmap1 and the fmap2 rows
-// the windows touch read once. The slab's product is what this formulation
-// adds: 2*D flops per (pixel, span column) against fused_corr's 2*D per
-// tap, in fp32 FMAs at 67 TFLOP/s. Shared memory is under 48 KB a block at
-// every shape (no opt-in).
+//   bound is in PERF.md. Shared memory is under 48 KB a block (no opt-in).
 //
 // Numerics. floor(c) is clamped in float before the int cast, as
 // windowed_sample and fused_corr do, so centers far outside the row (+-1e9)
@@ -79,127 +84,33 @@
 // blend are explicitly rounded multiplies and adds, as the plain PyTorch
 // version computes them. Offsets are 64-bit.
 
-#include <limits.h>
-
-#include "window.cuh"
+#include "span_fwd.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTile = 64;   // output tile edge; 16x16 threads, 4x4 each
-constexpr int kSlice = 32;  // reduction slice staged in shared memory
-
-// The 4x4 register tile of thread (ty, tx): rows ty + 16 i, columns
-// tx + 16 j, so a warp reads 2 rows (broadcast) and 16 consecutive columns
-// of the staged operands (distinct banks with the +1 padding).
-struct Acc {
-  float v[4][4];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[i][j] = 0.0f;
-  }
-};
 
 // ------------------------------------------------------------- forward
 
-template <typename T, int R>
-__global__ void __launch_bounds__(kThreads)
-    alt_corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
-                        const float* __restrict__ center, float* __restrict__ out, int w1,
-                        int w2, int d, int n_tiles, float scale) {
-  constexpr int K = 2 * R + 1;
-  __shared__ float a_s[kTile][kSlice + 1];  // fmap1 tile, one D slice
-  __shared__ float b_s[kTile][kSlice + 1];  // fmap2 chunk, one D slice
-  __shared__ float c_s[kTile][kTile + 1];   // the chunk's slab tile
-  __shared__ float tap_s[kTile][K + 1];
-  __shared__ int base_s[kTile];
-  __shared__ float frac_s[kTile];
-  __shared__ int span_s[2];
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int64_t row = blockIdx.x / n_tiles;
-  const int w0 = (int)(blockIdx.x % n_tiles) * kTile;
-  const int n_pix = min(kTile, w1 - w0);
-  const int64_t p0 = row * w1 + w0;
-  const T* f1_row = f1 + p0 * d;
-  const T* f2_row = f2 + row * (int64_t)w2 * d;
-
-  if (tid == 0) {
-    span_s[0] = INT_MAX;
-    span_s[1] = INT_MIN;
+// The forward's order of summation: no rotation (chunks in order), each
+// product rounded and added, rounded, to partial sum q mod 4, elements in
+// order. Separate multiplies and adds (never contracted into an FMA), so a
+// plain PyTorch version gives the same bits.
+struct alt_corr_order {
+  static __device__ __forceinline__ int rotation(int) { return 0; }
+  template <typename T>
+  static __device__ __forceinline__ void add(float* acc, int q, uint4 a, uint4 b) {
+    constexpr int V = V16<T>::n;
+    float xa[V], xb[V];
+    unpack16(a, xa, (T*)nullptr);
+    unpack16(b, xb, (T*)nullptr);
+    float s = acc[q & 3];
+#pragma unroll
+    for (int e = 0; e < V; ++e) s = __fadd_rn(s, __fmul_rn(xa[e], xb[e]));
+    acc[q & 3] = s;
   }
-  for (int i = tid; i < kTile * (K + 1); i += kThreads) tap_s[i / (K + 1)][i % (K + 1)] = 0.0f;
-  __syncthreads();
-  int lo = 0, hi = 0;  // this pixel's in-range taps [lo, hi)
-  if (tid < n_pix) {
-    float frac;
-    const int b = window_base(center[p0 + tid], w2, R, &frac);
-    base_s[tid] = b;
-    frac_s[tid] = frac;
-    lo = max(b, 0);
-    hi = min(b + K + 1, w2);
-    if (lo < hi) {  // integer atomics: the same span in any order
-      atomicMin(&span_s[0], lo);
-      atomicMax(&span_s[1], hi);
-    }
-  }
-  __syncthreads();
-  const int span_lo = span_s[0], span_hi = span_s[1];
-
-  for (int c0 = span_lo; c0 < span_hi; c0 += kTile) {
-    if (!__syncthreads_or(lo < hi && lo < c0 + kTile && hi > c0)) continue;
-    Acc acc;
-    acc.zero();
-    for (int d0 = 0; d0 < d; d0 += kSlice) {
-      for (int e = tid; e < kTile * kSlice; e += kThreads) {
-        const int m = e / kSlice, kk = e % kSlice;
-        const bool in_d = d0 + kk < d;
-        a_s[m][kk] = (m < n_pix && in_d) ? load_as_float(f1_row + (int64_t)m * d + d0 + kk)
-                                         : 0.0f;
-        b_s[m][kk] = (c0 + m < w2 && in_d)
-                         ? load_as_float(f2_row + (int64_t)(c0 + m) * d + d0 + kk)
-                         : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kSlice; ++kk) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = a_s[ty + 16 * i][kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = b_s[tx + 16 * j][kk];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc.v[i][j] = fmaf(a[i], b[j], acc.v[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c_s[ty + 16 * i][tx + 16 * j] = acc.v[i][j];
-    __syncthreads();
-    for (int e = tid; e < n_pix * (K + 1); e += kThreads) {
-      const int m = e / (K + 1), j = e % (K + 1);
-      const int x = base_s[m] + j;
-      if (x >= c0 && x < c0 + kTile && x >= 0 && x < w2)
-        tap_s[m][j] = __fmul_rn(c_s[m][x - c0], scale);
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < n_pix * K; e += kThreads) {
-    const int m = e / K, k = e % K;
-    const float f = frac_s[m];
-    out[(p0 + m) * K + k] =
-        __fadd_rn(__fmul_rn(1.0f - f, tap_s[m][k]), __fmul_rn(f, tap_s[m][k + 1]));
-  }
-}
+};
 
 // ------------------------------------------------------------ backward
 
@@ -207,8 +118,6 @@ __global__ void __launch_bounds__(kThreads)
 // has at most 2r+2 nonzeros, dg_j(p) at w2 = base(p) + j.
 constexpr int kWarps = kThreads / 32;
 constexpr int kBandTile = 32;     // pixels (df1) or W2 columns (df2) a block
-constexpr int kSliceBytes = 128;  // a D slice: 8 chunks of 16 bytes
-constexpr int kChunks = kSliceBytes / 16;
 constexpr int kCapRows = 300;     // df1's staged fmap2 rows (37.5 KB)
 constexpr int kListChunk = kThreads;  // W1 pixels a df2 block lists at a time
 constexpr int kListStage = 64;    // listed fmap1 rows a df2 stage
@@ -403,19 +312,6 @@ __global__ void __launch_bounds__(kThreads)
 inline int tiles(int n, int t) { return (n + t - 1) / t; }
 
 template <typename T, int R>
-cudaError_t launch_fwd(const void* f1, const void* f2, const void* center, void* out,
-                       int64_t b_h, int w1, int w2, int d, cudaStream_t stream) {
-  const int n_tiles = tiles(w1, kTile);
-  const int64_t blocks = b_h * n_tiles;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  alt_corr_fwd_kernel<T, R><<<(unsigned int)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(f1), static_cast<const T*>(f2),
-      static_cast<const float*>(center), static_cast<float*>(out), w1, w2, d, n_tiles,
-      1.0f / sqrtf((float)d));
-  return cudaGetLastError();
-}
-
-template <typename T, int R>
 cudaError_t launch_bwd(const void* f1, const void* f2, const void* center, const void* ct,
                        void* df1, void* df2, void* scratch, int64_t b_h, int w1, int w2, int d,
                        cudaStream_t stream) {
@@ -457,21 +353,37 @@ cudaError_t launch_bwd(const void* f1, const void* f2, const void* center, const
 }  // namespace
 
 // dtype_code: 0 = float32 features, 1 = bfloat16 features. fmap1 (b_h, w1, d)
-// and fmap2 (b_h, w2, d) contiguous, center (b_h, w1) fp32, out (b_h, w1,
-// 2r+1) fp32. Each entry point returns the cudaError_t of its launches (0 on
+// contiguous; n_levels in [1, 4] fmap2 levels, f2[i] (b_h, w2[i], d)
+// contiguous; center (b_h, w1) fp32 (level i looks up center / 2**i); out
+// (b_h, w1, n_levels * (2r+1)) fp32, level i's taps at [i (2r+1), (i+1)
+// (2r+1)). Each entry point returns the cudaError_t of its launches (0 on
 // success); the caller raises on anything else. They launch on `stream` and
 // do not synchronise.
-extern "C" int alt_corr_fwd(const void* f1, const void* f2, const void* center, void* out,
-                            long long b_h, int w1, int w2, int d, int radius, int dtype_code,
-                            void* stream) {
+extern "C" int alt_corr_fwd(const void* f1, const void* const* f2, const int* w2, int n_levels,
+                            const void* center, void* out, long long b_h, int w1, int d,
+                            int radius, int dtype_code, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_levels < 1 || n_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
+  Pyramid pyr;
+  pyr.n = n_levels;
+  for (int i = 0; i < kMaxLevels; ++i) {
+    pyr.f2[i] = i < n_levels ? f2[i] : nullptr;
+    pyr.w2[i] = i < n_levels ? w2[i] : 0;
+    if (i < n_levels && w2[i] < 0) return (int)cudaErrorInvalidValue;
+  }
+  const float* c = static_cast<const float*>(center);
+  float* o = static_cast<float*>(out);
   if (dtype_code == 0) {
-#define CALL_F32(R) launch_fwd<float, R>(f1, f2, center, out, b_h, w1, w2, d, s)
+#define CALL_F32(R)                                                                     \
+  launch_span_fwd_tap<float, R, alt_corr_order>(static_cast<const float*>(f1), pyr, c, o, \
+                                                b_h, w1, d, s)
     RADIUS_DISPATCH(radius, CALL_F32)
 #undef CALL_F32
   }
   if (dtype_code == 1) {
-#define CALL_BF16(R) launch_fwd<__nv_bfloat16, R>(f1, f2, center, out, b_h, w1, w2, d, s)
+#define CALL_BF16(R)                                                                  \
+  launch_span_fwd_tap<__nv_bfloat16, R, alt_corr_order>(                              \
+      static_cast<const __nv_bfloat16*>(f1), pyr, c, o, b_h, w1, d, s)
     RADIUS_DISPATCH(radius, CALL_BF16)
 #undef CALL_BF16
   }

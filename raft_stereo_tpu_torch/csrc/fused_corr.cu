@@ -41,8 +41,8 @@
 //     level's span; thread (s, p) sums 5 taps of pixel p at every level,
 //     reading each 16 bytes of fmap1 once for 20 taps. Spans that outgrow
 //     a stage are walked in passes.
-//   - the tap split (one level, or bf16 at the train shape): fmap1's tile
-//     stays whole in shared memory; level after level, lane (pixel, tap)
+//   - the tap split (one level, or bf16 at the train shape; span_fwd.cuh,
+//     shared with alt_corr): fmap1's tile stays whole in shared memory; level after level, lane (pixel, tap)
 //     sums one tap, a pixel's taps 0-7 on one quarter-warp (8 consecutive
 //     rows: no bank twice).
 //   Order: each tap's dot is 4 fp32 partial sums, slice after slice; a
@@ -62,18 +62,31 @@
 //   bytes a multiply-add in the tap split, ~4.8 in the pixel split, at 128
 //   bytes a clock an SM), the staged span (~2.6 rows a pixel at hires
 //   level 0 on random disparities), and a pipeline of few warps an SM.
-// * backward, df1: the same pixel-parallel gather, dg in fp32.
-// * backward, df2: a many-to-one scatter, made deterministic without float
-//   atomics. One block owns one (b, h) row: it stages the row's window
-//   bases and dg in shared memory, counts the contributions that land on
-//   each w2, turns the counts into list offsets by a prefix sum, and lists
-//   each w2's contributions in ascending w1 order (a pixel's rank in a list
-//   is the number of lower pixels whose window covers the same w2). Then
-//   each thread owns one feature channel and walks the lists in order, so
-//   every df2 element is one fixed-order fp32 sum, written once, zeros
-//   included: two runs are bitwise equal. Shared memory is
-//   4 * (W1 * (2 * (2r+2) + 1) + W2 + 1) bytes (63 KB at W1 = W2 = 720,
-//   r = 4); a row whose lists do not fit the block's 227 KB is refused.
+// * backward: both passes tile the row, so a row of any width spreads over
+//   many blocks (the JAX kernel tiles W2 the same way, _fused_tiles), and
+//   both keep one fixed order, so two runs are bitwise equal.
+//   - df1: one block per (b, h, 32 pixels, 512 bytes of D) computes its
+//     pixels' bases and dg from center and ct, stages the fmap2 rows its
+//     windows span (cp.async) and thread (pixel, 4 chunks of 16 bytes) sums
+//     the 2r+2 taps in ascending w2.
+//   - df2: a many-to-one scatter, made deterministic without float atomics.
+//     One block per (b, h, 32 W2 columns, 512 bytes of D) lists the pixels
+//     whose windows meet its columns in ascending w1 (a ballot and a prefix
+//     over the warps, 256 pixels at a time), stages their fmap1 rows and dg,
+//     and thread (column, 4 chunks) sums the listed pixels whose window
+//     holds its column: every df2 element is one fp32 sum in ascending w1,
+//     written once, zeros included.
+//   Why: the first df2 gave one block a whole row: the row's lists
+//   in shared memory (refused above ~2,640 pixels at radius 4), an O(W1^2)
+//   rank pass, and one thread a channel walking every list in series; at
+//   the train shape it took 0.42-0.50 ms a level against bounds of
+//   0.04-0.07 ms (scripts/time_corr_kernels.py, NVIDIA H100 80GB HBM3,
+//   700 W); this design takes 0.12-0.16 ms a level there on the three
+//   center fields timed. Bound: bytes (fmap1, the touched fmap2 rows,
+//   center and ct read once; df1 and df2 written once). What the tiles
+//   pay: each pixel tile re-reads the fmap2 rows its neighbours' windows
+//   share, each column tile its listed fmap1 rows, and every df2 block
+//   scans the row's centers.
 //
 // Numerics. floor(c) is clamped in float before the int cast, as
 // windowed_sample does, so centers far outside the row (+-1e9) touch no tap
@@ -81,264 +94,33 @@
 // the output and dg. Offsets are 64-bit: B*H*W*D passes 2^31 at
 // full-resolution widths.
 
-#include <limits.h>
-
-#include "window.cuh"
+#include "span_fwd.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-// The forward. Two kernels share one order of summation, so either gives
-// the same bits (the launcher picks by shape, for speed only): each tap's
-// dot over D is 4 fp32 partial sums, walked 128-byte slice after slice;
-// within a slice the 8 chunks of 16 bytes are visited from chunk (w1 mod 8)
-// on, the k-th visited into sum k mod 4, elements in order; then (s0 + s1)
-// + (s2 + s3), scaled once, blended with the next tap. The rotation spreads
-// a quarter-warp of consecutive pixels over the 8 bank groups.
-constexpr int kMaxLevels = 4;
-constexpr int kSliceBytes = 128;  // one D slice of a staged row: 8 chunks of 16 bytes
-constexpr int kChunks = kSliceBytes / 16;
-
-// Up to kMaxLevels fmap2 levels (b_h, w2[i], d), passed by value.
-struct Pyramid {
-  const void* f2[kMaxLevels];
-  int w2[kMaxLevels];
-  int n;
+// The forward's order of summation: each tap's dot over D is 4 fp32
+// partial sums, walked 128-byte slice after slice; within a slice the 8
+// chunks of 16 bytes are visited from chunk (w1 mod 8) on, the k-th visited
+// into sum k mod 4 by fmaf, elements in order (the rotation spreads a
+// quarter-warp of consecutive pixels over the 8 bank groups in the pixel
+// split). Both forward kernels sum in this order, so either gives the same
+// bits (the launcher picks by shape, for speed only).
+struct fused_corr_order {
+  static __device__ __forceinline__ int rotation(int w1) { return w1 & (kChunks - 1); }
+  template <typename T>
+  static __device__ __forceinline__ void add(float* acc, int k, uint4 a, uint4 b) {
+    constexpr int V = V16<T>::n;
+    float xa[V], xb[V];
+    unpack16(a, xa, (T*)nullptr);
+    unpack16(b, xb, (T*)nullptr);
+    float s = acc[k & 3];
+#pragma unroll
+    for (int e = 0; e < V; ++e) s = fmaf(xa[e], xb[e], s);
+    acc[k & 3] = s;
+  }
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::);  // all but the newest group
-}
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
-
-// 16 bytes of a feature row into shared memory: [first, first + V16) of
-// row, zero past d; asynchronous where one aligned load covers it.
-template <typename T>
-__device__ __forceinline__ void stage16(unsigned char* dst, const T* row, int first, int d,
-                                        bool vec) {
-  if (vec && first + V16<T>::n <= d)
-    cp_async16(dst, row + first);
-  else
-    *reinterpret_cast<uint4*>(dst) = load16(row, first, d, false);
-}
-
-// Adds chunk k (its position in the rotated visit) of one slice to the
-// partial sums of one tap.
-template <typename T>
-__device__ __forceinline__ void add_chunk(float* acc, int k, uint4 a, uint4 b) {
-  constexpr int V = V16<T>::n;
-  float xa[V], xb[V];
-  unpack16(a, xa, (T*)nullptr);
-  unpack16(b, xb, (T*)nullptr);
-  float s = acc[k & 3];
-#pragma unroll
-  for (int e = 0; e < V; ++e) s = fmaf(xa[e], xb[e], s);
-  acc[k & 3] = s;
-}
-
-__device__ __forceinline__ float tap_value(const float* acc, bool in_row, float scale) {
-  return in_row ? __fmul_rn((acc[0] + acc[1]) + (acc[2] + acc[3]), scale) : 0.0f;
-}
-
-__device__ __forceinline__ float blend(float f, float g0, float g1) {
-  return __fadd_rn(__fmul_rn(1.0f - f, g0), __fmul_rn(f, g1));
-}
-
-// ---- the tap split: level after level, a lane a tap ----
-//
-// One block per (b, h, tile of up to kTapTile pixels), kTapThreads threads.
-// fmap1's tile is staged whole (every D) once for all the levels; per level
-// the fmap2 rows its windows span are staged a slice at a time in two
-// buffers (cp.async; rows padded 16 bytes). Lane = (pixel, tap): from 2r+2
-// >= 8 taps a pixel, taps 0-7 fill one quarter-warp (8 consecutive rows:
-// no bank twice) and the rest share the last lanes; slot s of warp w holds
-// pixels (w + 16 s) G .. + G - 1.
-constexpr int kTapThreads = 512;
-constexpr int kTapWarps = kTapThreads / 32;
-constexpr int kTapTile = 128;
-constexpr int kTapRowStride = kSliceBytes + 16;
-constexpr int kMinCap = 256;  // rows a buffer holds at the least
-
-struct Stage {
-  int lvl, c0, s0;
-};
-
-template <typename T, int R>
-__global__ void __launch_bounds__(kTapThreads, 1)
-    fused_corr_fwd_tap_kernel(const T* __restrict__ f1, const Pyramid pyr,
-                              const float* __restrict__ center, float* __restrict__ out,
-                              int w1, int d, int tile, int n_tiles, int f1_stride, int cap,
-                              float scale, bool vec) {
-  constexpr int K = 2 * R + 1;
-  constexpr int KT = K + 1;
-  constexpr int G = 32 / KT;  // pixels a warp slot
-  constexpr int NS = ((kTapTile + G - 1) / G + kTapWarps - 1) / kTapWarps;
-  constexpr int V = V16<T>::n;
-  extern __shared__ __align__(16) unsigned char tap_smem[];
-  unsigned char* f1_s = tap_smem;                     // [tile][f1_stride]
-  unsigned char* f2_s = tap_smem + tile * f1_stride;  // [2][cap][kTapRowStride]
-  __shared__ int base_s[kMaxLevels][kTapTile];
-  __shared__ float frac_s[kMaxLevels][kTapTile];
-  __shared__ int span_s[kMaxLevels][2];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t row = blockIdx.x / n_tiles;
-  const int w0 = (int)(blockIdx.x % n_tiles) * tile;
-  const int n_pix = min(tile, w1 - w0);
-  const int64_t p0 = row * w1 + w0;
-  const int f1_bytes = f1_stride - 16;  // a whole number of slices
-  const int n_lvl = pyr.n;
-
-  if (tid < kMaxLevels) {
-    span_s[tid][0] = INT_MAX;
-    span_s[tid][1] = INT_MIN;
-  }
-  for (int i = tid; i < n_pix * (f1_bytes / 16); i += kTapThreads) {
-    const int m = i / (f1_bytes / 16), q = i % (f1_bytes / 16);
-    stage16(f1_s + m * f1_stride + q * 16, f1 + (p0 + m) * d, q * V, d, vec);
-  }
-  __syncthreads();
-  for (int i = tid; i < n_lvl * n_pix; i += kTapThreads) {
-    const int lvl = i / n_pix, m = i % n_pix;
-    const int w2 = pyr.w2[lvl];
-    float frac;
-    const int b = window_base(center[p0 + m] * (1.0f / (float)(1 << lvl)), w2, R, &frac);
-    base_s[lvl][m] = b;
-    frac_s[lvl][m] = frac;
-    const int lo = max(b, 0), hi = min(b + KT, w2);
-    if (lo < hi) {  // integer atomics: the same span in any order
-      atomicMin(&span_s[lvl][0], lo);
-      atomicMax(&span_s[lvl][1], hi);
-    }
-  }
-  __syncthreads();
-
-  const int p_of = KT >= 8 ? (lane < 8 * G ? lane / 8 : (lane - 8 * G) / max(KT - 8, 1))
-                           : lane / KT;
-  const int j = KT >= 8 ? (lane < 8 * G ? lane % 8 : 8 + (lane - 8 * G) % max(KT - 8, 1))
-                        : lane % KT;
-  const bool lane_used = KT >= 8 ? lane < 8 * G || lane - 8 * G < G * (KT - 8) : lane < G * KT;
-  // the lane holding tap j + 1 of this lane's pixel (itself past the last)
-  const int next_lane =
-      j + 1 >= KT ? lane
-      : KT >= 8   ? (j + 1 < 8 ? p_of * 8 + j + 1 : 8 * G + p_of * (KT - 8) + (j + 1 - 8))
-                  : lane + 1;
-  int pix[NS], rot[NS];
-  bool lane_on[NS];
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    pix[s] = (warp + kTapWarps * s) * G + p_of;
-    lane_on[s] = lane_used && pix[s] < n_pix;
-    rot[s] = (w0 + pix[s]) & (kChunks - 1);
-  }
-
-  auto first_of = [&](int lvl) {
-    while (lvl < n_lvl && span_s[lvl][0] >= span_s[lvl][1]) ++lvl;
-    return Stage{lvl, lvl < n_lvl ? span_s[lvl][0] : 0, 0};
-  };
-  auto next_of = [&](Stage st) {
-    st.s0 += kSliceBytes;
-    if (st.s0 < f1_bytes) return st;
-    st.s0 = 0;
-    st.c0 += cap;
-    if (st.c0 < span_s[st.lvl][1]) return st;
-    return first_of(st.lvl + 1);
-  };
-  auto issue = [&](Stage st, int buf) {
-    const int w2 = pyr.w2[st.lvl];
-    const T* f2 = static_cast<const T*>(pyr.f2[st.lvl]) + row * (int64_t)w2 * d;
-    const int n = min(cap, span_s[st.lvl][1] - st.c0);
-    unsigned char* dst = f2_s + (int64_t)buf * cap * kTapRowStride;
-    const int first = st.s0 / (int)sizeof(T);
-    for (int i = tid; i < n * kChunks; i += kTapThreads) {
-      const int r = i / kChunks, q = i % kChunks;
-      stage16(dst + r * kTapRowStride + q * 16, f2 + (int64_t)(st.c0 + r) * d, first + q * V,
-              d, vec);
-    }
-  };
-  float acc[NS][4] = {};
-  int x[NS];  // this lane's fmap2 row at the current level, -1 outside
-  auto write_level = [&](int lvl) {
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      const int xs = lane_on[s] ? base_s[lvl][pix[s]] + j : -1;
-      const float g = tap_value(acc[s], xs >= 0 && xs < pyr.w2[lvl], scale);
-      const float g_next = __shfl_sync(kFull, g, next_lane);
-      if (lane_on[s] && j < K)
-        out[(p0 + pix[s]) * ((int64_t)n_lvl * K) + lvl * K + j] =
-            blend(frac_s[lvl][pix[s]], g, g_next);
-    }
-  };
-  auto start_level = [&](int lvl) {
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      x[s] = lane_on[s] ? base_s[lvl][pix[s]] + j : -1;
-      if (x[s] >= pyr.w2[lvl]) x[s] = -1;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[s][e] = 0.0f;
-    }
-  };
-
-  Stage cur = first_of(0);
-  for (int lvl = 0; lvl < cur.lvl; ++lvl) write_level(lvl);  // acc is 0
-  if (cur.lvl < n_lvl) {
-    issue(cur, 0);
-    start_level(cur.lvl);
-  }
-  cp_async_commit();
-  int buf = 0;
-  while (cur.lvl < n_lvl) {
-    const Stage nxt = next_of(cur);
-    if (nxt.lvl < n_lvl) issue(nxt, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait_prior();
-    __syncthreads();
-    const int n = min(cap, span_s[cur.lvl][1] - cur.c0);
-    bool hit[NS];
-    bool any = false;
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      hit[s] = x[s] >= cur.c0 && x[s] < cur.c0 + n;
-      any = any || hit[s];
-    }
-    if (__any_sync(kFull, any)) {
-      const unsigned char* b_buf = f2_s + (int64_t)buf * cap * kTapRowStride;
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        if (!hit[s]) continue;
-        const unsigned char* a = f1_s + pix[s] * f1_stride + cur.s0;
-        const unsigned char* b = b_buf + (x[s] - cur.c0) * kTapRowStride;
-#pragma unroll
-        for (int q = 0; q < kChunks; ++q) {
-          const int c = ((q + rot[s]) & (kChunks - 1)) * 16;
-          add_chunk<T>(acc[s], q, *reinterpret_cast<const uint4*>(a + c),
-                       *reinterpret_cast<const uint4*>(b + c));
-        }
-      }
-    }
-    __syncthreads();  // buffer buf is read: the next issue may refill it
-    if (nxt.lvl != cur.lvl) {
-      write_level(cur.lvl);
-#pragma unroll
-      for (int s = 0; s < NS; ++s)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[s][e] = 0.0f;
-      for (int lvl = cur.lvl + 1; lvl < nxt.lvl; ++lvl) write_level(lvl);
-      if (nxt.lvl < n_lvl) start_level(nxt.lvl);
-    }
-    cur = nxt;
-    buf ^= 1;
-  }
-  // fmap1's copies stay unwaited when no level's span holds a row
-  cp_async_wait_all();
-}
 
 // ---- the pixel split: slice after slice, every level, a thread a pixel ----
 //
@@ -385,7 +167,7 @@ __global__ void __launch_bounds__(PixSplit<R>::threads, 1)
   const int64_t p0 = row * w1 + w0;
   const int n_lvl = pyr.n;
   const bool on = p < n_pix;
-  const int rot = (w0 + p) & (kChunks - 1);
+  const int rot = fused_corr_order::rotation(w0 + p);
 
   if (tid < kMaxLevels) {
     span_s[tid][0] = INT_MAX;
@@ -471,7 +253,7 @@ __global__ void __launch_bounds__(PixSplit<R>::threads, 1)
             for (int t = 0; t < TT; ++t) {
               const int r = r0 + t;
               if (tap0 + t >= KT || r < 0 || r >= n[l]) continue;
-              add_chunk<T>(acc[l][t], q, ua,
+              fused_corr_order::add<T>(acc[l][t], q, ua,
                            *reinterpret_cast<const uint4*>(rows + (off[l] + r) * kSliceBytes + c));
             }
           }
@@ -505,175 +287,225 @@ __global__ void __launch_bounds__(PixSplit<R>::threads, 1)
     __syncthreads();  // g_s is read
   }
 }
+// ---- the backward: df1 over W1 tiles, df2 over W2 tiles ----
+//
+// Both kernels take a (b, h) row in tiles of kBwdTile pixels (df1) or W2
+// columns (df2) and a D tile of kDTileBytes, so a row of any width spreads
+// over many blocks. Thread (m, q) of a block owns pixel or column m of the
+// tile and chunks q, q + 8, q + 16, q + 24 of the D tile (16 bytes each: a
+// quarter-warp reads one staged row's 128 contiguous bytes, no bank twice).
+// Each computes its own windows from center and ct (no band pass, no
+// scratch). Staged rows go to shared memory by cp.async, kRowCap rows a
+// pass.
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdTile = 32;       // pixels (df1) or W2 columns (df2) a block
+constexpr int kDTileBytes = 512;   // a block's D tile: 32 chunks of 16 bytes
+constexpr int kDChunks = kDTileBytes / 16;
+constexpr int kLanes = kBwdThreads / kBwdTile;  // 8 threads a pixel or column
+constexpr int kPerLane = kDChunks / kLanes;     // 4 chunks a thread
+constexpr int kRowCap = 96;        // staged rows a pass (48 KB)
 
+// df1[p] = sum over j ascending of dg_j(p) * fmap2[base(p) + j] (in-range
+// taps), one fmaf chain from 0: one block per (row, kBwdTile pixels, D
+// tile). The block stages the fmap2 rows its windows span, [min base, max
+// base + 2r+2) clipped to [0, W2), in passes of `cap` rows (a pass no
+// window meets is skipped).
 template <typename T, int R>
-__global__ void fused_corr_bwd_df1_kernel(const T* __restrict__ f2,
-                                          const float* __restrict__ center,
-                                          const float* __restrict__ ct, T* __restrict__ df1,
-                                          int64_t n_pix, int w1, int w2, int d,
-                                          float scale) {
+__global__ void __launch_bounds__(kBwdThreads)
+    fused_corr_bwd_df1_kernel(const T* __restrict__ f2, const float* __restrict__ center,
+                              const float* __restrict__ ct, T* __restrict__ df1, int w1, int w2,
+                              int d, int n_wtiles, int n_dtiles, int cap, float scale, bool vec) {
   constexpr int K = 2 * R + 1;
-  const int lane = threadIdx.x & 31;
-  const int64_t p = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (p >= n_pix) return;
-  float frac;
-  const int base = window_base(center[p], w2, R, &frac);
-  float dg[K + 1];
-  tap_grads<K>(ct + p * K, frac, scale, dg);
-  const T* row = f2 + (p / w1) * (int64_t)w2 * d;
-  T* out = df1 + p * d;
-  for (int c = lane; c < d; c += 32) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int j = 0; j <= K; ++j) {
-      const int i = base + j;
-      if (i >= 0 && i < w2) acc = fmaf(dg[j], load_as_float(row + (int64_t)i * d + c), acc);
-    }
-    out[c] = from_float(acc, (T*)nullptr);
-  }
-}
+  constexpr int KT = K + 1;
+  constexpr int V = V16<T>::n;
+  extern __shared__ __align__(16) unsigned char rows_s[];  // [cap][kDTileBytes]
+  __shared__ float dg_s[kBwdTile][KT];
+  __shared__ int base_s[kBwdTile];
+  __shared__ int span_s[2];
 
-// Shared memory bytes of one df2 block: 4-byte bases (w1), dg and list
-// entries (w1 * (K+1) each), list offsets (w2 + 1).
-inline int64_t df2_smem_bytes(int w1, int w2, int radius) {
-  const int64_t taps = 2 * radius + 2;
-  return 4 * ((int64_t)w1 * (2 * taps + 1) + w2 + 1);
-}
-
-template <typename T, int R>
-__global__ void fused_corr_bwd_df2_kernel(const T* __restrict__ f1,
-                                          const float* __restrict__ center,
-                                          const float* __restrict__ ct, T* __restrict__ df2,
-                                          int w1, int w2, int d, float scale) {
-  constexpr int K = 2 * R + 1;
-  extern __shared__ int smem[];
-  int* base_s = smem;                                         // [w1]
-  float* dg_s = reinterpret_cast<float*>(base_s + w1);        // [w1 * (K+1)]
-  int* list_s = reinterpret_cast<int*>(dg_s + w1 * (K + 1));  // [w1 * (K+1)]
-  int* start_s = list_s + w1 * (K + 1);                       // [w2 + 1]
-
-  const int64_t row = blockIdx.x;
-  const int64_t p0 = row * w1;
   const int tid = threadIdx.x;
+  const int64_t blk = blockIdx.x;
+  const int dt = (int)(blk % n_dtiles);
+  const int wt = (int)((blk / n_dtiles) % n_wtiles);
+  const int64_t row = blk / ((int64_t)n_dtiles * n_wtiles);
+  const int w0 = wt * kBwdTile, first = dt * (kDTileBytes / (int)sizeof(T));
+  const int n_pix = min(kBwdTile, w1 - w0);
+  const int64_t p0 = row * w1 + w0;
+  const T* f2_row = f2 + row * (int64_t)w2 * d;
 
-  for (int i = tid; i <= w2; i += blockDim.x) start_s[i] = 0;
+  if (tid == 0) {
+    span_s[0] = INT_MAX;
+    span_s[1] = INT_MIN;
+  }
   __syncthreads();
-
-  // bases, dg, and per-w2 counts (at i + 1, for the prefix sum below;
-  // integer atomics give the same count in any order)
-  for (int w = tid; w < w1; w += blockDim.x) {
+  if (tid < n_pix) {
     float frac;
-    const int b = window_base(center[p0 + w], w2, R, &frac);
-    base_s[w] = b;
-    float dg[K + 1];
-    tap_grads<K>(ct + (p0 + w) * K, frac, scale, dg);
+    const int b = window_base(center[p0 + tid], w2, R, &frac);
+    base_s[tid] = b;
+    float dg[KT];
+    tap_grads<K>(ct + (p0 + tid) * K, frac, scale, dg);
 #pragma unroll
-    for (int j = 0; j <= K; ++j) {
-      dg_s[w * (K + 1) + j] = dg[j];
-      const int i = b + j;
-      if (i >= 0 && i < w2) atomicAdd(&start_s[i + 1], 1);
+    for (int j = 0; j < KT; ++j) dg_s[tid][j] = dg[j];
+    const int lo = max(b, 0), hi = min(b + KT, w2);
+    if (lo < hi) {  // integer atomics: the same span in any order
+      atomicMin(&span_s[0], lo);
+      atomicMax(&span_s[1], hi);
     }
   }
   __syncthreads();
+  const int span_lo = span_s[0], span_hi = span_s[1];
+  const int m = tid / kLanes, q = tid % kLanes;
+  const bool on = m < n_pix;
+  const int b = on ? base_s[m] : 0;
+  const int lo = on ? max(b, 0) : 0, hi = on ? min(b + KT, w2) : 0;
 
-  // inclusive prefix sum over start_s[0..w2] by the first warp
-  if (tid < 32) {
-    int carry = 0;
-    for (int c0 = 0; c0 <= w2; c0 += 32) {
-      const int i = c0 + tid;
-      int v = i <= w2 ? start_s[i] : 0;
+  float acc[kPerLane][V];
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int u = __shfl_up_sync(kFull, v, off);
-        if (tid >= off) v += u;
-      }
-      v += carry;
-      if (i <= w2) start_s[i] = v;
-      carry = __shfl_sync(kFull, v, 31);
+  for (int i = 0; i < kPerLane; ++i)
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[i][e] = 0.0f;
+  for (int c0 = span_lo; c0 < span_hi; c0 += cap) {
+    const int n = min(cap, span_hi - c0);
+    if (!__syncthreads_or(lo < hi && lo < c0 + n && hi > c0)) continue;
+    for (int i = tid; i < n * kDChunks; i += kBwdThreads) {
+      const int r = i / kDChunks, qq = i % kDChunks;
+      stage16(rows_s + r * kDTileBytes + qq * 16, f2_row + (int64_t)(c0 + r) * d,
+              first + qq * V, d, vec);
     }
+    cp_async_wait_all();
+    __syncthreads();
+    if (on) {
+#pragma unroll
+      for (int j = 0; j < KT; ++j) {
+        const int x = b + j;
+        if (x < c0 || x >= c0 + n) continue;
+        const float g = dg_s[m][j];
+        const unsigned char* src = rows_s + (x - c0) * kDTileBytes;
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i) {
+          float y[V];
+          unpack16(*reinterpret_cast<const uint4*>(src + (q + kLanes * i) * 16), y,
+                   (T*)nullptr);
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[i][e] = fmaf(g, y[e], acc[i][e]);
+        }
+      }
+    }
+    __syncthreads();  // the rows are read: the next pass may refill them
   }
-  __syncthreads();
-
-  // each w2's list in ascending w1 order: pixel w's rank in the list of
-  // w2 = base(w) + j counts the lower pixels whose window covers that w2
-  for (int w = tid; w < w1; w += blockDim.x) {
-    const int b = base_s[w];
-    int rank[K + 1];
+  if (on) {
 #pragma unroll
-    for (int j = 0; j <= K; ++j) rank[j] = 0;
-    for (int v = 0; v < w; ++v) {
-      const int dd = base_s[v] - b;  // v covers b + j for j in [dd, dd + K]
-      if (dd >= -K && dd <= K) {
-#pragma unroll
-        for (int j = 0; j <= K; ++j) rank[j] += (j >= dd && j <= dd + K) ? 1 : 0;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j <= K; ++j) {
-      const int i = b + j;
-      if (i >= 0 && i < w2) list_s[start_s[i] + rank[j]] = w * (K + 1) + j;
-    }
-  }
-  __syncthreads();
-
-  // one thread per feature channel walks every list in order
-  for (int c = tid; c < d; c += blockDim.x) {
-    for (int i = 0; i < w2; ++i) {
-      float acc = 0.0f;
-      const int end = start_s[i + 1];
-      for (int e = start_s[i]; e < end; ++e) {
-        const int ent = list_s[e];
-        const int w = ent / (K + 1);
-        acc = fmaf(dg_s[ent], load_as_float(f1 + (p0 + w) * d + c), acc);
-      }
-      df2[(row * w2 + i) * d + c] = from_float(acc, (T*)nullptr);
-    }
+    for (int i = 0; i < kPerLane; ++i)
+      store16(df1 + (p0 + m) * d, first + (q + kLanes * i) * V, d, vec, acc[i]);
   }
 }
 
-inline unsigned int blocks_for(int64_t threads) {
-  return (unsigned int)((threads + kThreads - 1) / kThreads);
-}
-
-// Shared memory a block may use beside its static arrays.
-inline cudaError_t dynamic_smem_max(int* bytes) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  *bytes -= 16 * 1024;  // the static arrays
-  return err;
-}
-
-// The tap split: the widest tile whose two fmap2 buffers still hold
-// kMinCap rows (or the widest row), the row's pixels spread evenly.
+// df2[w2] = sum over the pixels w1 whose window holds w2, ascending w1, of
+// dg_{w2 - base(w1)}(w1) * fmap1[w1], one fmaf chain from 0, written once
+// (zeros included): one block per (row, kBwdTile W2 columns, D tile). The
+// block scans the row's pixels kBwdThreads at a time, lists those whose
+// in-range taps meet its columns in ascending w1 (a ballot and a prefix
+// over the warps), stages their fmap1 rows and tap gradients in passes of
+// `cap`, and thread (column, q) sums the listed pixels whose window holds
+// its column. No float atomics: every output has one owner.
 template <typename T, int R>
-cudaError_t launch_fwd_tap(const T* f1, const Pyramid& pyr, const float* center, float* out,
-                           int64_t b_h, int w1, int d, int max_w2, bool vec, float scale,
-                           cudaStream_t stream) {
-  int smem_max = 0;
-  cudaError_t err = dynamic_smem_max(&smem_max);
-  if (err != cudaSuccess) return err;
-  const int64_t f1_stride = (d * (int64_t)sizeof(T) + kSliceBytes - 1) / kSliceBytes *
-                                kSliceBytes + 16;
-  int tile = kTapTile;
-  const int64_t want_cap = max_w2 < kMinCap ? max_w2 : kMinCap;
-  while (tile > 1 && smem_max - tile * f1_stride < 2 * want_cap * kTapRowStride) tile /= 2;
-  int64_t cap = (smem_max - tile * f1_stride) / (2 * kTapRowStride);
-  if (cap < 1) return cudaErrorInvalidValue;  // D too wide for one pixel's row
-  if (cap > max_w2) cap = max_w2;
-  const int n_tiles = (w1 + tile - 1) / tile;
-  tile = (w1 + n_tiles - 1) / n_tiles;
-  const int64_t smem = tile * f1_stride + 2 * cap * kTapRowStride;
-  const int64_t blocks = b_h * n_tiles;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(fused_corr_fwd_tap_kernel<T, R>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  fused_corr_fwd_tap_kernel<T, R><<<(unsigned int)blocks, kTapThreads, (size_t)smem, stream>>>(
-      f1, pyr, center, out, w1, d, tile, n_tiles, (int)f1_stride, (int)cap, scale, vec);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(kBwdThreads)
+    fused_corr_bwd_df2_kernel(const T* __restrict__ f1, const float* __restrict__ center,
+                              const float* __restrict__ ct, T* __restrict__ df2, int w1, int w2,
+                              int d, int n_wtiles, int n_dtiles, int cap, float scale, bool vec) {
+  constexpr int K = 2 * R + 1;
+  constexpr int KT = K + 1;
+  constexpr int V = V16<T>::n;
+  extern __shared__ __align__(16) unsigned char rows_s[];  // [cap][kDTileBytes]
+  __shared__ float dg_s[kRowCap][KT];
+  __shared__ int lbase_s[kRowCap];
+  __shared__ int list_s[kBwdThreads];
+  __shared__ int count_s[kBwdWarps];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t blk = blockIdx.x;
+  const int dt = (int)(blk % n_dtiles);
+  const int wt = (int)((blk / n_dtiles) % n_wtiles);
+  const int64_t row = blk / ((int64_t)n_dtiles * n_wtiles);
+  const int t0 = wt * kBwdTile, first = dt * (kDTileBytes / (int)sizeof(T));
+  const int n_cols = min(kBwdTile, w2 - t0);
+  const int64_t p_row = row * w1;
+  const int c = tid / kLanes, q = tid % kLanes;
+  const int col = t0 + c;
+  const bool on = c < n_cols;
+
+  float acc[kPerLane][V];
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i)
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[i][e] = 0.0f;
+  for (int k0 = 0; k0 < w1; k0 += kBwdThreads) {
+    const int w = k0 + tid;
+    bool hit = false;
+    if (w < w1) {
+      float frac;
+      const int b = window_base(center[p_row + w], w2, R, &frac);
+      const int lo = max(b, 0), hi = min(b + KT, w2);
+      hit = lo < hi && lo < t0 + n_cols && hi > t0;
+    }
+    const unsigned mask = __ballot_sync(kFull, hit);
+    if (lane == 0) count_s[warp] = __popc(mask);
+    __syncthreads();
+    int offs = 0, total = 0;
+#pragma unroll
+    for (int i = 0; i < kBwdWarps; ++i) {
+      const int cnt = count_s[i];
+      offs += i < warp ? cnt : 0;
+      total += cnt;
+    }
+    if (hit) list_s[offs + __popc(mask & ((1u << lane) - 1u))] = w;
+    __syncthreads();
+    for (int e0 = 0; e0 < total; e0 += cap) {
+      const int ne = min(cap, total - e0);
+      for (int i = tid; i < ne * kDChunks; i += kBwdThreads) {
+        const int r = i / kDChunks, qq = i % kDChunks;
+        stage16(rows_s + r * kDTileBytes + qq * 16, f1 + (p_row + list_s[e0 + r]) * d,
+                first + qq * V, d, vec);
+      }
+      for (int r = tid; r < ne; r += kBwdThreads) {
+        const int64_t p = p_row + list_s[e0 + r];
+        float frac;
+        lbase_s[r] = window_base(center[p], w2, R, &frac);
+        float dg[KT];
+        tap_grads<K>(ct + p * K, frac, scale, dg);
+#pragma unroll
+        for (int j = 0; j < KT; ++j) dg_s[r][j] = dg[j];
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      if (on) {
+        for (int r = 0; r < ne; ++r) {
+          const int j = col - lbase_s[r];
+          if ((unsigned)j >= (unsigned)KT) continue;
+          const float g = dg_s[r][j];
+          const unsigned char* src = rows_s + r * kDTileBytes;
+#pragma unroll
+          for (int i = 0; i < kPerLane; ++i) {
+            float y[V];
+            unpack16(*reinterpret_cast<const uint4*>(src + (q + kLanes * i) * 16), y,
+                     (T*)nullptr);
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[i][e] = fmaf(g, y[e], acc[i][e]);
+          }
+        }
+      }
+      __syncthreads();  // rows, dg and bases are read: the next pass may refill them
+    }
+  }
+  if (on) {
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i)
+      store16(df2 + (row * w2 + col) * d, first + (q + kLanes * i) * V, d, vec, acc[i]);
+  }
 }
+
+inline int tiles(int64_t n, int t) { return (int)((n + t - 1) / t); }
 
 // The pixel split: tiles of up to kPixTile pixels spread evenly; a stage
 // holds their fmap1 slices and up to cap fmap2 rows (no more than the
@@ -708,13 +540,8 @@ cudaError_t launch_fwd_pixel(const T* f1, const Pyramid& pyr, const float* cente
 template <typename T, int R>
 cudaError_t launch_fwd(const void* f1, const Pyramid& pyr, const void* center, void* out,
                        int64_t b_h, int w1, int d, cudaStream_t stream) {
-  int max_w2 = 1;
   bool vec = d % V16<T>::n == 0 && aligned16(f1);
-  for (int i = 0; i < pyr.n; ++i) {
-    if (pyr.w2[i] > max_w2) max_w2 = pyr.w2[i];
-    vec = vec && aligned16(pyr.f2[i]);
-  }
-  const float scale = 1.0f / sqrtf((float)d);
+  for (int i = 0; i < pyr.n; ++i) vec = vec && aligned16(pyr.f2[i]);
   const T* a = static_cast<const T*>(f1);
   const float* c = static_cast<const float*>(center);
   float* o = static_cast<float*>(out);
@@ -722,38 +549,52 @@ cudaError_t launch_fwd(const void* f1, const Pyramid& pyr, const void* center, v
   // levels share each fmap1 slice and D has 8+ slices to pipeline (the
   // hires pyramid, fp32), the tap split elsewhere (one level, or bf16 at
   // the train shape; timings in PERF.md).
-  if (pyr.n > 1 && d * (int64_t)sizeof(T) >= 8 * kSliceBytes) return launch_fwd_pixel<T, R>(a, pyr, c, o, b_h, w1, d, vec, scale, stream);
-  return launch_fwd_tap<T, R>(a, pyr, c, o, b_h, w1, d, max_w2, vec, scale, stream);
+  if (pyr.n > 1 && d * (int64_t)sizeof(T) >= 8 * kSliceBytes)
+    return launch_fwd_pixel<T, R>(a, pyr, c, o, b_h, w1, d, vec, 1.0f / sqrtf((float)d),
+                                  stream);
+  return launch_span_fwd_tap<T, R, fused_corr_order>(a, pyr, c, o, b_h, w1, d, stream);
+}
+
+// One backward kernel over (rows x tiles of `width` x D tiles), `cap`
+// staged rows of dynamic shared memory.
+template <typename T>
+cudaError_t launch_bwd_kernel(void (*kernel)(const T*, const float*, const float*, T*, int, int,
+                                             int, int, int, int, float, bool),
+                              int64_t b_h, int width, int n_dtiles, int cap, cudaStream_t stream,
+                              const T* src, const float* center, const float* ct, T* dst, int w1,
+                              int w2, int d, float scale, bool vec) {
+  const int n_wtiles = tiles(width, kBwdTile);
+  const int64_t blocks = b_h * n_wtiles * n_dtiles;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)cap * kDTileBytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned int)blocks, kBwdThreads, smem, stream>>>(
+      src, center, ct, dst, w1, w2, d, n_wtiles, n_dtiles, cap, scale, vec);
+  return cudaGetLastError();
 }
 
 template <typename T, int R>
 cudaError_t launch_bwd(const void* f1, const void* f2, const void* center, const void* ct,
                        void* df1, void* df2, int64_t b_h, int w1, int w2, int d,
                        cudaStream_t stream) {
-  const int64_t n_pix = b_h * w1;
   const float scale = 1.0f / sqrtf((float)d);
   const float* c = static_cast<const float*>(center);
   const float* g = static_cast<const float*>(ct);
+  const bool vec = d % V16<T>::n == 0 && aligned16(f1) && aligned16(f2) &&
+                   (df1 == nullptr || aligned16(df1)) && (df2 == nullptr || aligned16(df2));
+  const int n_dtiles = tiles(d * (int64_t)sizeof(T), kDTileBytes);
   if (df1 != nullptr) {
-    fused_corr_bwd_df1_kernel<T, R><<<blocks_for(n_pix * 32), kThreads, 0, stream>>>(
-        static_cast<const T*>(f2), c, g, static_cast<T*>(df1), n_pix, w1, w2, d, scale);
-    cudaError_t err = cudaGetLastError();
+    const cudaError_t err = launch_bwd_kernel(
+        fused_corr_bwd_df1_kernel<T, R>, b_h, w1, n_dtiles, w2 < kRowCap ? w2 : kRowCap,
+        stream, static_cast<const T*>(f2), c, g, static_cast<T*>(df1), w1, w2, d, scale, vec);
     if (err != cudaSuccess) return err;
   }
   if (df2 == nullptr) return cudaSuccess;
-  const int64_t smem = df2_smem_bytes(w1, w2, R);
-  int dev = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (smem > smem_max) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(fused_corr_bwd_df2_kernel<T, R>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  fused_corr_bwd_df2_kernel<T, R><<<(unsigned int)b_h, kThreads, (size_t)smem, stream>>>(
-      static_cast<const T*>(f1), c, g, static_cast<T*>(df2), w1, w2, d, scale);
-  return cudaGetLastError();
+  return launch_bwd_kernel(fused_corr_bwd_df2_kernel<T, R>, b_h, w2, n_dtiles,
+                           w1 < kRowCap ? w1 : kRowCap, stream, static_cast<const T*>(f1), c,
+                           g, static_cast<T*>(df2), w1, w2, d, scale, vec);
 }
 
 }  // namespace

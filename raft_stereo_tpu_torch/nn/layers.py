@@ -1,7 +1,9 @@
 """Convolution and normalization building blocks (NHWC at the interface).
 
 Counterparts of ``raft_stereo_tpu.nn.layers``. Activations are NHWC like
-the JAX package; ``Conv`` hands ``F.conv2d`` a channels-first view.
+the JAX package; ``Conv`` hands ``F.conv2d`` a channels-first view, or, for
+the convolutions where cuDNN's heuristic takes its FFT path, PyTorch's own
+im2col + GEMM convolution (see :func:`cudnn_takes_fft`).
 Mixed precision follows the JAX policy rather than ``autocast``: parameters
 stay fp32, each conv runs in the compute dtype it was built with, and
 instance/group norm statistics are taken in fp32.
@@ -22,9 +24,35 @@ import torch.nn.functional as F
 NORM_EPS = 1e-5
 
 
+def cudnn_takes_fft(conv: nn.Conv2d, x: torch.Tensor) -> bool:
+    """Whether cuDNN's heuristic takes its FFT path for ``conv`` on the
+    channels-first input ``x``. It does (cuDNN 9, fp32 with cuDNN's TF32
+    off, no cudnn.benchmark) for 3x3 stride-1 convolutions of 256 channels
+    into 128 with N*H*W in about [16384, 50000], e.g. update_block.gru32's
+    gate convs at 1/16 of a 2016x2880 pair (1, 126, 180): an FFT of
+    ~33,000 kernels, 218-382 ms a call, where PyTorch's own im2col + GEMM
+    convolution takes 0.56-1.11 ms; no layout or scoped cuDNN flag moved
+    it off FFT. Of the sweep's other shapes, only 64 channels into 64 at
+    (2, 126, 180) and (8, 20, 45) took a small FFT (3.2 ms against
+    im2col's 0.24; 0.15 ms, faster than im2col's 0.31), at batch sizes no
+    path of the port runs at those widths (scripts/profile_torch_main_path.py
+    --conv_sweep, NVIDIA H100 80GB HBM3). The flags are read, never
+    set."""
+    return (x.is_cuda and x.dtype == torch.float32
+            and torch.backends.cudnn.enabled
+            and not torch.backends.cudnn.allow_tf32
+            and conv.kernel_size == (3, 3) and conv.stride == (1, 1)
+            and conv.groups == 1 and conv.in_channels == 256
+            and conv.out_channels == 128
+            and 16384 <= x.shape[0] * x.shape[2] * x.shape[3] <= 50000)
+
+
 class Conv(nn.Conv2d):
     """``nn.Conv2d`` on NHWC activations, computed in ``dtype`` (fp32 when
-    None) with fp32 parameters."""
+    None) with fp32 parameters. Where cuDNN would take its FFT path
+    (:func:`cudnn_takes_fft`) it runs PyTorch's im2col + GEMM convolution
+    (``aten::thnn_conv2d``) instead: the same choice in every process, and
+    no global flag touched."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
@@ -35,8 +63,13 @@ class Conv(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt),
-                     self.bias.to(dt), self.stride, self.padding)
+        x = x.permute(0, 3, 1, 2).to(dt)
+        w, b = self.weight.to(dt), self.bias.to(dt)
+        if cudnn_takes_fft(self, x):
+            y = torch.ops.aten.thnn_conv2d(x, w, self.kernel_size, b,
+                                           self.stride, self.padding)
+        else:
+            y = F.conv2d(x, w, b, self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
 
 

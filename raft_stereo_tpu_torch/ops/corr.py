@@ -12,8 +12,9 @@ current disparity coordinates. Five implementations are registered:
   ``fmap2`` pooled along W; each lookup recomputes every level's volume
   with ``torch.matmul`` and samples its window (plain PyTorch).
 * ``alt_pallas`` — the same state; the hand-written ``alt_corr`` CUDA
-  kernels build each level's correlation slab tile by tile on-chip and
-  take its window, forward and backward.
+  kernels take the window of each level's correlation slab, computing only
+  the slab entries it reads: one forward launch for the four levels, and a
+  backward launch per level.
 * ``fused`` (``alt_cuda``, ``fused_cuda``, ``memoryless``) — the same
   state; the hand-written ``fused_corr`` CUDA kernels compute the taps
   from the features: one forward launch for the four levels, and a
@@ -33,7 +34,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from raft_stereo_tpu_torch.ops.geometry import pool_last_axis2, pool_w2
-from raft_stereo_tpu_torch.ops.kernels.alt_corr import alt_corr
+from raft_stereo_tpu_torch.ops.kernels.alt_corr import alt_corr_pyramid
 from raft_stereo_tpu_torch.ops.kernels.fused_corr import (MAX_LEVELS,
                                                           fused_corr_pyramid)
 from raft_stereo_tpu_torch.ops.kernels.windowed_sample import windowed_sample
@@ -103,24 +104,16 @@ def _lookup_alt(state: CorrState, coords_x: torch.Tensor) -> torch.Tensor:
     return torch.cat(out, dim=-1)
 
 
-def _lookup_features(corr: Callable) -> Callable:
+def _lookup_pyramid(corr_pyramid: Callable) -> Callable:
     def lookup(state: CorrState, coords_x: torch.Tensor) -> torch.Tensor:
-        """Per-level taps of ``fmap1`` against each pooled ``fmap2`` at
-        ``coords_x / 2**i``, concatenated in the ``reg`` channel order."""
-        out = [corr(state.fmap1, fmap2, coords_x / (2 ** i), state.radius)
-               for i, fmap2 in enumerate(state.levels)]
-        return torch.cat(out, dim=-1)
+        """One ``corr_pyramid`` call (one forward launch) per MAX_LEVELS
+        levels, level ``i`` at ``coords_x / 2**i``, in the ``reg`` channel
+        order."""
+        out = [corr_pyramid(state.fmap1, state.levels[i:i + MAX_LEVELS],
+                            coords_x / (2 ** i), state.radius)
+               for i in range(0, len(state.levels), MAX_LEVELS)]
+        return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
     return lookup
-
-
-def _lookup_fused(state: CorrState, coords_x: torch.Tensor) -> torch.Tensor:
-    """The ``fused`` lookup: one ``fused_corr_pyramid`` call (one forward
-    launch) per MAX_LEVELS levels, level ``i`` at ``coords_x / 2**i``, in
-    the ``reg`` channel order."""
-    out = [fused_corr_pyramid(state.fmap1, state.levels[i:i + MAX_LEVELS],
-                              coords_x / (2 ** i), state.radius)
-           for i in range(0, len(state.levels), MAX_LEVELS)]
-    return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
 
 
 def _lookup_with(sample: Callable) -> Callable:
@@ -155,8 +148,8 @@ register_corr("alt", functools.partial(_build_features, impl="alt"),
               _lookup_alt)
 register_corr("alt_pallas",
               functools.partial(_build_features, impl="alt_pallas"),
-              _lookup_features(alt_corr))
-register_corr("fused", _build_features, _lookup_fused)
+              _lookup_pyramid(alt_corr_pyramid))
+register_corr("fused", _build_features, _lookup_pyramid(fused_corr_pyramid))
 
 
 def init_corr(impl: str, fmap1: torch.Tensor, fmap2: torch.Tensor, *,

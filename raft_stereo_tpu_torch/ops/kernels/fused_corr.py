@@ -37,8 +37,6 @@ REPLACES_BWD = "raft_stereo_tpu/ops/pallas/corr_kernels.py:575"
 
 MAX_RADIUS = 8  # the kernels keep the 2r+2 taps in registers
 MAX_LEVELS = 4  # fmap2 levels one forward launch takes
-# shared memory a block may use on an H100 (227 KB, by opt-in)
-SMEM_PER_BLOCK = 232448
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -134,13 +132,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def df2_smem_bytes(w1: int, w2: int, radius: int) -> int:
-    """Shared memory of one ``df2`` block (one ``(b, h)`` row): window
-    bases, tap gradients and list entries of the row's W1 pixels, and W2+1
-    list offsets, 4 bytes each (the kernel's own formula)."""
-    return 4 * (w1 * (2 * (2 * radius + 2) + 1) + w2 + 1)
-
-
 def check_feature_inputs(name: str, fmap1: torch.Tensor,
                          fmap2: torch.Tensor, center: torch.Tensor,
                          radius: int) -> None:
@@ -178,43 +169,58 @@ def check_feature_inputs(name: str, fmap1: torch.Tensor,
                          f"{MAX_RADIUS}]")
 
 
-def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
+def raise_on(lib: ctypes.CDLL, name: str, rc: int, what: str) -> None:
+    """Raise if kernel ``name``'s entry point returned a CUDA error."""
     if rc != 0:
-        raise RuntimeError(
-            f"fused_corr {what} launch failed: CUDA error {rc} "
-            f"({lib.fused_corr_error_string(rc).decode()})")
+        error = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} {what} launch failed: CUDA error {rc} "
+                           f"({error})")
 
 
-def fused_corr_pyramid_forward(fmap1: torch.Tensor, levels, center: torch.Tensor,
-                               radius: int) -> torch.Tensor:
-    """Launch the forward kernel once for 1 to MAX_LEVELS levels on CUDA
-    tensors (counted in ``fused_corr.launches``): ``(B, H, W1, len(levels)
-    * (2r+1))`` float32, level ``i`` around ``center / 2**i``; no
-    autograd. Every level must match ``fmap1``'s batch, height, D, dtype
-    and device."""
+def launch_pyramid(name: str, library, fmap1: torch.Tensor, levels,
+                   center: torch.Tensor, radius: int
+                   ) -> Tuple[torch.Tensor, bool]:
+    """Launch kernel ``name``'s forward entry point (``<name>_fwd`` of
+    ``library()``: ``fused_corr``'s and ``alt_corr``'s take the same
+    arguments) once for 1 to MAX_LEVELS levels on CUDA tensors: ``(B, H,
+    W1, len(levels) * (2r+1))`` float32, level ``i`` around ``center /
+    2**i``, and whether it launched (an empty output, or D = 0 or every
+    W2 = 0, needs no launch). Every level must match ``fmap1``'s batch,
+    height, D, dtype and device."""
     levels = tuple(levels)
     if not 1 <= len(levels) <= MAX_LEVELS:
-        raise ValueError(f"fused_corr: {len(levels)} levels, want 1 to "
+        raise ValueError(f"{name}: {len(levels)} levels, want 1 to "
                          f"{MAX_LEVELS}")
     for f2 in levels:
-        check_feature_inputs("fused_corr", fmap1, f2, center, radius)
+        check_feature_inputs(name, fmap1, f2, center, radius)
     b, h, w1, d = fmap1.shape
     k = 2 * radius + 1
     out = torch.empty((b, h, w1, len(levels) * k), dtype=torch.float32,
                       device=fmap1.device)
     if out.numel() == 0:
-        return out
+        return out, False
     if d == 0 or all(f2.shape[2] == 0 for f2 in levels):
-        return out.zero_()
+        return out.zero_(), False
     stream = torch.cuda.current_stream(fmap1.device).cuda_stream
-    lib = _library()
+    lib = library()
     ptrs = (ctypes.c_void_p * MAX_LEVELS)(*[f2.data_ptr() for f2 in levels])
     widths = (ctypes.c_int * MAX_LEVELS)(*[f2.shape[2] for f2 in levels])
-    rc = lib.fused_corr_fwd(fmap1.data_ptr(), ptrs, widths, len(levels),
-                            center.data_ptr(), out.data_ptr(), b * h, w1, d,
-                            radius, DTYPE_CODES[fmap1.dtype], stream)
-    _raise_on(lib, rc, "forward")
-    fused_corr.launches += 1
+    rc = getattr(lib, f"{name}_fwd")(
+        fmap1.data_ptr(), ptrs, widths, len(levels), center.data_ptr(),
+        out.data_ptr(), b * h, w1, d, radius, DTYPE_CODES[fmap1.dtype],
+        stream)
+    raise_on(lib, name, rc, "forward")
+    return out, True
+
+
+def fused_corr_pyramid_forward(fmap1: torch.Tensor, levels, center: torch.Tensor,
+                               radius: int) -> torch.Tensor:
+    """Launch the forward kernel once for 1 to MAX_LEVELS levels on CUDA
+    tensors (counted in ``fused_corr.launches``): :func:`launch_pyramid`;
+    no autograd."""
+    out, launched = launch_pyramid(KERNEL_NAME, _library, fmap1, levels,
+                                   center, radius)
+    fused_corr.launches += launched
     return out
 
 
@@ -232,8 +238,8 @@ def fused_corr_backward(fmap1: torch.Tensor, fmap2: torch.Tensor,
                                    Optional[torch.Tensor]]:
     """Launch the backward kernels on CUDA tensors (one launch counted in
     ``fused_corr.bwd_launches``): ``(df1, df2)`` in the feature dtype, each
-    None unless asked for. ``df2`` is deterministic: two runs on the same
-    inputs are bitwise equal."""
+    None unless asked for. Rows of any width are tiled over many blocks;
+    two runs on the same inputs are bitwise equal."""
     check_feature_inputs("fused_corr", fmap1, fmap2, center, radius)
     b, h, w1, d = fmap1.shape
     w2 = fmap2.shape[2]
@@ -244,11 +250,6 @@ def fused_corr_backward(fmap1: torch.Tensor, fmap2: torch.Tensor,
     if ct.device != fmap1.device:
         raise ValueError("fused_corr backward: the cotangent lies on "
                          f"{ct.device}, the features on {fmap1.device}")
-    if need_df2 and df2_smem_bytes(w1, w2, radius) > SMEM_PER_BLOCK:
-        raise ValueError(
-            f"fused_corr backward: a row of W1={w1}, W2={w2} at radius "
-            f"{radius} needs {df2_smem_bytes(w1, w2, radius)} bytes of "
-            f"shared memory, more than a block's {SMEM_PER_BLOCK}")
     ct = ct.float().contiguous()
     df1 = torch.empty_like(fmap1) if need_df1 else None
     df2 = torch.empty_like(fmap2) if need_df2 else None
@@ -264,7 +265,7 @@ def fused_corr_backward(fmap1: torch.Tensor, fmap2: torch.Tensor,
         None if df1 is None else df1.data_ptr(),
         None if df2 is None else df2.data_ptr(), b * h, w1, w2, d, radius,
         DTYPE_CODES[fmap1.dtype], stream)
-    _raise_on(lib, rc, "backward")
+    raise_on(lib, KERNEL_NAME, rc, "backward")
     fused_corr.bwd_launches += 1
     return df1, df2
 
@@ -273,44 +274,54 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-class _FusedCorrPyramid(torch.autograd.Function):
-    """1 to MAX_LEVELS levels: one forward launch, and the per-level
-    backward kernels (``df1`` summed over the levels from the last to the
-    first, in the feature dtype). CPU tensors take the plain versions."""
+def pyramid_function(name: str, plain, launch, backward_plain,
+                     backward_launch):
+    """A ``torch.autograd.Function`` over 1 to MAX_LEVELS levels, applied as
+    ``apply(fmap1, center, radius, *levels)``: the forward is one call of
+    ``launch(fmap1, levels, center, radius)`` (``plain`` for CPU tensors);
+    the backward calls ``backward_launch(fmap1, level, center / 2**i, ct_i,
+    radius, need_df1=, need_df2=)`` (``backward_plain`` for CPU tensors)
+    per level and sums ``df1`` from the last level to the first, in the
+    feature dtype: the order in which JAX's backward sums fmap1's
+    cotangents (bitwise equal in bf16)."""
 
-    @staticmethod
     def forward(ctx, fmap1, center, radius, *levels):
         ctx.radius = radius
         ctx.save_for_backward(fmap1, center, *levels)
         if on_cpu(fmap1, center, *levels):
-            return fused_corr_pyramid_plain(fmap1, levels, center, radius)
-        return fused_corr_pyramid_forward(fmap1, levels, center, radius)
+            return plain(fmap1, levels, center, radius)
+        return launch(fmap1, levels, center, radius)
 
-    @staticmethod
     def backward(ctx, ct):
         fmap1, center, *levels = ctx.saved_tensors
         k = 2 * ctx.radius + 1
         need1 = ctx.needs_input_grad[0]
         df1, dlevels = None, [None] * len(levels)
-        # from the last level to the first: the order in which JAX's
-        # backward sums fmap1's cotangents (bitwise equal in bf16)
         for i in reversed(range(len(levels))):
             f2 = levels[i]
             need2 = ctx.needs_input_grad[3 + i]
             c_i, ct_i = center / (2 ** i), ct[..., i * k:(i + 1) * k]
             if on_cpu(fmap1, f2, center):
-                d1, d2 = fused_corr_backward_plain(fmap1, f2, c_i, ct_i,
-                                                   ctx.radius)
+                d1, d2 = backward_plain(fmap1, f2, c_i, ct_i, ctx.radius)
             elif need1 or need2:
-                d1, d2 = fused_corr_backward(fmap1, f2, c_i, ct_i,
-                                             ctx.radius, need_df1=need1,
-                                             need_df2=need2)
+                d1, d2 = backward_launch(fmap1, f2, c_i, ct_i, ctx.radius,
+                                         need_df1=need1, need_df2=need2)
             else:
                 d1 = d2 = None
             if need1:
                 df1 = d1 if df1 is None else df1 + d1
             dlevels[i] = d2 if need2 else None
         return (df1, None, None, *dlevels)
+
+    return type(name, (torch.autograd.Function,),
+                {"forward": staticmethod(forward),
+                 "backward": staticmethod(backward),
+                 "__module__": plain.__module__})
+
+
+_FusedCorrPyramid = pyramid_function(
+    "_FusedCorrPyramid", fused_corr_pyramid_plain, fused_corr_pyramid_forward,
+    fused_corr_backward_plain, fused_corr_backward)
 
 
 def fused_corr(fmap1: torch.Tensor, fmap2: torch.Tensor,

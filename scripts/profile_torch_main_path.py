@@ -6,6 +6,7 @@
         --size 1988x2880
     python3 scripts/profile_torch_main_path.py --train [--frames 2]
     python3 scripts/profile_torch_main_path.py --fused_lookup [--train]
+    python3 scripts/profile_torch_main_path.py --conv_sweep
 
 For both served configurations — the default architecture with
 corr_implementation="reg_cuda" (fp32, 32 iterations) and realtime_config()
@@ -39,14 +40,26 @@ step; convolution time is split into forward and backward (cuDNN's
 dgrad/wgrad kernels), the lookup into its forward and backward
 kernels, and ``wall_ms`` is per step.
 
-TF32 is off, as in chip_smoke.py. At 2016x2880 cuDNN's heuristic picks an
-FFT algorithm for a convolution of the update block that launches ~99,000
-small kernels an iteration; ``--cudnn_benchmark`` times the frame with
-the algorithms cuDNN's own benchmark picks instead, and ``--iters 1``
-keeps a profile with the heuristic's choice small. ``--conv_kernels``
-adds, per convolution (its input and weight shapes), the kernels cuDNN
-launched for it a frame, their device time, how many are FFT kernels and
-the commonest kernel names: which convolution takes the FFT path. ``--unrepaired_pool`` (with
+TF32 is off, as in chip_smoke.py, unless ``--default_tf32`` leaves
+PyTorch's defaults (cuDNN convolutions in TF32, matmuls in fp32: what the
+port's entry points run with when the caller sets neither). At 2016x2880
+cuDNN's heuristic once took an FFT algorithm for update_block.gru32's
+convolutions, ~99,000 small kernels an iteration; the port's ``Conv`` now
+runs that shape class through PyTorch's im2col + GEMM convolution
+(nn/layers.py). ``--cudnn_benchmark`` times the frame with the algorithms
+cuDNN's own benchmark picks instead, and ``--iters 1`` keeps a profile
+small. ``--conv_kernels`` adds, per convolution (its input and weight
+shapes), the kernels launched for it a frame, their device time, how many
+are FFT kernels and the commonest kernel names, and the frame's FFT
+kernels in all. ``--conv_sweep`` runs no model: for 3x3 fp32
+convolutions (TF32 off) of the update block's channel counts over a range
+of NHWC input sizes, it reports the kernels cuDNN's heuristic launches
+for ``F.conv2d`` (FFT ones counted) and its time, the port's ``Conv`` (its
+route and time) and PyTorch's im2col + GEMM convolution's time, each a
+mean over 5 calls after one (1 call where cuDNN takes 1,000+ kernels),
+timed with CUDA events; then, at update_block.gru32's hires shape, the
+kernels cuDNN launches with other layouts, a padded width and its
+deterministic mode. ``--unrepaired_pool`` (with
 ``--train``) times the step with the GRU links' pool on PyTorch's
 channels-last CUDA backward, as before ``ops/geometry.avg_pool2d`` copied
 its input to channels first (see scripts/card_vs_cpu_grads.py): the
@@ -139,7 +152,8 @@ def conv_kernels(prof, n: int, top: int = 8):
     count."""
     rows = {}
     for e in prof.events():
-        if e.name != "aten::cudnn_convolution" or not e.kernels:
+        if e.name not in ("aten::cudnn_convolution",
+                          "aten::_slow_conv2d_forward") or not e.kernels:
             continue
         key = str([list(s) for s in e.input_shapes[:2]])
         row = rows.setdefault(key, dict(shapes=key, calls=0, kernels=0,
@@ -160,6 +174,103 @@ def conv_kernels(prof, n: int, top: int = 8):
                         names=[f"{name} x{c // n}" for name, c in
                                row["names"].most_common(4)]))
     return out
+
+
+SWEEP = {  # (in, out) channels: the update block's 3x3 convs
+    "channels": ((256, 128), (384, 128), (128, 128), (128, 256), (64, 64)),
+    "sizes": ((1, 24, 78), (1, 63, 90), (1, 96, 144), (1, 100, 150),
+              (1, 126, 180), (1, 128, 192), (1, 160, 240), (1, 200, 300),
+              (1, 252, 360), (2, 126, 180), (8, 20, 45), (8, 40, 90)),
+}
+
+
+def conv_sweep(dev) -> int:
+    """3x3 fp32 convolutions (TF32 off): cuDNN's heuristic against the
+    port's Conv and PyTorch's im2col + GEMM convolution."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_stereo_tpu_torch.nn.layers import Conv, cudnn_takes_fft
+
+    def kernels(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def ms(fn, reps):
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for cin, cout in SWEEP["channels"]:
+        conv = Conv(cin, cout, 3, 1, 1).to(dev)
+        for b, h, w in SWEEP["sizes"]:
+            x = torch.randn((b, h, w, cin), generator=g, device=dev)
+            xc = x.permute(0, 3, 1, 2)
+            with torch.no_grad():
+                def heuristic():
+                    return F.conv2d(xc, conv.weight, conv.bias, 1, 1)
+
+                def im2col():
+                    return torch.ops.aten.thnn_conv2d(
+                        xc, conv.weight, (3, 3), conv.bias, (1, 1), (1, 1))
+                names = kernels(heuristic)
+                reps = 1 if len(names) > 1000 else 5
+                row = dict(input_nhwc=[b, h, w, cin], out_channels=cout,
+                           cudnn_kernels=len(names),
+                           cudnn_fft_kernels=sum("fft" in n.lower()
+                                                 for n in names),
+                           cudnn_ms=ms(heuristic, reps),
+                           port_route=("im2col" if cudnn_takes_fft(conv, xc)
+                                       else "cudnn"),
+                           port_ms=ms(lambda: conv(x), 5),
+                           im2col_ms=ms(im2col, 5))
+            print(json.dumps(row), flush=True)
+            del x, xc
+    # what does not move cuDNN off the FFT at gru32's hires shape: other
+    # layouts, a padded width, its deterministic mode (each a shape or key
+    # of its own, so no plan is reused)
+    conv = Conv(256, 128, 3, 1, 1).to(dev)
+    x = torch.randn((1, 126, 180, 256), generator=g, device=dev)
+    w, b = conv.weight, conv.bias
+    variants = {
+        "nchw_contiguous": lambda: F.conv2d(
+            x.permute(0, 3, 1, 2).contiguous(), w, b, 1, 1),
+        "channels_last_weight": lambda: F.conv2d(
+            x.permute(0, 3, 1, 2),
+            w.contiguous(memory_format=torch.channels_last), b, 1, 1),
+        "width_padded_to_8": lambda: F.conv2d(
+            F.pad(x.permute(0, 3, 1, 2), (1, 3, 1, 1)), w, b)[..., :180],
+        "width_padded_to_32": lambda: F.conv2d(
+            F.pad(x.permute(0, 3, 1, 2), (1, 11, 1, 1)), w, b)[..., :180],
+    }
+
+    def deterministic():
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True,
+                                        allow_tf32=False):
+            return F.conv2d(x.permute(0, 3, 1, 2), w, b, 1, 1)
+    variants["deterministic"] = deterministic
+    with torch.no_grad():
+        for name, fn in variants.items():
+            names = kernels(fn)
+            print(json.dumps(dict(input_nhwc=[1, 126, 180, 256],
+                                  out_channels=128, variant=name,
+                                  cudnn_kernels=len(names),
+                                  cudnn_fft_kernels=sum(
+                                      "fft" in n.lower() for n in names))),
+                  flush=True)
+    return 0
 
 
 def profile_train(args, dev) -> int:
@@ -273,6 +384,13 @@ def main() -> int:
     ap.add_argument("--conv_kernels", action="store_true",
                     help="list each convolution's kernels by input shape "
                          "(records shapes)")
+    ap.add_argument("--conv_sweep", action="store_true",
+                    help="time 3x3 fp32 convolutions of the update block's "
+                         "channel counts: cuDNN's heuristic, the port's "
+                         "Conv, im2col + GEMM (no model)")
+    ap.add_argument("--default_tf32", action="store_true",
+                    help="leave PyTorch's TF32 defaults (cuDNN convolutions "
+                         "in TF32) instead of turning TF32 off")
     ap.add_argument("--size", default="375x1242",
                     help="input pair HxW for inference (padded to /32)")
     args = ap.parse_args()
@@ -289,10 +407,14 @@ def main() -> int:
     from raft_stereo_tpu_torch.inference import StereoPredictor
     from raft_stereo_tpu_torch.models import RAFTStereo
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    if not args.default_tf32:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = args.cudnn_benchmark
     dev = torch.device("cuda", 0)
+    if args.conv_sweep:
+        torch.backends.cudnn.allow_tf32 = False
+        return conv_sweep(dev)
     if args.train:
         if args.unrepaired_pool:
             from card_vs_cpu_grads import unrepaired_avg_pool2d
@@ -330,6 +452,10 @@ def main() -> int:
         out = summarize(prof, args.frames, split=False)
         if args.conv_kernels and out is not None:
             out["conv_kernels"] = conv_kernels(prof, args.frames)
+            out["fft_kernels_per_frame"] = sum(
+                "fft" in e.name.lower() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+            ) / args.frames
         if out is None:
             print("profile_torch_main_path: the profiler recorded no "
                   "device kernels", file=sys.stderr)
@@ -338,14 +464,15 @@ def main() -> int:
         print(json.dumps({
             "config": name, "iters": iters, "padded": padded,
             "cudnn_benchmark": args.cudnn_benchmark,
+            "tf32": bool(torch.backends.cudnn.allow_tf32),
             "frames": args.frames, "wall_ms": wall_ms,
             "device_busy_ms": out["device_busy_ms"],
             "idle_share": 1 - out["device_busy_ms"] / wall_ms,
             "kernels_per_frame": out["kernels_per_unit"],
             "category_ms": out["category_ms"], "top": out["top"],
             "top_ops": out["top_ops"], "top_host_ops": out["top_host_ops"],
-            **({"conv_kernels": out["conv_kernels"]}
-               if "conv_kernels" in out else {}),
+            **({k: out[k] for k in ("conv_kernels", "fft_kernels_per_frame")
+                if k in out}),
         }), flush=True)
         del pred
     return 0

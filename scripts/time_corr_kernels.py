@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's fused_corr forward and alt_corr backward kernels of one
-checkout on one NVIDIA GPU, on inputs that any checkout makes alike.
+"""Time the port's fused_corr and alt_corr kernels of one checkout on one
+NVIDIA GPU, on inputs that any checkout makes alike.
 
     python3 scripts/time_corr_kernels.py [--root DIR] [--label NAME]
 
@@ -14,13 +14,18 @@ Per center field it times, with chip_smoke.py's ``cuda_ms`` (L2 flushed
 before each launch, median of ``--reps``):
 
 * ``fused_fwd``: the hires pyramid (fp32 ``fmap1 (1, 504, 720, 256)``, fmap2
-  levels of width 720, 360, 180, 90) and the train_fused pyramid (bf16,
-  ``(8, 80, 180, 256)``, widths 180, 90, 45, 22): each level's forward on
-  its own (``fused_corr_forward``, level i around ``center / 2**i``), their
-  sum, and, where the checkout has ``fused_corr_pyramid_forward``, the one
+  levels of width 720, 360, 180, 90) and the train pyramid (bf16, ``(8, 80,
+  180, 256)``, widths 180, 90, 45, 22): each level's forward on its own
+  (``fused_corr_forward``, level i around ``center / 2**i``), their sum,
+  and, where the checkout has ``fused_corr_pyramid_forward``, the one
   launch for the four levels;
-* ``alt_bwd``: alt_corr's backward (df1 and df2) at the train levels;
-* ``alt_fwd``: alt_corr's forward at the train levels.
+* ``alt_fwd``: alt_corr's forward the same way at the train pyramid and at
+  the alt_pallas frame's (fp32 ``(1, 96, 312, 256)``, widths 312, 156, 78,
+  39), with the one launch where the checkout has
+  ``alt_corr_pyramid_forward`` (a checkout without it launches once a
+  level: ``sum_ms`` is what its lookup costs);
+* ``fused_bwd`` and ``alt_bwd``: each backward (df1 and df2) at the train
+  levels.
 
 Center fields, each a disparity in [0, W2/4] subtracted from the pixel's
 own x: ``random`` (an independent disparity per pixel, chip_smoke.py's),
@@ -42,6 +47,7 @@ import chip_smoke  # noqa: E402  (its timer and centers; imports nothing yet)
 RADIUS = 4
 HIRES = ((1, 504, 720, 256), (720, 360, 180, 90), "float32")
 TRAIN = ((8, 80, 180, 256), (180, 90, 45, 22), "bfloat16")
+KITTI = ((1, 96, 312, 256), (312, 156, 78, 39), "float32")
 
 
 def centers(field, b, h, w1, w2, g, device):
@@ -87,47 +93,51 @@ def main() -> int:
           flush=True)
     dev = torch.device("cuda", 0)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
-    pyramid = getattr(fc, "fused_corr_pyramid_forward", None)
+    pyramids = {"fused_fwd": getattr(fc, "fused_corr_pyramid_forward", None),
+                "alt_fwd": getattr(ac, "alt_corr_pyramid_forward", None)}
+    one_level = {"fused_fwd": fc.fused_corr_forward,
+                 "alt_fwd": ac.alt_corr_forward}
+    backward = {"fused_bwd": fc.fused_corr_backward,
+                "alt_bwd": ac.alt_corr_backward}
+    kernels = {"hires": ("fused_fwd",),
+               "train": ("fused_fwd", "alt_fwd", "fused_bwd", "alt_bwd"),
+               "kitti": ("alt_fwd",)}
 
     def emit(**row):
         print(json.dumps({"label": args.label, **row}), flush=True)
 
-    for cfg_name, ((b, h, w1, d), widths, dname) in (("hires", HIRES),
-                                                     ("train", TRAIN)):
+    def ms(fn):
+        return chip_smoke.cuda_ms(fn, flush, args.reps)
+
+    for cfg_name, ((b, h, w1, d), widths, dname) in (
+            ("hires", HIRES), ("train", TRAIN), ("kitti", KITTI)):
         dt = getattr(torch, dname)
         g = torch.Generator(device=dev).manual_seed(7)
         f1 = torch.randn((b, h, w1, d), generator=g, device=dev).to(dt)
         levels = [torch.randn((b, h, w, d), generator=g, device=dev).to(dt)
                   for w in widths]
+        gt = torch.Generator(device=dev).manual_seed(13)
+        ct = torch.randn((b, h, w1, 2 * RADIUS + 1), generator=gt,
+                         device=dev)
         for field in args.fields.split(","):
             gc = torch.Generator(device=dev).manual_seed(11)
             c0 = centers(field, b, h, w1, widths[0], gc, dev)
             cs = [(c0 / (2 ** i)).contiguous() for i in range(len(levels))]
-            per = [chip_smoke.cuda_ms(lambda f2=f2, c=c: fc.fused_corr_forward(
-                f1, f2, c, RADIUS), flush, args.reps)
-                for f2, c in zip(levels, cs)]
-            row = dict(kernel="fused_fwd", config=cfg_name, field=field,
-                       dtype=dname, per_level_ms=per, sum_ms=sum(per))
-            if pyramid is not None:
-                row["one_launch_ms"] = chip_smoke.cuda_ms(
-                    lambda: pyramid(f1, levels, c0, RADIUS), flush, args.reps)
-            emit(**row)
-            if cfg_name != "train":
-                continue
-            per = [chip_smoke.cuda_ms(lambda f2=f2, c=c: ac.alt_corr_forward(
-                f1, f2, c, RADIUS), flush, args.reps)
-                for f2, c in zip(levels, cs)]
-            emit(kernel="alt_fwd", config=cfg_name, field=field,
-                 dtype=dname, per_level_ms=per, sum_ms=sum(per))
-            gt = torch.Generator(device=dev).manual_seed(13)
-            ct = torch.randn((b, h, w1, 2 * RADIUS + 1), generator=gt,
-                             device=dev)
-            per = [chip_smoke.cuda_ms(lambda f2=f2, c=c: ac.alt_corr_backward(
-                f1, f2, c, ct, RADIUS), flush, args.reps)
-                for f2, c in zip(levels, cs)]
-            emit(kernel="alt_bwd", config=cfg_name, field=field,
-                 dtype=dname, per_level_ms=per, sum_ms=sum(per))
-        del f1, levels
+            for kernel in kernels[cfg_name]:
+                if kernel in backward:
+                    per = [ms(lambda f2=f2, c=c, fn=backward[kernel]: fn(
+                        f1, f2, c, ct, RADIUS)) for f2, c in zip(levels, cs)]
+                else:
+                    per = [ms(lambda f2=f2, c=c, fn=one_level[kernel]: fn(
+                        f1, f2, c, RADIUS)) for f2, c in zip(levels, cs)]
+                row = dict(kernel=kernel, config=cfg_name, field=field,
+                           dtype=dname, per_level_ms=per, sum_ms=sum(per))
+                if pyramids.get(kernel) is not None:
+                    row["one_launch_ms"] = ms(
+                        lambda fn=pyramids[kernel]: fn(f1, levels, c0,
+                                                       RADIUS))
+                emit(**row)
+        del f1, levels, ct
     return 0
 
 

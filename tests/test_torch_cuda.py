@@ -421,11 +421,26 @@ def test_fused_wrapper_refuses_bad_inputs(cuda):
         fc.fused_corr(f1, f2[..., :16].contiguous(), center, R)
     with pytest.raises(ValueError, match="CUDA device"):
         fc.fused_corr(f1, f2, center.cpu(), R)
-    wide = torch.zeros((1, 1, 4000, 32), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        fc.fused_corr_backward(wide, wide, torch.zeros((1, 1, 4000),
-                                                       device=cuda),
-                               torch.zeros((1, 1, 4000, 9), device=cuda), R)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_backward_wide_row(cuda, dtype):
+    # W1 = W2 = 4000 at 1/4 resolution (a 16,000-pixel-wide pair), above
+    # the ~2,640 pixels a whole row in one block's shared memory allowed:
+    # the row is tiled over W2, within the bound of plain, bitwise run to
+    # run
+    f1, f2, center = _fused_inputs((1, 4, 4000, 4000, 256), dtype, cuda,
+                                   seed=3)
+    ct = _cotangent((1, 4, 4000, 4000), cuda, seed=4)
+    before = fc.fused_corr.bwd_launches
+    a = fc.fused_corr_backward(f1, f2, center, ct, R)
+    b = fc.fused_corr_backward(f1, f2, center, ct, R)
+    torch.cuda.synchronize()
+    assert fc.fused_corr.bwd_launches == before + 2
+    want = fc.fused_corr_backward_plain(f1, f2, center, ct, R)
+    assert _close(a[0], want[0], dtype) and _close(a[1], want[1], dtype)
+    assert _same(a[0], b[0]) and _same(a[1], b[1])
+    assert float(a[1].float().nan_to_num().abs().max()) > 0
 
 
 def test_fused_memory_contract(cuda):
@@ -624,7 +639,7 @@ def test_fused_pyramid_autograd_launches(cuda):
 
 # ------------------------------------------------------------- alt_corr
 #
-# alt_corr computes fused_corr's function through the on-chip slab, so it
+# alt_corr computes fused_corr's function by the slab formulation, so it
 # is held to both plain versions and to fused_corr's kernels on the same
 # inputs. Bounds as for fused_corr: the forward 1e-5 abs; df1/df2 1e-5 abs
 # in fp32 and one bf16 ulp of the reference where larger in bf16; two runs
@@ -763,8 +778,105 @@ def test_alt_memory_contract(cuda):
 
 
 def test_alt_model_train_step_matches_reg(cuda):
+    # one forward launch for the four levels an iteration (and its remat
+    # recompute), four backward launches
     _model_step_matches_reg(cuda, "alt_pallas", ac.alt_corr,
-                            (2 * 4 * 3, 4 * 3))
+                            (2 * 1 * 3, 4 * 3))
+
+
+# alt_corr's one-launch forward over 1 to 4 levels: bitwise equal to its
+# plain version (which sums each slab entry in the kernel's order), to the
+# one-level launches and from run to run.
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_alt_pyramid_matches_plain(cuda, dtype, n):
+    # level widths 96 .. 12 and, at a 13-wide level 0, 13 .. 1 (W2 <= 2r+2)
+    for w, d in ((96, 256), (13, 96)):
+        f1, f2, center = _fused_inputs((2, 5, w, w, d), dtype, cuda, seed=n)
+        levels = _pyramid(f2, n)
+        before = ac.alt_corr.launches
+        out = ac.alt_corr_pyramid_forward(f1, levels, center, R)
+        again = ac.alt_corr_pyramid_forward(f1, levels, center, R)
+        torch.cuda.synchronize()
+        assert ac.alt_corr.launches == before + 2
+        want = ac.alt_corr_pyramid_plain(f1, levels, center, R)
+        assert bool(torch.isnan(want).any())
+        assert _same(out, want) and _same(out, again)
+        ones = torch.cat([ac.alt_corr_forward(f1, lv, center / (2 ** i), R)
+                          for i, lv in enumerate(levels)], dim=-1)
+        assert _same(out, ones)
+        assert _close(out, fc.fused_corr_pyramid_forward(f1, levels, center,
+                                                         R), torch.float32)
+
+
+@pytest.mark.parametrize("radius", [0, 1, 3, 8])
+def test_alt_pyramid_other_radii(cuda, radius):
+    f1, f2, center = _fused_inputs((2, 4, 70, 70, 40), torch.float32, cuda)
+    levels = _pyramid(f2, 4)
+    assert _same(ac.alt_corr_pyramid_forward(f1, levels, center, radius),
+                 ac.alt_corr_pyramid_plain(f1, levels, center, radius))
+
+
+def test_alt_pyramid_autograd_launches(cuda):
+    f1, f2, center = _fused_inputs((1, 4, 48, 48, 64), torch.float32, cuda)
+    levels = [lv.requires_grad_() for lv in _pyramid(f2, 4)]
+    f1.requires_grad_()
+    center = center.nan_to_num(0.0)
+    before = (ac.alt_corr.launches, ac.alt_corr.bwd_launches)
+    out = ac.alt_corr_pyramid(f1, levels, center, R)
+    ct = torch.randn(out.shape, device=cuda)
+    grads = torch.autograd.grad(out, [f1, *levels], ct)
+    assert (ac.alt_corr.launches, ac.alt_corr.bwd_launches) == (
+        before[0] + 1, before[1] + 4)
+    k = 2 * R + 1
+    df1 = None
+    for i in reversed(range(4)):
+        d1, d2 = ac.alt_corr_backward_plain(
+            f1.detach(), levels[i].detach(), center / (2 ** i),
+            ct[..., i * k:(i + 1) * k], R)
+        df1 = d1 if df1 is None else df1 + d1
+        assert _close(grads[1 + i], d2, torch.float32)
+    assert _close(grads[0], df1, torch.float32)
+
+
+# ------------------------------------------------- the hires conv (gru32)
+
+def test_gru32_hires_conv_keeps_flags_and_matches_cpu(cuda):
+    # update_block.gru32 at 1/16 of a 2016x2880 pair, fp32 with TF32 off:
+    # cuDNN's heuristic ran its three gate convs as FFTs of ~33,000
+    # kernels each. The forward launches no FFT kernel, leaves every global
+    # cuDNN flag as it found it, and matches the CPU within 1e-4 abs (gate
+    # outputs in [-1, 1]; sums of 2304 fp32 products in another order)
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_stereo_tpu_torch.nn.gru import ConvGRU
+    g = torch.Generator().manual_seed(0)
+    gru = ConvGRU(128, 128)
+    with torch.no_grad():
+        for p in gru.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+    h = torch.tanh(torch.randn((1, 126, 180, 128), generator=g))
+    x = torch.randn((1, 126, 180, 128), generator=g)
+    cz, cr, cq = (torch.randn((1, 126, 180, 128), generator=g) * 0.1
+                  for _ in range(3))
+    want = gru(h, cz, cr, cq, x)
+    gru.to(cuda)
+    args = [t.to(cuda) for t in (h, cz, cr, cq, x)]
+    flags = torch.backends.cudnn
+    before = (flags.enabled, flags.benchmark, flags.deterministic,
+              flags.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = gru(*args)
+        torch.cuda.synchronize()
+    after = (flags.enabled, flags.benchmark, flags.deterministic,
+             flags.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    assert after == before
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and not any("fft" in n.lower() for n in names)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
 
 
 # --------------------------------------------------------- fused_lookup

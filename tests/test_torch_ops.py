@@ -330,3 +330,57 @@ def test_corr_init_and_lookup(impl, storage, record_property):
     tol = 1e-5 if storage is None else 2e-2
     record_property("max_abs", max_abs(got, want))
     assert max_abs(got, want) <= tol
+
+
+# ------------------------------------------------ conv algorithm (nn/layers)
+
+
+class _OnCard:
+    """Stands in for a channels-first CUDA tensor: the rule reads only the
+    device, dtype and shape."""
+
+    def __init__(self, shape, dtype=torch.float32):
+        self.is_cuda, self.dtype, self.shape = True, dtype, shape
+
+
+def test_cudnn_fft_rule_reads_flags_and_shapes():
+    from raft_stereo_tpu_torch.nn.layers import Conv, cudnn_takes_fft
+    gate = Conv(256, 128, 3, 1, 1)
+    flags = torch.backends.cudnn
+    before = (flags.enabled, flags.benchmark, flags.deterministic,
+              flags.allow_tf32)
+    try:
+        flags.allow_tf32 = False
+        # update_block.gru32 at 1/16 of 2016x2880 and at KITTI's 1/16
+        assert cudnn_takes_fft(gate, _OnCard((1, 256, 126, 180)))
+        assert not cudnn_takes_fft(gate, _OnCard((1, 256, 24, 78)))
+        assert not cudnn_takes_fft(gate, _OnCard((1, 256, 126, 180),
+                                                 torch.bfloat16))
+        assert not cudnn_takes_fft(gate,
+                                   torch.zeros((1, 256, 126, 180)))  # CPU
+        assert not cudnn_takes_fft(Conv(384, 128, 3, 1, 1),
+                                   _OnCard((1, 384, 126, 180)))
+        flags.allow_tf32 = True  # TF32 convs never take the FFT path
+        assert not cudnn_takes_fft(gate, _OnCard((1, 256, 126, 180)))
+    finally:
+        flags.allow_tf32 = before[3]
+    assert (flags.enabled, flags.benchmark, flags.deterministic,
+            flags.allow_tf32) == before
+
+
+def test_im2col_conv_matches_conv2d():
+    # the convolution taken in place of cuDNN's FFT path computes the
+    # same function, forward and backward (fp32 sums in another order)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((1, 256, 12, 18), generator=g, requires_grad=True)
+    w = torch.randn((128, 256, 3, 3), generator=g) * 0.05
+    b = torch.randn((128,), generator=g)
+    w.requires_grad_()
+    got = torch.ops.aten.thnn_conv2d(x, w, (3, 3), b, (1, 1), (1, 1))
+    want = torch.nn.functional.conv2d(x, w, b, 1, 1)
+    assert max_abs(got.detach().numpy(), want.detach().numpy()) <= 1e-5
+    ct = torch.randn(got.shape, generator=g)
+    g_got = torch.autograd.grad(got, (x, w), ct)
+    g_want = torch.autograd.grad(want, (x, w), ct)
+    for a, c in zip(g_got, g_want):
+        assert max_abs(a.numpy(), c.numpy()) <= 1e-4 * float(c.abs().max())
