@@ -91,7 +91,8 @@ Phases, each reported as one JSON line, in the order they run:
    relative, and the gradients within the null floor of NULL_RUNS CPU
    null runs (see check_grad_parity).
 16. timings, bwd_timings — per pyramid level: each windowed_sample
-   kernel's time per launch, its bound (bound_ms: bytes over 3.35 TB/s,
+   kernel's time per launch (the forward at the default, realtime and
+   train pyramids, the backward at the train pyramid), its bound (bound_ms: bytes over 3.35 TB/s,
    or operations over the peak of their type, whichever is larger), the
    plain version's time and one PyTorch call computing the same function:
    F.grid_sample for the forward, its backward (torch.autograd.grad on a
@@ -109,8 +110,8 @@ Phases, each reported as one JSON line, in the order they run:
    PyTorch call computes the function, so their kernels-line entries have
    library_ms null), and on smooth centers (a low-frequency disparity
    field, as a model makes) with time and bound.
-18. fused_lookup_timings — fused_lookup's forward at the default and
-   realtime pyramids and its backward at the train pyramid: time per
+18. fused_lookup_timings — fused_lookup's forward at the default,
+   realtime and train pyramids and its backward at the train pyramid: time per
    launch, bound, plain time and the unfused formulation (F.grid_sample
    x4, cat, a 1x1 conv, ReLU) as a yardstick.
 
@@ -850,8 +851,9 @@ def rel_dev(got, want):
 def run_fused_lookup_parity(dev, fl):
     """fused_lookup's kernels against their plain versions at the default,
     realtime and train shapes with the edge centers: the output and every
-    dvol within KERNEL_TOL (bf16: one bf16 ulp of the plain value where
-    that is larger), NaN patterns equal, far-out centers giving relu(bias)
+    dvol bitwise equal (both sum in one order; NaN patterns equal), also
+    reported as the error within KERNEL_TOL (bf16: one bf16 ulp of the
+    plain value where that is larger), far-out centers giving relu(bias)
     and zero dvol rows; dk/db (on finite centers: one NaN center makes all
     of dk NaN) within 1e-5 of their largest magnitude; two runs of each
     kernel bitwise equal."""
@@ -900,6 +902,9 @@ def run_fused_lookup_parity(dev, fl):
               f"fused_lookup forward differs at {cfg_name}")
         check(all(ok for _, ok in dvol),
               f"fused_lookup dvol differs at {cfg_name}")
+        check(bitwise_plain["fwd"] and all(bitwise_plain["dvol"]),
+              f"fused_lookup forward or dvol not bitwise equal to plain at "
+              f"{cfg_name}: {bitwise_plain}")
         check(rel <= KERNEL_TOL, f"fused_lookup dk/db differ by {rel} "
                                  f"relative at {cfg_name}")
         check(all(det.values()), f"fused_lookup kernels not deterministic "
@@ -1479,7 +1484,7 @@ def main():
     # 11. timings at the main-path level shapes
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
     per_level = []
-    for cfg_name in ("default", "realtime"):
+    for cfg_name in ("default", "realtime", "train"):
         dtype, shapes = level_shapes[cfg_name]
         for i, shape in enumerate(shapes):
             vol, center = lookup_inputs(shape, dtype, SEED + 10 + i, dev,
@@ -1591,12 +1596,13 @@ def main():
                      "alt_timings", kernel=which, **row)
 
     # fused_lookup: one launch looks up all 4 levels; forward at the
-    # default and realtime frames, backward at the train batch. The
+    # default and realtime frames and the train batch, backward at the
+    # train batch. The
     # yardstick is the unfused formulation in PyTorch calls
     # (lookup_c1_yardstick).
     lookup_rows = {"fwd": [], "bwd": []}
     for which, cfg_name in (("fwd", "default"), ("fwd", "realtime"),
-                            ("bwd", "train")):
+                            ("fwd", "train"), ("bwd", "train")):
         vname, dname, shape = LOOKUP_C1[cfg_name]
         dt = getattr(torch, dname)
         levels, coords, kern, bias = lookup_c1_inputs(
@@ -1639,6 +1645,7 @@ def main():
     # kernels line: per-launch means over the levels each kernel runs at on
     # its main path (the default forward's four, the training step's four)
     dflt = [r for r in per_level if r["config"] == "default"]
+    train_fwd = [r for r in per_level if r["config"] == "train"]
 
     def mean(rows, key):
         return sum(r[key] for r in rows) / len(rows)
@@ -1658,8 +1665,12 @@ def main():
         "ms": mean(dflt, "ms"), "plain_ms": mean(dflt, "plain_ms"),
         "bound_ms": mean(dflt, "bound_ms"), "bound_by": dflt[0]["bound_by"],
         "library_ms": mean(dflt, "library_ms"),
+        "ms_train": mean(train_fwd, "ms"),
+        "bound_ms_train": mean(train_fwd, "bound_ms"),
         "timed_at": "mean per launch over the default path's 4 levels "
-                    "(1,96,312,{312,156,78,39}) fp32, L2 flushed",
+                    "(1,96,312,{312,156,78,39}) fp32, L2 flushed; _train: "
+                    "the train step's 4 levels (8,80,180,{180,90,45,22}) "
+                    "bf16",
     }, {
         "name": ws_mod.KERNEL_NAME + "_bwd", "route": "cuda",
         "source": ws_mod.SOURCE, "replaces": ws_mod.REPLACES_BWD,
@@ -1748,7 +1759,10 @@ def main():
         ("", fl.REPLACES, main["default_fused_lookup"]["launches"],
          {"launches_realtime": main["realtime_fused_lookup"]["launches"],
           "launches_train_step": train_lookup["launches_fwd"],
-          "ms_realtime": lookup_rows["fwd"][1]["ms"]},
+          "ms_realtime": lookup_rows["fwd"][1]["ms"],
+          "bound_ms_realtime": lookup_rows["fwd"][1]["bound_ms"],
+          "ms_train": lookup_rows["fwd"][2]["ms"],
+          "bound_ms_train": lookup_rows["fwd"][2]["bound_ms"]},
          lookup_err["fwd"], lookup_rows["fwd"][0], "per launch at the "
          "default frame's pyramid (1,96,312,{312,156,78,39}) fp32, L2 "
          "flushed"),

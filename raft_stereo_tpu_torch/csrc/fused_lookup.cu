@@ -1,11 +1,13 @@
 // fused_lookup: the 4-level correlation-pyramid lookup fused with the motion
 // encoder's 1x1 convc1 and its ReLU, forward and backward.
 //
-// Replaces raft_stereo_tpu/ops/pallas/lookup_kernels.py::fused_lookup_c1
-// (its forward _fwd_kernel and its backward _bwd_kernel). For every pixel p
-// of a (B, H, W1) grid with lookup center x = coords[p] (level-0 pixels),
-// the volume pyramid vol_l (B, H, W1, W2_l), l in [0, 4), the kernel k
-// (C, 64) with C = 4 (2r+1), the bias b (64,) and the compute dtype dt:
+// Replaces raft_stereo_tpu/ops/pallas/lookup_kernels.py::fused_lookup_c1:
+// its forward _fwd_kernel (pallas_call at lookup_kernels.py:243) and its
+// backward _bwd_kernel (pallas_call at lookup_kernels.py:277). For every
+// pixel p of a (B, H, W1) grid with lookup center x = coords[p] (level-0
+// pixels), the volume pyramid vol_l (B, H, W1, W2_l), l in [0, 4), the
+// kernel k (C, 64) with C = 4 (2r+1), the bias b (64,) and the compute
+// dtype dt:
 //
 //   c_l = x / 2^l,  base_l = floor(c_l) - r,  f_l = c_l - floor(c_l)
 //   g_{l,j} = vol_l[p, base_l + j]  for j in [0, 2r+1], 0 outside [0, W2_l)
@@ -25,52 +27,86 @@
 // and no gradient for the coordinates (the model detaches them every
 // iteration). The volume is fp32 or bf16, dt is fp32 or bf16.
 //
+// What bounds it on an H100. Bytes: the forward reads the taps and centers
+// and writes 64 channels a pixel (~12.6 MB at the default frame, ~4 us at
+// 3.35 TB/s); the backward writes every dense dvol row, zeros included
+// (77.6 MB at the SceneFlow batch in bf16, ~23 us). And the order of
+// summation: pre and dcorr must sum their products in ascending order with
+// each multiply and add rounded, as the plain PyTorch version does, or ReLU
+// masks flip and dk moves by O(1). So the 36 x 64 products run on CUDA
+// cores, 4,608 instructions a pixel each as FMUL and FADD: ~4.5 us at the
+// default frame and ~17 us at the SceneFlow batch over 132 SMs at ~1.8 GHz,
+// one product each; the backward has two. With a bf16 compute dtype a
+// product of two bf16 values is exact in fp32, so one FFMA gives the same
+// bits as FMUL then FADD (mac()), and the floor halves.
+//
 // Design. The TPU kernel extracts each level's window with a barrel-shifter
-// rotate network on a VMEM slab of rows and runs the 36x64 product on the
-// MXU. Hopper reads the taps by index, so:
+// rotate network on a VMEM slab of rows and runs the product on the MXU.
+// Here a block takes a tile of P consecutive pixels (P = 64, 32 or 16 in the
+// forward, chosen so that every SM gets a tile; 64 in the backward), whose
+// rows are contiguous in every level, the output and the cotangent:
 //
-// * forward: one thread per pixel. It reads 4 x (2r+2) taps (B1's window),
-//   blends the 4 (2r+1) corr values in fp32 and rounds them to dt, and
-//   multiplies them with k (rounded to dt once per block into shared
-//   memory; every thread reads the same k element at a time, a broadcast):
-//   16 output channels at a time, in 16 fp32 sums in registers, then adds
-//   the bias, applies the ReLU and stores them NHWC with 16-byte stores.
-//   The loop over the 4 channel groups stays rolled: fully unrolled, the
-//   C x 64 product of each of the 36 (radius, dtype) instantiations made
-//   this file take minutes to compile. Bound: bytes (the taps, the center
-//   and the output; ~12.6 MB and ~4 us at the default frame's shapes), so
-//   one launch is latency-bound, as B1's is.
-// * backward: one warp per pixel, 16 pixels a warp. Lane o owns channels o
-//   and o + 32: it recomputes their pre-activations, masks g, and keeps its
-//   dk and db partial sums in registers over the warp's pixels; lane c owns
-//   dcorr[c] (and c + 32); lanes share values by shuffles. The warp then
-//   writes the pixel's 4 dense dvol rows once, zeros included, lanes on
-//   consecutive elements (coalesced, no atomics: each pixel owns its rows).
-//   The 8 warps of a block add their dk/db partials in warp order into
-//   shared memory and the block writes one partial to scratch; a second
-//   kernel sums the blocks' partials, one warp per element, lanes over
-//   blocks in order and then a fixed butterfly. Every sum has a fixed
-//   order: two runs are bitwise equal. Bound: bytes, the dense dvol written
-//   once (77.6 MB at the SceneFlow batch in bf16, ~23 us).
+// * Taps staged once. Thread item (l, q, k) blends taps k and k + 1 of
+//   level l's window of pixel q in fp32 and rounds the value to dt into
+//   corr_s[c][q]; neighbouring threads take a pixel's neighbouring values,
+//   so a window's 2r+2 taps are read as a run of consecutive addresses, as
+//   windowed_sample's forward reads them, each from device memory once. A
+//   thread's loads are all in flight together, and k is copied into shared
+//   memory meanwhile (cp.async) and rounded to dt there.
+// * The product shared. Thread (pg, cg) of 16 x 16 sums a 4-pixel x
+//   4-channel register tile, reading 4 pixels' corr and 4 channels' k with
+//   two 16-byte shared loads: 16 threads a pixel, each output still summed
+//   over c in ascending order.
+// * Coalesced writes. The forward's [P x 64] output goes through shared
+//   memory and is written as one contiguous run of 16-byte stores.
+// * Backward: a persistent grid (as many 256-thread blocks as fit on the
+//   SMs, each walking tiles blockIdx, blockIdx + grid, ...). Per tile it
+//   stages corr, recomputes pre with the forward's code and order, forms
+//   g' = g (pre > 0) from the cotangent (read as 8- or 16-byte runs) in
+//   shared memory, adds the tile to its dk/db partial, which stays in
+//   registers across the block's tiles, computes dcorr[q][c] (4 x 4
+//   register tiles, ascending over o), and writes each level's dvol rows of
+//   the tile, one contiguous run of P x W2_l elements: each warp fills
+//   768-byte pieces of the run in shared memory (zeros, then the dg values of the
+//   windows that meet the piece) and one lane writes each piece with a bulk
+//   copy (cp.async.bulk, the Tensor Memory Accelerator), so the stores
+//   drain while the block goes on to its next tile. Every element is
+//   written once: no memset, no atomics. Row C of corr_s holds 1 for every
+//   pixel, so the product's row C is db. One partial per block goes to
+//   scratch; a second kernel sums the blocks' partials in a fixed order, so
+//   two runs are bitwise equal.
+// * Tensor cores for dk only. dk = corr^T g' is a sum over pixels that the
+//   plain version takes in another order anyway (dk and db are held to a
+//   tolerance, not to bits), so in bf16 it runs as mma.sync m16n8k16 with
+//   fp32 accumulation: corr and g' are exact bf16 values. pre and dcorr
+//   must keep their rounded ascending order, which a tensor core does not
+//   give; an fp32 dt keeps dk on CUDA cores too (no TF32).
 //
-// Numerics. Both kernels take the products over c (and over o for dcorr) in
-// ascending order with each multiply and add rounded (no FMA contraction),
-// as the plain PyTorch version does, so the forward, the ReLU mask and
-// dvol are bitwise equal to it; dk and db are sums over pixels in another
-// order. floor(c) is clamped in float before the int cast, as
-// windowed_sample does: far-out centers give exact zeros, a NaN center NaN
-// (the ReLU keeps NaN, as torch.relu does). Offsets are 64-bit.
+// Numerics. The forward, the ReLU mask and dvol are bitwise equal to the
+// plain version (with a bf16 compute dtype for every product in fp32's
+// normal range, the only products FMUL would round; see mac()); dk and db
+// are sums over pixels in another order. floor(c) is clamped in float
+// before the int cast, as windowed_sample does: far-out centers give exact
+// zeros, a NaN center NaN (the ReLU keeps NaN, as torch.relu does). Pixel
+// offsets are 64-bit.
+
+#include <limits.h>
+
+#include <type_traits>
 
 #include "window.cuh"
 
 namespace {
 
 constexpr int kLevels = 4;
-constexpr int kCo = 64;              // convc1's output channels
-constexpr int kGroup = 16;           // output channels a forward thread sums at a time
-constexpr int kFwdThreads = 128;
-constexpr int kBwdWarps = 8;
-constexpr int kPixPerWarp = 16;
+constexpr int kCo = 64;                     // convc1's output channels
+constexpr int kMaxFwdThreads = 256;         // 64 pixels a forward tile
+constexpr int kBwdTile = 64;                // pixels a backward tile
+constexpr int kBwdLog2 = 6;
+constexpr int kBwdThreads = 4 * kBwdTile;   // 8 warps
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kCorrStride = kBwdTile + 8;   // backward corr_s row: conflict-free mma loads
+constexpr int kPiece = 768;                 // bytes of dvol a warp writes with one bulk copy
 constexpr unsigned kFull = 0xffffffffu;
 
 // The pyramid's levels and widths, and their gradients, passed by value.
@@ -83,6 +119,33 @@ struct GradLevels {
   void* dvol[kLevels];
 };
 
+// Sizes of one radius' arrays, in floats.
+template <int R>
+struct Dims {
+  static constexpr int K = 2 * R + 1;            // taps a level's window blends
+  static constexpr int C = kLevels * K;          // corr channels, a multiple of 4
+  static constexpr int C16 = (C + 1 + 15) / 16 * 16;  // backward corr rows: + ones, to mma tiles
+  static constexpr int PART = C * kCo + kCo;     // dk then db
+};
+
+// The forward's corr_s rows hold a tile's P pixels and 4 more floats (so a
+// pixel's neighbouring values fall in other banks as they are staged).
+__host__ __device__ constexpr int fwd_corr_stride(int p) { return p + 4; }
+
+template <int R>
+__host__ __device__ constexpr int fwd_smem_floats(int p) {
+  using D = Dims<R>;
+  const int corr = D::C * fwd_corr_stride(p);
+  return D::C * kCo + (corr > p * kCo ? corr : p * kCo);
+}
+
+template <int R>
+__host__ __device__ constexpr int bwd_smem_floats() {
+  using D = Dims<R>;
+  return 2 * D::C * kCo + D::C16 * kCorrStride + kCo * kBwdTile + 2 * kLevels * kBwdTile +
+         kBwdTile * D::C + kBwdWarps * 2 * kPiece / 4;
+}
+
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -92,243 +155,499 @@ __device__ __forceinline__ float round_to(float v) {
   return to_float(from_float(v, (DT*)nullptr));
 }
 
-// The blended value k of level l's window for pixel p.
-template <typename T>
-__device__ __forceinline__ float level_tap(const T* vol, int w2, int64_t p, int base, float f,
-                                           int k) {
-  const T* row = vol + p * (int64_t)w2;
-  const int i0 = base + k;
-  const float g0 = (i0 >= 0 && i0 < w2) ? load_as_float(row + i0) : 0.0f;
-  const float g1 = (i0 + 1 >= 0 && i0 + 1 < w2) ? load_as_float(row + i0 + 1) : 0.0f;
-  return __fadd_rn(__fmul_rn(1.0f - f, g0), __fmul_rn(f, g1));
-}
-
 // torch.relu: max(v, 0), NaN kept.
 __device__ __forceinline__ float relu(float v) { return (v > 0.0f || isnan(v)) ? v : 0.0f; }
 
-// 16-byte stores of one group of outputs.
-__device__ __forceinline__ void store_group(float* out, const float* v) {
-#pragma unroll
-  for (int q = 0; q < kGroup / 4; ++q)
-    reinterpret_cast<float4*>(out)[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
-                                                    v[4 * q + 3]);
+__device__ __forceinline__ int level_width(const Levels& lv, int l) {
+  return l == 0 ? lv.w2[0] : l == 1 ? lv.w2[1] : l == 2 ? lv.w2[2] : lv.w2[3];
 }
 
-__device__ __forceinline__ void store_group(__nv_bfloat16* out, const float* v) {
+__device__ __forceinline__ const void* level_volume(const Levels& lv, int l) {
+  return l == 0 ? lv.vol[0] : l == 1 ? lv.vol[1] : l == 2 ? lv.vol[2] : lv.vol[3];
+}
+
+// level l's window around the level-0 center x: base (frac in *f); x / 2^l
+// is exact as a product with 2^-l
+template <int R>
+__device__ __forceinline__ int level_window(float x, int l, int w2, float* f) {
+  return window_base(__fmul_rn(x, __int_as_float((127 - l) << 23)), w2, R, f);
+}
+
+// corr_s[c][q] (rows cs floats apart) for the tile's pixels p0 + q, q < P,
+// by threads tid of nthreads = 4 P. Item (l, q, k) of the 4 P K
+// blends taps k and k + 1 of level l's window in fp32, each operation
+// rounded as windowed_sample's forward does, and rounds the value to dt;
+// neighbouring threads take a pixel's neighbouring values, so a window's
+// 2r+2 taps are read as one run of consecutive addresses (a tap's second
+// read, by the next value, hits L1). Each thread takes K items, their loads
+// all in flight together. Pixels past n_valid give 0. With base_s, each
+// window's base and frac are kept for the dvol pass.
+template <typename T, typename DT, int R>
+__device__ __forceinline__ void stage_corr(const Levels& lv, const float* coords, int64_t p0,
+                                           int n_valid, int p_log2, float* corr_s, int cs,
+                                           int* base_s, float* frac_s, int tid, int nthreads) {
+  constexpr int K = Dims<R>::K;
+  const int P = 1 << p_log2;
 #pragma unroll
-  for (int q = 0; q < kGroup / 8; ++q) {
-    __align__(16) __nv_bfloat16 pack[8];
+  for (int it = 0; it < K; ++it) {
+    const int i = it * nthreads + tid;
+    const int m = i / K, k = i - m * K;
+    const int l = m >> p_log2, q = m & (P - 1);
+    const int w2 = level_width(lv, l);
+    const bool valid = q < n_valid;
+    float f;
+    const int base = level_window<R>(valid ? __ldg(coords + p0 + q) : 0.0f, l, w2, &f);
+    const int i0 = base + k;
+    const T* row = static_cast<const T*>(level_volume(lv, l)) + (p0 + q) * (int64_t)w2;
+    const float g0 = (valid && i0 >= 0 && i0 < w2) ? load_as_float(row + i0) : 0.0f;
+    const float g1 = (valid && i0 + 1 >= 0 && i0 + 1 < w2) ? load_as_float(row + i0 + 1) : 0.0f;
+    corr_s[(l * K + k) * cs + q] =
+        round_to<DT>(__fadd_rn(__fmul_rn(1.0f - f, g0), __fmul_rn(f, g1)));
+    if (base_s != nullptr && k == 0) {
+      base_s[l * P + q] = base;
+      frac_s[l * P + q] = f;
+    }
+  }
+}
+
+// acc + a * b with the product and the sum each rounded to fp32. With a
+// bf16 compute dtype both factors are bf16 values, whose product (16
+// significant bits) fp32 holds exactly, so one fused multiply-add rounds
+// only the sum and gives the same bits as FMUL then FADD (for any product
+// in fp32's normal range: below 2^-126 FMUL would round it to a subnormal,
+// from 2^128 to infinity). fp32 factors take FMUL then FADD.
+template <typename DT>
+__device__ __forceinline__ float mac(float acc, float a, float b) {
+  if (std::is_same<DT, __nv_bfloat16>::value) return __fmaf_rn(a, b, acc);
+  return __fadd_rn(acc, __fmul_rn(a, b));
+}
+
+// acc[i][j] = sum over c in ascending order of corr[c][4 pg + i] *
+// k[c][4 cg + j], each product and sum rounded: the forward's
+// pre-activation without the bias, for a 4 x 4 tile.
+template <typename DT, int C>
+__device__ __forceinline__ void tile_product(const float* corr_s, int cs, int pg,
+                                             const float* k_s, int cg, float (&acc)[4][4]) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) pack[i] = __float2bfloat16_rn(v[8 * q + i]);
-    reinterpret_cast<uint4*>(out)[q] = *reinterpret_cast<const uint4*>(pack);
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+#pragma unroll 4
+  for (int c = 0; c < C; ++c) {
+    const float4 x = *reinterpret_cast<const float4*>(corr_s + c * cs + 4 * pg);
+    const float4 w = *reinterpret_cast<const float4*>(k_s + c * kCo + 4 * cg);
+    const float xs[4] = {x.x, x.y, x.z, x.w}, ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = mac<DT>(acc[i][j], xs[i], ws[j]);
+  }
+}
+
+// k (C, 64) into k_s[c][o] by asynchronous 16-byte copies, issued first so
+// that they overlap the taps' loads; round_kernel then waits for them and
+// rounds each thread's own chunks to dt in place.
+template <int C>
+__device__ __forceinline__ void copy_kernel(const float* kern, float* k_s, int tid,
+                                            int nthreads) {
+  for (int i = tid; i < C * kCo / 4; i += nthreads) cp_async16(k_s + 4 * i, kern + 4 * i);
+  cp_async_commit();
+}
+
+template <typename DT, int C>
+__device__ __forceinline__ void round_kernel(float* k_s, int tid, int nthreads) {
+  cp_async_wait_all();
+  if (std::is_same<DT, float>::value) return;
+  for (int i = tid; i < C * kCo / 4; i += nthreads) {
+    float4* v = reinterpret_cast<float4*>(k_s) + i;
+    const float4 x = *v;
+    *v = make_float4(round_to<DT>(x.x), round_to<DT>(x.y), round_to<DT>(x.z), round_to<DT>(x.w));
   }
 }
 
 template <typename T, typename DT, int R>
-__global__ void __launch_bounds__(kFwdThreads)
+__global__ void __launch_bounds__(kMaxFwdThreads, 4)
     fused_lookup_fwd_kernel(Levels lv, const float* __restrict__ coords,
                             const float* __restrict__ kern, const float* __restrict__ bias,
-                            DT* __restrict__ out, int64_t n_pix) {
-  constexpr int K = 2 * R + 1;
-  constexpr int C = kLevels * K;
-  __shared__ float k_s[C][kCo];
+                            DT* __restrict__ out, int64_t n_pix, int p_log2) {
+  using D = Dims<R>;
+  extern __shared__ __align__(16) float smem[];
   __shared__ float b_s[kCo];
-  for (int i = threadIdx.x; i < C * kCo; i += blockDim.x)
-    k_s[i / kCo][i % kCo] = round_to<DT>(kern[i]);
+  const int P = 1 << p_log2, cs = fwd_corr_stride(P);
+  float* k_s = smem;                  // [C][64]
+  float* corr_s = k_s + D::C * kCo;   // [C][cs]
+  float* out_s = corr_s;              // [P][64] after the product
+
+  const int64_t p0 = (int64_t)blockIdx.x << p_log2;
+  const int n_valid = (int)min((int64_t)P, n_pix - p0);
+  copy_kernel<D::C>(kern, k_s, threadIdx.x, blockDim.x);
+  stage_corr<T, DT, R>(lv, coords, p0, n_valid, p_log2, corr_s, cs, nullptr, nullptr,
+                       threadIdx.x, blockDim.x);
+  round_kernel<DT, D::C>(k_s, threadIdx.x, blockDim.x);
   for (int i = threadIdx.x; i < kCo; i += blockDim.x) b_s[i] = bias[i];
   __syncthreads();
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n_pix) return;
 
-  const float x = coords[p];
-  float corr[C];
+  const int pg = threadIdx.x >> 4, cg = threadIdx.x & 15;
+  float acc[4][4];
+  tile_product<DT, D::C>(corr_s, cs, pg, k_s, cg, acc);
+  __syncthreads();  // out_s overwrites corr
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = relu(__fadd_rn(acc[i][j], b_s[4 * cg + j]));
+    *reinterpret_cast<float4*>(out_s + (4 * pg + i) * kCo + 4 * cg) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __syncthreads();
+  // the tile's rows are one contiguous run: 16-byte stores, consecutive
+  // threads on consecutive addresses (64 channels are whole 16-byte packs)
+  constexpr int V = V16<DT>::n;
+  DT* run = out + p0 * kCo;
+  const int n_el = n_valid * kCo;
+  for (int e = threadIdx.x * V; e < n_el; e += blockDim.x * V) store16(run, e, n_el, true, out_s + e);
+}
+
+// ------------------------------------------------------------------ backward
+
+// g'[o][q] of the backward tile in shared memory, 16-byte quads of pixels
+// swizzled by o so that the mask step's column writes, the dcorr tiles' and
+// the dk product's reads hit distinct banks.
+__device__ __forceinline__ int gt_at(int o, int q) {
+  const int sw = ((o & 3) << 1) ^ ((o >> 2) & 7);
+  return o * kBwdTile + ((((q >> 2) ^ sw)) << 2) + (q & 3);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The block's dk/db partial on tensor cores (bf16 dt: corr and g' are exact
+// bf16 values): warp w owns output channels [8 w, 8 w + 8) and every 16-row
+// tile of corr's C16 rows (row C, all ones, gives db).
+template <int R>
+struct DkMma {
+  static constexpr int MT = Dims<R>::C16 / 16;
+  float d[MT][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[m][i] = 0.0f;
+  }
+
+  __device__ __forceinline__ void add(const float* corr_s, const float* gt_s) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int o = (threadIdx.x >> 5) * 8 + g;
+#pragma unroll
+    for (int k0 = 0; k0 < kBwdTile; k0 += 16) {
+      const float2 lo = *reinterpret_cast<const float2*>(gt_s + gt_at(o, k0 + 2 * t));
+      const float2 hi = *reinterpret_cast<const float2*>(gt_s + gt_at(o, k0 + 2 * t + 8));
+      const uint32_t b0 = pack_bf16(lo.x, lo.y), b1 = pack_bf16(hi.x, hi.y);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float* a = corr_s + (16 * m + g) * kCorrStride + k0 + 2 * t;
+        const float2 a0 = *reinterpret_cast<const float2*>(a);
+        const float2 a1 = *reinterpret_cast<const float2*>(a + 8 * kCorrStride);
+        const float2 a2 = *reinterpret_cast<const float2*>(a + 8);
+        const float2 a3 = *reinterpret_cast<const float2*>(a + 8 * kCorrStride + 8);
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+            "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(d[m][0]), "+f"(d[m][1]), "+f"(d[m][2]), "+f"(d[m][3])
+            : "r"(pack_bf16(a0.x, a0.y)), "r"(pack_bf16(a1.x, a1.y)),
+              "r"(pack_bf16(a2.x, a2.y)), "r"(pack_bf16(a3.x, a3.y)), "r"(b0), "r"(b1));
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* dst) const {
+    constexpr int C = Dims<R>::C;
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int o = (threadIdx.x >> 5) * 8 + 2 * t;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int c = 16 * m + g;
+      if (c <= C) {
+        dst[c * kCo + o] = d[m][0];
+        dst[c * kCo + o + 1] = d[m][1];
+      }
+      if (c + 8 <= C) {
+        dst[(c + 8) * kCo + o] = d[m][2];
+        dst[(c + 8) * kCo + o + 1] = d[m][3];
+      }
+    }
+  }
+};
+
+// The same partial on CUDA cores (fp32 dt): lane (w, g) owns output channel
+// 8 w + (lane & 7) and corr rows (lane >> 3) + 4 m, summed over the tile's
+// pixels in ascending order.
+template <int R>
+struct DkFp32 {
+  static constexpr int NC = Dims<R>::C16 / 4;
+  float d[NC];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int m = 0; m < NC; ++m) d[m] = 0.0f;
+  }
+
+  __device__ __forceinline__ void add(const float* corr_s, const float* gt_s) {
+    const int lane = threadIdx.x & 31;
+    const int o = (threadIdx.x >> 5) * 8 + (lane & 7), row = lane >> 3;
+#pragma unroll 2
+    for (int q0 = 0; q0 < kBwdTile; q0 += 4) {
+      const float4 gq = *reinterpret_cast<const float4*>(gt_s + gt_at(o, q0));
+#pragma unroll
+      for (int m = 0; m < NC; ++m) {
+        const float4 x = *reinterpret_cast<const float4*>(corr_s + (row + 4 * m) * kCorrStride + q0);
+        d[m] = __fadd_rn(d[m], __fmul_rn(x.x, gq.x));
+        d[m] = __fadd_rn(d[m], __fmul_rn(x.y, gq.y));
+        d[m] = __fadd_rn(d[m], __fmul_rn(x.z, gq.z));
+        d[m] = __fadd_rn(d[m], __fmul_rn(x.w, gq.w));
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float* dst) const {
+    constexpr int C = Dims<R>::C;
+    const int lane = threadIdx.x & 31;
+    const int o = (threadIdx.x >> 5) * 8 + (lane & 7), row = lane >> 3;
+#pragma unroll
+    for (int m = 0; m < NC; ++m)
+      if (row + 4 * m <= C) dst[(row + 4 * m) * kCo + o] = d[m];
+  }
+};
+
+// 4 consecutive cotangent channels of one pixel, widened to fp32.
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = u.x;
+  v[1] = u.y;
+  v[2] = u.z;
+  v[3] = u.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  v[0] = __uint_as_float(u.x << 16);
+  v[1] = __uint_as_float(u.x & 0xffff0000u);
+  v[2] = __uint_as_float(u.y << 16);
+  v[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+
+// Bulk copies (the Tensor Memory Accelerator) from shared to device memory,
+// in groups a thread commits: wait_read1 returns once all but the newest of
+// its groups have read their source, wait_all once all are written.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(src));
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(s), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read1() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// orders this thread's shared-memory writes before later bulk copies' reads
+__device__ __forceinline__ void fence_shared_to_bulk() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The gradient of tap j in [0, 2r+1] of pixel q's level-l window: dg_j =
+// (1 - f) dcorr_j + f dcorr_{j-1} (dcorr 0 outside [0, 2r]), each
+// operation rounded as the plain version's window_grads.
+template <int R>
+__device__ __forceinline__ float tap_grad(int q, int l, int j, const float* frac_s,
+                                          const float* dcorr_s) {
+  constexpr int K = Dims<R>::K;
+  const float f = frac_s[l * kBwdTile + q];
+  const float* dc = dcorr_s + q * Dims<R>::C + l * K;
+  const float ct_j = j < K ? dc[j] : 0.0f;
+  const float ct_prev = j > 0 ? dc[j - 1] : 0.0f;
+  return __fadd_rn(__fmul_rn(1.0f - f, ct_j), __fmul_rn(f, ct_prev));
+}
+
+// Element e of level l's dvol run (pixel q = e / w2 of the tile): tap_grad
+// where x = e mod w2 is in the window, else 0.
+template <int R>
+__device__ __forceinline__ float dvol_value(int e, int w2, int l, const int* base_s,
+                                            const float* frac_s, const float* dcorr_s) {
+  const int q = e / w2, j = e - q * w2 - base_s[l * kBwdTile + q];
+  return j < 0 || j > Dims<R>::K ? 0.0f : tap_grad<R>(q, l, j, frac_s, dcorr_s);
+}
+
+// piece[0, n) = elements [s0, s0 + n) of level l's dvol run, by one warp:
+// zeros, 16 bytes a lane, then the dg values of every window that meets the
+// piece (the rows q0..q1 it spans, 2r+2 values each).
+template <typename T, int R>
+__device__ __forceinline__ void fill_piece(T* piece, int s0, int n, int w2, int n_valid, int l,
+                                           const int* base_s, const float* frac_s,
+                                           const float* dcorr_s, int lane) {
+  constexpr int K = Dims<R>::K, V = V16<T>::n, P = kBwdTile;
+  for (int e = lane * V; e < n; e += 32 * V)
+    *reinterpret_cast<uint4*>(piece + e) = make_uint4(0u, 0u, 0u, 0u);
+  __syncwarp();
+  const int q0 = s0 / w2, q1 = min((s0 + n - 1) / w2, n_valid - 1);
+  for (int it = lane; it < (q1 - q0 + 1) * (K + 1); it += 32) {
+    const int r = it / (K + 1), j = it - r * (K + 1);
+    const int q = q0 + r;
+    const int x = base_s[l * P + q] + j;
+    const int e = q * w2 + x - s0;
+    if (x >= 0 && x < w2 && e >= 0 && e < n)
+      piece[e] = from_float(tap_grad<R>(q, l, j, frac_s, dcorr_s), (T*)nullptr);
+  }
+}
+
+// Each level's dvol rows of the tile: one contiguous run of n_valid * W2_l
+// elements, every one written once (zeros included; no memset, no
+// atomics). Warp w fills pieces w, w + 8, ... of kPiece bytes of the run in
+// shared memory (fill_piece) and one lane writes each with a bulk copy, two
+// pieces in flight a warp; the copies drain while the block goes on to its
+// next tile. The run's last elements that do not fill 16 bytes, and a run
+// that does not start 16-byte aligned, are stored directly.
+template <typename T, int R>
+__device__ __forceinline__ void write_dvol(const Levels& lv, const GradLevels& glv, int64_t p0,
+                                           int n_valid, const int* base_s, const float* frac_s,
+                                           const float* dcorr_s, unsigned char* pieces,
+                                           int& n_pieces) {
+  constexpr int V = V16<T>::n, EP = kPiece / (int)sizeof(T);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned char* mine = pieces + warp * 2 * kPiece;
 #pragma unroll
   for (int l = 0; l < kLevels; ++l) {
-    float f;
     const int w2 = lv.w2[l];
-    const int base = window_base(__fdiv_rn(x, (float)(1 << l)), w2, R, &f);
-    const T* vol = static_cast<const T*>(lv.vol[l]);
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-      corr[l * K + k] = round_to<DT>(level_tap(vol, w2, p, base, f, k));
-  }
-#pragma unroll 1
-  for (int o0 = 0; o0 < kCo; o0 += kGroup) {
-    float acc[kGroup];
-#pragma unroll
-    for (int o = 0; o < kGroup; ++o) acc[o] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-#pragma unroll
-      for (int o = 0; o < kGroup; ++o)
-        acc[o] = __fadd_rn(acc[o], __fmul_rn(corr[c], k_s[c][o0 + o]));
+    T* run = static_cast<T*>(glv.dvol[l]) + p0 * (int64_t)w2;
+    const int n_el = n_valid * w2;
+    const int n_bulk = aligned16(run) ? n_el / V * V : 0;
+    for (int s0 = warp * EP; s0 < n_bulk; s0 += kBwdWarps * EP) {
+      T* piece = reinterpret_cast<T*>(mine + (n_pieces & 1) * kPiece);
+      if (n_pieces >= 2) {  // the piece's buffer was copied from two pieces ago
+        if (lane == 0) bulk_wait_read1();
+        __syncwarp();
+      }
+      const int n = min(EP, n_bulk - s0);
+      fill_piece<T, R>(piece, s0, n, w2, n_valid, l, base_s, frac_s, dcorr_s, lane);
+      fence_shared_to_bulk();
+      __syncwarp();
+      if (lane == 0) {
+        bulk_store(run + s0, piece, n * (int)sizeof(T));
+        bulk_commit();
+      }
+      ++n_pieces;
     }
-#pragma unroll
-    for (int o = 0; o < kGroup; ++o) acc[o] = relu(__fadd_rn(acc[o], b_s[o0 + o]));
-    store_group(out + p * kCo + o0, acc);
+    for (int e = n_bulk + threadIdx.x; e < n_el; e += kBwdThreads)
+      run[e] = from_float(dvol_value<R>(e, w2, l, base_s, frac_s, dcorr_s), (T*)nullptr);
   }
 }
 
 template <typename T, typename DT, int R>
-__global__ void __launch_bounds__(kBwdWarps * 32)
+__global__ void __launch_bounds__(kBwdThreads, 3)
     fused_lookup_bwd_kernel(Levels lv, GradLevels glv, const float* __restrict__ coords,
                             const DT* __restrict__ g_in, const float* __restrict__ kern,
                             const float* __restrict__ bias, float* __restrict__ partials,
                             int64_t n_pix) {
-  constexpr int K = 2 * R + 1;
-  constexpr int C = kLevels * K;
-  constexpr int NC = (C + 31) / 32;                  // corr/dcorr registers a lane
-  constexpr int NT = (kLevels * (K + 1) + 31) / 32;  // dg registers a lane
-  constexpr int PART = C * kCo + kCo;                // dk then db
-  __shared__ float k_s[C][kCo + 1];  // padded: lane c reads row c
+  using D = Dims<R>;
+  constexpr int P = kBwdTile, CS = kCorrStride, CG = D::C / 4;
+  extern __shared__ __align__(16) float smem[];
   __shared__ float b_s[kCo];
-  __shared__ float part_s[PART];
-  for (int i = threadIdx.x; i < C * kCo; i += blockDim.x)
-    k_s[i / kCo][i % kCo] = round_to<DT>(kern[i]);
-  for (int i = threadIdx.x; i < kCo; i += blockDim.x) b_s[i] = bias[i];
+  float* k_s = smem;                                     // [C][64]
+  float* kt_s = k_s + D::C * kCo;                        // [64][C]
+  float* corr_s = kt_s + kCo * D::C;                     // [C16][CS]: row C ones, then zeros
+  float* gt_s = corr_s + D::C16 * CS;                    // g'[o][q] (gt_at)
+  int* base_s = reinterpret_cast<int*>(gt_s + kCo * P);  // [4][P]
+  float* frac_s = reinterpret_cast<float*>(base_s + kLevels * P);
+  float* dcorr_s = frac_s + kLevels * P;                 // [P][C]
+  unsigned char* pieces = reinterpret_cast<unsigned char*>(dcorr_s + P * D::C);
+  const int tid = threadIdx.x;
+
+  copy_kernel<D::C>(kern, k_s, tid, kBwdThreads);
+  round_kernel<DT, D::C>(k_s, tid, kBwdThreads);
+  for (int i = tid; i < kCo; i += kBwdThreads) b_s[i] = bias[i];
+  for (int i = (D::C + 1) * CS + tid; i < D::C16 * CS; i += kBwdThreads) corr_s[i] = 0.0f;
   __syncthreads();
+  for (int i = tid; i < D::C * kCo; i += kBwdThreads) kt_s[(i % kCo) * D::C + i / kCo] = k_s[i];
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float dk_a[C], dk_b[C];  // channels lane and lane + 32
-#pragma unroll
-  for (int c = 0; c < C; ++c) dk_a[c] = dk_b[c] = 0.0f;
-  float db_a = 0.0f, db_b = 0.0f;
+  using Dk = typename std::conditional<std::is_same<DT, __nv_bfloat16>::value, DkMma<R>,
+                                       DkFp32<R>>::type;
+  Dk dk;
+  dk.zero();
+  int n_pieces = 0;
+  const int pg = tid >> 4, cg = tid & 15;
+  const int64_t n_tiles = (n_pix + P - 1) / P;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int64_t p0 = tile * P;
+    const int n_valid = (int)min((int64_t)P, n_pix - p0);
+    __syncthreads();  // the previous tile's dvol pass is done with the windows and dcorr
+    stage_corr<T, DT, R>(lv, coords, p0, n_valid, kBwdLog2, corr_s, CS, base_s, frac_s, tid,
+                         kBwdThreads);
+    if (tid < P) corr_s[D::C * CS + tid] = tid < n_valid ? 1.0f : 0.0f;
+    __syncthreads();
 
-  const int64_t first = ((int64_t)blockIdx.x * kBwdWarps + warp) * kPixPerWarp;
-  for (int i = 0; i < kPixPerWarp; ++i) {
-    const int64_t p = first + i;
-    if (p >= n_pix) break;  // uniform across the warp
-    const float x = coords[p];
-    float fr[kLevels];
-    int base[kLevels];
+    // the tile's cotangent, 4 pixels x 4 channels a thread
+    float gv[4][4];
 #pragma unroll
-    for (int l = 0; l < kLevels; ++l)
-      base[l] = window_base(__fdiv_rn(x, (float)(1 << l)), lv.w2[l], R, &fr[l]);
-
-    // corr: lane t holds entries t, t + 32, ...
-    float cr[NC];
+    for (int r = 0; r < 4; ++r) {
+      const int q = 4 * pg + r;
+      if (q < n_valid) {
+        load4(g_in + (p0 + q) * kCo + 4 * cg, gv[r]);
+      } else {
 #pragma unroll
-    for (int h = 0; h < NC; ++h) {
-      const int t = lane + 32 * h;
-      float v = 0.0f;
-      if (t < C) {
-        const int l = t / K, k = t % K;
-        float f = 0.0f;
-        int b = 0;
-#pragma unroll
-        for (int q = 0; q < kLevels; ++q)
-          if (q == l) {
-            f = fr[q];
-            b = base[q];
-          }
-        v = round_to<DT>(level_tap(static_cast<const T*>(lv.vol[l]), lv.w2[l], p, b, f, k));
-      }
-      cr[h] = v;
-    }
-    float corr[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) corr[c] = __shfl_sync(kFull, cr[c / 32], c % 32);
-
-    // pre-activations of channels lane and lane + 32, the mask, g
-    float pa = 0.0f, pb = 0.0f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      pa = __fadd_rn(pa, __fmul_rn(corr[c], k_s[c][lane]));
-      pb = __fadd_rn(pb, __fmul_rn(corr[c], k_s[c][lane + 32]));
-    }
-    pa = __fadd_rn(pa, b_s[lane]);
-    pb = __fadd_rn(pb, b_s[lane + 32]);
-    const DT* gp = g_in + p * kCo;
-    const float ga = __fmul_rn(load_as_float(gp + lane), pa > 0.0f ? 1.0f : 0.0f);
-    const float gb = __fmul_rn(load_as_float(gp + lane + 32), pb > 0.0f ? 1.0f : 0.0f);
-    db_a = __fadd_rn(db_a, ga);
-    db_b = __fadd_rn(db_b, gb);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      dk_a[c] = __fadd_rn(dk_a[c], __fmul_rn(corr[c], ga));
-      dk_b[c] = __fadd_rn(dk_b[c], __fmul_rn(corr[c], gb));
-    }
-
-    // dcorr: lane t holds entries t, t + 32, ..., each summed over o in order
-    float dc[NC];
-#pragma unroll
-    for (int h = 0; h < NC; ++h) dc[h] = 0.0f;
-#pragma unroll
-    for (int o = 0; o < kCo; ++o) {
-      const float go = __shfl_sync(kFull, o < 32 ? ga : gb, o % 32);
-#pragma unroll
-      for (int h = 0; h < NC; ++h) {
-        const int t = lane + 32 * h;
-        if (t < C) dc[h] = __fadd_rn(dc[h], __fmul_rn(go, k_s[t][o]));
+        for (int j = 0; j < 4; ++j) gv[r][j] = 0.0f;
       }
     }
-
-    // dg: lane s holds tap entries s, s + 32, ... of the 4 (2r+2) taps
-    float dg[NT];
+    // pre in the forward's order, the mask, g' = g * (pre > 0) into gt_s
+    float pre[4][4];
+    tile_product<DT, D::C>(corr_s, CS, pg, k_s, cg, pre);
 #pragma unroll
-    for (int h = 0; h < NT; ++h) {
-      const int s = lane + 32 * h;
-      const int l = min(s / (K + 1), kLevels - 1), j = s % (K + 1);
-      const int c_j = l * K + j, c_prev = l * K + j - 1;
-      const int src_j = min(max(c_j, 0), C - 1), src_p = min(max(c_prev, 0), C - 1);
-      float at_j = 0.0f, at_p = 0.0f;
+    for (int j = 0; j < 4; ++j) {
+      const float b = b_s[4 * cg + j];
+      float m[4];
 #pragma unroll
-      for (int q = 0; q < NC; ++q) {
-        const float u_j = __shfl_sync(kFull, dc[q], src_j % 32);
-        const float u_p = __shfl_sync(kFull, dc[q], src_p % 32);
-        if (src_j / 32 == q) at_j = u_j;
-        if (src_p / 32 == q) at_p = u_p;
-      }
-      const float ct_j = j < K ? at_j : 0.0f;
-      const float ct_prev = j > 0 ? at_p : 0.0f;
-      float f = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kLevels; ++q)
-        if (q == l) f = fr[q];
-      dg[h] = __fadd_rn(__fmul_rn(1.0f - f, ct_j), __fmul_rn(f, ct_prev));
-    }
-
-    // the dense dvol rows, every element written once
-#pragma unroll
-    for (int l = 0; l < kLevels; ++l) {
-      const int w2 = lv.w2[l];
-      T* row = static_cast<T*>(glv.dvol[l]) + p * (int64_t)w2;
-      for (int x0 = 0; x0 < w2; x0 += 32) {
-        const int xx = x0 + lane;
-        const int j = xx - base[l];
-        const bool inside = j >= 0 && j <= K;
-        const int s = l * (K + 1) + (inside ? j : 0);
-        float v = 0.0f;
-#pragma unroll
-        for (int h = 0; h < NT; ++h) {
-          const float u = __shfl_sync(kFull, dg[h], s % 32);
-          if (s / 32 == h) v = u;
-        }
-        if (xx < w2) row[xx] = from_float(inside ? v : 0.0f, (T*)nullptr);
-      }
-    }
-  }
-
-  // the block's dk/db partial: warps add in order
-  for (int w = 0; w < kBwdWarps; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float pa = w == 0 ? 0.0f : part_s[c * kCo + lane];
-        const float pb = w == 0 ? 0.0f : part_s[c * kCo + lane + 32];
-        part_s[c * kCo + lane] = __fadd_rn(pa, dk_a[c]);
-        part_s[c * kCo + lane + 32] = __fadd_rn(pb, dk_b[c]);
-      }
-      const float qa = w == 0 ? 0.0f : part_s[C * kCo + lane];
-      const float qb = w == 0 ? 0.0f : part_s[C * kCo + lane + 32];
-      part_s[C * kCo + lane] = __fadd_rn(qa, db_a);
-      part_s[C * kCo + lane + 32] = __fadd_rn(qb, db_b);
+      for (int r = 0; r < 4; ++r)
+        m[r] = __fmul_rn(gv[r][j], __fadd_rn(pre[r][j], b) > 0.0f ? 1.0f : 0.0f);
+      *reinterpret_cast<float4*>(gt_s + gt_at(4 * cg + j, 4 * pg)) =
+          make_float4(m[0], m[1], m[2], m[3]);
     }
     __syncthreads();
+
+    dk.add(corr_s, gt_s);
+    // dcorr[q][c] = sum over o in ascending order of g'[q][o] * k[c][o]
+    for (int u = tid; u < (P / 4) * CG; u += kBwdThreads) {
+      const int up = u / CG, uc = u - up * CG;
+      float acc[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[r][j] = 0.0f;
+#pragma unroll 4
+      for (int o = 0; o < kCo; ++o) {
+        const float4 x = *reinterpret_cast<const float4*>(gt_s + gt_at(o, 4 * up));
+        const float4 w = *reinterpret_cast<const float4*>(kt_s + o * D::C + 4 * uc);
+        const float xs[4] = {x.x, x.y, x.z, x.w}, ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[r][j] = mac<DT>(acc[r][j], xs[r], ws[j]);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        *reinterpret_cast<float4*>(dcorr_s + (4 * up + r) * D::C + 4 * uc) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+    __syncthreads();
+    write_dvol<T, R>(lv, glv, p0, n_valid, base_s, frac_s, dcorr_s, pieces, n_pieces);
   }
-  float* dst = partials + (int64_t)blockIdx.x * PART;
-  for (int i = threadIdx.x; i < PART; i += blockDim.x) dst[i] = part_s[i];
+  dk.store(partials + (int64_t)blockIdx.x * D::PART);
+  if ((tid & 31) == 0) bulk_wait_all();  // this warp's copies are written and its pieces free
 }
 
 // out[e] = sum over blocks of partials[block, e]: one warp per element,
@@ -347,38 +666,76 @@ __global__ void fused_lookup_reduce_kernel(const float* __restrict__ partials,
   if (lane == 0) out[e] = acc;
 }
 
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// The forward's tile: 64 pixels (256 threads), or 32 or 16 where fewer
+// tiles than SMs would leave SMs idle (the realtime pyramid: 7,488 pixels
+// make 117 tiles of 64 and 234 of 32 for 132 SMs).
 template <typename T, typename DT, int R>
 cudaError_t launch_fwd(const Levels& lv, const void* coords, const void* kern,
                        const void* bias, void* out, int64_t n_pix, cudaStream_t stream) {
-  const int64_t blocks = (n_pix + kFwdThreads - 1) / kFwdThreads;
-  fused_lookup_fwd_kernel<T, DT, R><<<(unsigned int)blocks, kFwdThreads, 0, stream>>>(
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  int p_log2 = 6;
+  while (p_log2 > 4 && ((n_pix + (1 << p_log2) - 1) >> p_log2) < sms) --p_log2;
+  const int64_t blocks = (n_pix + (1 << p_log2) - 1) >> p_log2;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const int smem = fwd_smem_floats<R>(1 << p_log2) * (int)sizeof(float);
+  auto kernel = fused_lookup_fwd_kernel<T, DT, R>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned int)blocks, 4 << p_log2, smem, stream>>>(
       lv, static_cast<const float*>(coords), static_cast<const float*>(kern),
-      static_cast<const float*>(bias), static_cast<DT*>(out), n_pix);
+      static_cast<const float*>(bias), static_cast<DT*>(out), n_pix, p_log2);
   return cudaGetLastError();
 }
 
-inline int64_t bwd_blocks(int64_t n_pix) {
-  const int64_t per_block = (int64_t)kBwdWarps * kPixPerWarp;
-  return (n_pix + per_block - 1) / per_block;
+// The backward's persistent grid: as many blocks as fit on the SMs at once,
+// at most one a tile. A device gives every launch of a shape the same grid,
+// so the tiles each partial sums are fixed.
+template <typename T, typename DT, int R>
+cudaError_t bwd_grid(int64_t n_pix, int* grid) {
+  const int smem = bwd_smem_floats<R>() * (int)sizeof(float);
+  auto kernel = fused_lookup_bwd_kernel<T, DT, R>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBwdThreads, smem);
+  if (err != cudaSuccess) return err;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int64_t n_tiles = (n_pix + kBwdTile - 1) / kBwdTile;
+  const int64_t fit = (int64_t)(per_sm > 0 ? per_sm : 1) * sms;
+  *grid = (int)(n_tiles < fit ? n_tiles : fit);
+  return cudaSuccess;
 }
 
 template <typename T, typename DT, int R>
 cudaError_t launch_bwd(const Levels& lv, const GradLevels& glv, const void* coords,
                        const void* g, const void* kern, const void* bias, void* partials,
                        void* dkdb, int64_t n_pix, cudaStream_t stream) {
-  constexpr int C = kLevels * (2 * R + 1);
-  constexpr int PART = C * kCo + kCo;
-  const int64_t blocks = bwd_blocks(n_pix);
-  fused_lookup_bwd_kernel<T, DT, R><<<(unsigned int)blocks, kBwdWarps * 32, 0, stream>>>(
+  constexpr int PART = Dims<R>::PART;
+  int grid = 0;
+  cudaError_t err = bwd_grid<T, DT, R>(n_pix, &grid);
+  if (err != cudaSuccess) return err;
+  const int smem = bwd_smem_floats<R>() * (int)sizeof(float);
+  fused_lookup_bwd_kernel<T, DT, R><<<grid, kBwdThreads, smem, stream>>>(
       lv, glv, static_cast<const float*>(coords), static_cast<const DT*>(g),
       static_cast<const float*>(kern), static_cast<const float*>(bias),
       static_cast<float*>(partials), n_pix);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int threads = 256;
   const int64_t red_blocks = ((int64_t)PART * 32 + threads - 1) / threads;
   fused_lookup_reduce_kernel<<<(unsigned int)red_blocks, threads, 0, stream>>>(
-      static_cast<const float*>(partials), static_cast<float*>(dkdb), PART, (int)blocks);
+      static_cast<const float*>(partials), static_cast<float*>(dkdb), PART, grid);
   return cudaGetLastError();
 }
 
@@ -395,6 +752,13 @@ int dispatch_bwd(const Levels& lv, const GradLevels& glv, const void* coords, co
                  const void* kern, const void* bias, void* partials, void* dkdb,
                  int64_t n_pix, int radius, cudaStream_t s) {
 #define CALL(R) launch_bwd<T, DT, R>(lv, glv, coords, g, kern, bias, partials, dkdb, n_pix, s)
+  RADIUS_DISPATCH(radius, CALL)
+#undef CALL
+}
+
+template <typename T, typename DT>
+int dispatch_grid(int64_t n_pix, int radius, int* grid) {
+#define CALL(R) bwd_grid<T, DT, R>(n_pix, grid)
   RADIUS_DISPATCH(radius, CALL)
 #undef CALL
 }
@@ -433,12 +797,27 @@ extern "C" int fused_lookup_fwd(const void* const* vols, const int* w2s, const v
 #undef ARGS
 }
 
-// The number of dk/db partials the backward writes: the scratch it takes is
-// fused_lookup_partials(n_pix) x (C x 64 + 64) fp32.
-extern "C" long long fused_lookup_partials(long long n_pix) { return bwd_blocks(n_pix); }
+// *count = the number of dk/db partials the backward writes on the current
+// device: its scratch is *count x (C x 64 + 64) fp32.
+extern "C" int fused_lookup_partials(long long n_pix, int radius, int vol_code, int dt_code,
+                                     long long* count) {
+  if (vol_code < 0 || vol_code > 1 || dt_code < 0 || dt_code > 1)
+    return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  int err;
+  switch (2 * vol_code + dt_code) {
+    case 0: err = dispatch_grid<float, float>(n_pix, radius, &grid); break;
+    case 1: err = dispatch_grid<float, __nv_bfloat16>(n_pix, radius, &grid); break;
+    case 2: err = dispatch_grid<__nv_bfloat16, float>(n_pix, radius, &grid); break;
+    default: err = dispatch_grid<__nv_bfloat16, __nv_bfloat16>(n_pix, radius, &grid); break;
+  }
+  *count = grid;
+  return err;
+}
 
-// g (n_pix, 64) in dt contiguous; dvols like vols, in the volume dtype;
-// partials scratch as above; dkdb (C x 64 + 64) fp32: dk then db.
+// g (n_pix, 64) in dt contiguous, 16-byte aligned; dvols like vols, in the
+// volume dtype; partials scratch as above; dkdb (C x 64 + 64) fp32: dk then
+// db.
 extern "C" int fused_lookup_bwd(const void* const* vols, void* const* dvols, const int* w2s,
                                 const void* coords, const void* g, const void* kern,
                                 const void* bias, void* partials, void* dkdb, long long n_pix,

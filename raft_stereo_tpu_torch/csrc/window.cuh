@@ -1,7 +1,8 @@
 // Helpers shared by the port's lookup kernels (windowed_sample, fused_corr,
 // alt_corr, fused_lookup): loads and stores in the tensor's dtype, 16-byte
-// feature chunks, the window's base, the taps' gradient and the dispatch of
-// a radius onto its compile-time instantiation.
+// feature chunks and asynchronous copies, the window's base, the taps'
+// gradient and the dispatch of a radius onto its compile-time
+// instantiation.
 //
 // Every kernel must compute window_base bit for bit alike (their results are
 // compared with each other and with the plain PyTorch versions), so it lives
@@ -70,6 +71,19 @@ struct V16 {
 __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
+
+// Asynchronous 16-byte copies from device to shared memory (cp.async), in
+// groups: commit closes a group; wait_prior waits for all but the newest,
+// wait_all for every copy the thread issued.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::);  // all but the newest group
+}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 
 // Elements [first, first + V16) of `row`, zero past d. With `vec` (row
 // 16-byte aligned and d a multiple of V16) one 16-byte load.

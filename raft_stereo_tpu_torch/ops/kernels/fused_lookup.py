@@ -14,10 +14,9 @@ gradient is taken, or raise; CPU tensors take the plain PyTorch versions
 There is no gradient for the coordinates.
 
 The JAX package sizes its row block by a VMEM budget (``_pick_hb``) and its
-gate refuses shapes whose block does not fit; the CUDA kernels work one
-pixel (forward) or one warp (backward) at a time and keep nothing of a row
-on-chip, so no such budget exists here and the gate checks the pyramid's
-shape alone.
+gate refuses shapes whose block does not fit; the CUDA kernels work on tiles
+of 16 to 64 consecutive pixels and stage only their windows on-chip, so no
+such budget exists here and the gate checks the pyramid's shape alone.
 """
 
 from __future__ import annotations
@@ -140,8 +139,10 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_void_p]
         lib.fused_lookup_bwd.restype = ctypes.c_int
-        lib.fused_lookup_partials.argtypes = [ctypes.c_longlong]
-        lib.fused_lookup_partials.restype = ctypes.c_longlong
+        lib.fused_lookup_partials.argtypes = [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.fused_lookup_partials.restype = ctypes.c_int
         lib.fused_lookup_error_string.argtypes = [ctypes.c_int]
         lib.fused_lookup_error_string.restype = ctypes.c_char_p
     return lib
@@ -202,6 +203,12 @@ def _pointers(tensors):
     return (ctypes.c_void_p * NUM_LEVELS)(*[t.data_ptr() for t in tensors])
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous) at a 16-byte aligned address: the kernels copy
+    the convc1 kernel and read the cotangent 16 bytes at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def fused_lookup_forward(levels: Sequence[torch.Tensor],
                          coords_x: torch.Tensor, kernel: torch.Tensor,
                          bias: torch.Tensor, radius: int,
@@ -215,7 +222,7 @@ def fused_lookup_forward(levels: Sequence[torch.Tensor],
     n_pix = coords_x.numel()
     if n_pix == 0:
         return out
-    kernel = kernel.float().contiguous()
+    kernel = _aligned(kernel.float().contiguous())
     bias = bias.float().contiguous()
     stream = torch.cuda.current_stream(coords_x.device).cuda_stream
     lib = _library()
@@ -252,19 +259,23 @@ def fused_lookup_backward(
     if n_pix == 0:
         return dvols, dkdb[:-OUT_CHANNELS].view(channels, OUT_CHANNELS), \
             dkdb[-OUT_CHANNELS:]
-    g = g.to(dt).contiguous()
-    kernel = kernel.float().contiguous()
+    g = _aligned(g.to(dt).contiguous())
+    kernel = _aligned(kernel.float().contiguous())
     bias = bias.float().contiguous()
     lib = _library()
-    partials = torch.empty((lib.fused_lookup_partials(n_pix), dkdb.numel()),
-                           dtype=torch.float32, device=coords_x.device)
+    codes = (DTYPE_CODES[levels[0].dtype], DTYPE_CODES[dt])
+    count = ctypes.c_longlong(0)
+    _raise_on(lib, lib.fused_lookup_partials(n_pix, radius, *codes,
+                                             ctypes.byref(count)),
+              "backward grid")
+    partials = torch.empty((count.value, dkdb.numel()), dtype=torch.float32,
+                           device=coords_x.device)
     stream = torch.cuda.current_stream(coords_x.device).cuda_stream
     rc = lib.fused_lookup_bwd(
         _pointers(levels), _pointers(dvols), (ctypes.c_int * NUM_LEVELS)(
             *[v.shape[-1] for v in levels]), coords_x.data_ptr(),
         g.data_ptr(), kernel.data_ptr(), bias.data_ptr(), partials.data_ptr(),
-        dkdb.data_ptr(), n_pix, radius, DTYPE_CODES[levels[0].dtype],
-        DTYPE_CODES[dt], stream)
+        dkdb.data_ptr(), n_pix, radius, *codes, stream)
     _raise_on(lib, rc, "backward")
     fused_lookup_c1.bwd_launches += 1
     return (dvols, dkdb[:-OUT_CHANNELS].view(channels, OUT_CHANNELS),

@@ -20,6 +20,9 @@ configuration:
   the profiler, whose host-side tracing slows the launches it records;
 * ``device_busy_ms`` per frame: the summed duration of the device kernels
   (one stream, so they do not overlap) and ``idle_share = 1 - busy/wall``;
+  ``memcpy_ms``: the part of it that copies (the pageable input pair's
+  host-to-device copy, which the host paces, so it varies from frame to
+  frame);
 * device time per kernel category (convolution, matmul, the
   windowed_sample, fused_corr and alt_corr lookups, the fused_lookup
   kernels, the rest), the top kernels by device time, and the operators
@@ -131,6 +134,10 @@ def summarize(prof, n: int, split: bool):
     host_ops = sorted(ops, key=lambda o: -o[3])
     return {
         "device_busy_ms": sum(by_cat.values()) / 1e3 / n,
+        # host-to-device copies of pageable inputs are paced by the host but
+        # counted as device time (part of "other")
+        "memcpy_ms": sum(v for k, v in by_name.items()
+                         if k.startswith("Memcpy")) / 1e3 / n,
         "kernels_per_unit": len(kernels) / n,
         "category_ms": {k: v / 1e3 / n for k, v in by_cat.most_common()},
         "top": [{"name": name[:90], "ms": v / 1e3 / n,
@@ -467,6 +474,7 @@ def main() -> int:
             "tf32": bool(torch.backends.cudnn.allow_tf32),
             "frames": args.frames, "wall_ms": wall_ms,
             "device_busy_ms": out["device_busy_ms"],
+            "memcpy_ms": out["memcpy_ms"],
             "idle_share": 1 - out["device_busy_ms"] / wall_ms,
             "kernels_per_frame": out["kernels_per_unit"],
             "category_ms": out["category_ms"], "top": out["top"],

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's fused_corr and alt_corr kernels of one checkout on one
-NVIDIA GPU, on inputs that any checkout makes alike.
+"""Time the port's fused_corr, alt_corr and fused_lookup kernels of one
+checkout on one NVIDIA GPU, on inputs that any checkout makes alike.
 
     python3 scripts/time_corr_kernels.py [--root DIR] [--label NAME]
+        [--kernels lookup_fwd,lookup_bwd]
 
 ``--root`` is the checkout whose ``raft_stereo_tpu_torch`` is imported (its
 kernels built from its own ``csrc/``; default: this one). Run it once per
@@ -25,7 +26,13 @@ before each launch, median of ``--reps``):
   ``alt_corr_pyramid_forward`` (a checkout without it launches once a
   level: ``sum_ms`` is what its lookup costs);
 * ``fused_bwd`` and ``alt_bwd``: each backward (df1 and df2) at the train
-  levels.
+  levels;
+* ``lookup_fwd`` and ``lookup_bwd``: fused_lookup's forward and backward,
+  one launch for the four levels, at chip_smoke.py's three ``LOOKUP_C1``
+  pyramids (default fp32, realtime bf16, train bf16), on the ``random`` and
+  ``smooth`` fields (``ms``).
+
+``--kernels`` picks which of these run (default: all).
 
 Center fields, each a disparity in [0, W2/4] subtracted from the pixel's
 own x: ``random`` (an independent disparity per pixel, chip_smoke.py's),
@@ -70,7 +77,10 @@ def main() -> int:
     ap.add_argument("--label", default="change")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--fields", default="random,smooth,shared")
+    ap.add_argument("--kernels", default="fused_fwd,alt_fwd,fused_bwd,"
+                    "alt_bwd,lookup_fwd,lookup_bwd")
     args = ap.parse_args()
+    wanted = set(args.kernels.split(","))
 
     import torch
     if not torch.cuda.is_available():
@@ -80,6 +90,7 @@ def main() -> int:
     from raft_stereo_tpu_torch.ops.kernels import _build
     from raft_stereo_tpu_torch.ops.kernels import alt_corr as ac
     from raft_stereo_tpu_torch.ops.kernels import fused_corr as fc
+    from raft_stereo_tpu_torch.ops.kernels import fused_lookup as fl
     assert os.path.dirname(fc.__file__).startswith(
         os.path.abspath(args.root)), fc.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -87,7 +98,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    _build.build_all([fc.KERNEL_NAME, ac.KERNEL_NAME])
+    _build.build_all(
+        ([fc.KERNEL_NAME, ac.KERNEL_NAME]
+         if wanted - {"lookup_fwd", "lookup_bwd"} else [])
+        + ([fl.KERNEL_NAME] if wanted & {"lookup_fwd", "lookup_bwd"} else []))
     print(json.dumps({"label": args.label, "root": args.root,
                       "nvidia_smi": smi, "torch": torch.__version__}),
           flush=True)
@@ -111,6 +125,8 @@ def main() -> int:
 
     for cfg_name, ((b, h, w1, d), widths, dname) in (
             ("hires", HIRES), ("train", TRAIN), ("kitti", KITTI)):
+        if not wanted & set(kernels[cfg_name]):
+            continue
         dt = getattr(torch, dname)
         g = torch.Generator(device=dev).manual_seed(7)
         f1 = torch.randn((b, h, w1, d), generator=g, device=dev).to(dt)
@@ -124,6 +140,8 @@ def main() -> int:
             c0 = centers(field, b, h, w1, widths[0], gc, dev)
             cs = [(c0 / (2 ** i)).contiguous() for i in range(len(levels))]
             for kernel in kernels[cfg_name]:
+                if kernel not in wanted:
+                    continue
                 if kernel in backward:
                     per = [ms(lambda f2=f2, c=c, fn=backward[kernel]: fn(
                         f1, f2, c, ct, RADIUS)) for f2, c in zip(levels, cs)]
@@ -138,6 +156,33 @@ def main() -> int:
                                                        RADIUS))
                 emit(**row)
         del f1, levels, ct
+
+    # fused_lookup: one launch for the four levels, forward and backward
+    fields = [f for f in args.fields.split(",") if f in ("random", "smooth")]
+    for cfg_name, (vname, dname, shape) in chip_smoke.LOOKUP_C1.items():
+        if not wanted & {"lookup_fwd", "lookup_bwd"}:
+            break
+        dt = getattr(torch, dname)
+        levels, coords, kern, bias = chip_smoke.lookup_c1_inputs(
+            shape, getattr(torch, vname), 17, dev, edges=False)
+        gt = torch.Generator(device=dev).manual_seed(19)
+        ct = torch.randn(shape[:3] + (64,), generator=gt, device=dev).to(dt)
+        for field in fields:
+            gc = torch.Generator(device=dev).manual_seed(11)
+            c0 = centers(field, *shape, gc, dev)
+            for kernel in ("lookup_fwd", "lookup_bwd"):
+                if kernel not in wanted:
+                    continue
+                if kernel == "lookup_fwd":
+                    fn = lambda: fl.fused_lookup_forward(  # noqa: E731
+                        levels, c0, kern, bias, RADIUS, dt)
+                else:
+                    fn = lambda: fl.fused_lookup_backward(  # noqa: E731
+                        levels, c0, kern, bias, ct, RADIUS, dt)
+                emit(kernel=kernel, config=cfg_name, field=field,
+                     volume_dtype=vname, dtype=dname, shape=list(shape),
+                     ms=ms(fn))
+        del levels, coords, ct
     return 0
 
 

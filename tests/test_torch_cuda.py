@@ -952,6 +952,54 @@ def test_fused_lookup_kernels_match_plain(cuda, vdt, dt, shape):
     assert _rel_close(dk, w_dk) and _rel_close(db, w_db)
 
 
+# (B, H, W1, level-0 W2) for the tiled kernels: on a 132-SM H100 the forward
+# takes tiles of 16, 32 and 64 pixels at these sizes, each with a ragged last
+# tile (111, 530, 6157 and 8777 pixels), and so does the backward's 64; odd
+# widths at every level (41/5, 77/19, 47/23, 67/33) and dvol runs that end
+# mid-pack (the scalar tail).
+TILE_SHAPES = [(1, 3, 37, 41), (2, 5, 53, 77), (1, 47, 131, 47),
+               (1, 67, 131, 67)]
+
+
+@pytest.mark.parametrize("radius", [0, 8])
+@pytest.mark.parametrize("vdt,dt", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+def test_fused_lookup_tiles_bitwise(cuda, shape, vdt, dt, radius):
+    """Forward and dvol bitwise equal to plain on ragged tiles, odd widths
+    and NaN / +-1e9 centers; two backward runs bitwise equal; dk/db within
+    1e-5 of plain on finite centers."""
+    levels, coords, _, bias = _lookup_inputs(shape, vdt, cuda, seed=5)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    kern = torch.randn((4 * (2 * radius + 1), 64), generator=g,
+                       device=cuda) * 0.2
+    ct = torch.randn(shape[:3] + (64,), generator=g, device=cuda).to(dt)
+    out = fl.fused_lookup_c1(levels, coords, kern, bias, radius, dt)
+    first = fl.fused_lookup_backward(levels, coords, kern, bias, ct, radius,
+                                     dt)
+    again = fl.fused_lookup_backward(levels, coords, kern, bias, ct, radius,
+                                     dt)
+    want = fl.fused_lookup_c1_plain(levels, coords, kern, bias, radius, dt)
+    w_dvols, _, _ = fl.fused_lookup_c1_backward_plain(
+        levels, coords, kern, bias, ct, radius, dt)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out).any()) and _same(out, want)
+    assert all(_same(a, b) for a, b in zip(first[0], w_dvols))
+    assert all(_same(a, b) for a, b in zip(first[0] + first[1:],
+                                           again[0] + again[1:]))
+    assert bool((out.view(-1, 64)[4:6] == torch.relu(bias).to(dt)).all())
+    assert all(bool((d.view(-1, d.shape[-1])[4:6] == 0).all())
+               for d in first[0])
+    finite = coords.nan_to_num(0.0)
+    _, dk, db = fl.fused_lookup_backward(levels, finite, kern, bias, ct,
+                                         radius, dt)
+    _, w_dk, w_db = fl.fused_lookup_c1_backward_plain(levels, finite, kern,
+                                                      bias, ct, radius, dt)
+    assert _rel_close(dk, w_dk) and _rel_close(db, w_db)
+
+
 def test_fused_lookup_other_radii(cuda):
     for radius in (0, 1, 3, 8):
         levels, coords, _, bias = _lookup_inputs((2, 4, 40, 40),
