@@ -11,15 +11,21 @@ Phases, each reported as one JSON line, in the order they run:
    fused_corr, alt_corr, fused_lookup) from the sources in
    raft_stereo_tpu_torch/csrc with nvcc (sm_90a), one nvcc each, all
    started together; timed as set-up, with each nvcc's seconds.
-3. parity  — the windowed_sample forward kernel against its plain PyTorch
-   version on the card, at every pyramid-level shape of both inference
-   configurations, with edge centers (integers, borders, +-1e9, NaN).
-   Bound: 1e-5 abs.
-4. bwd_parity — the windowed_sample backward kernel against its plain
-   version at every level shape of the training batch and of both
-   inference configurations, the same edge centers: dvol bitwise equal
-   (NaN pattern included; bound 1e-5 abs in fp32, one bf16 ulp in bf16),
-   dcoords 1e-5 abs, and two runs bitwise equal.
+3. parity  — the windowed_sample forward kernel, launched for one level,
+   against its plain PyTorch version on the card, at every pyramid-level
+   shape of both inference configurations and the training batch, with
+   edge centers (integers, borders, +-1e9, NaN). Bound: 1e-5 abs.
+4. bwd_parity — the windowed_sample backward kernels for one level
+   against their plain version at every level shape of the training batch
+   and of both inference configurations, the same edge centers: dvol
+   bitwise equal (NaN pattern included; bound 1e-5 abs in fp32, one bf16
+   ulp in bf16), dcoords 1e-5 abs, and two runs bitwise equal.
+   ws_pyramid_parity: windowed_sample's one launch for the pyramid, forward
+   and backward, at the default, realtime and train pyramids (the train one
+   with 1 to 4 levels), a narrow pyramid down to W2 <= 2r+2 and a ragged
+   one, the same edge centers: forward and every level's dvol bitwise equal
+   to the plain versions and to the one-level launches, dcoords 1e-5 abs,
+   two runs bitwise equal, one launch a call each way.
 5. fused_parity — the fused_corr forward and backward kernels against
    their plain versions at every level shape of the hires and train_fused
    paths and at W2 <= 2r+2, the same edge centers: the forward 1e-5 abs,
@@ -52,9 +58,10 @@ Phases, each reported as one JSON line, in the order they run:
    through StereoPredictor on a 375x1242 pair (padded to 384x1248), 32
    iterations; realtime_config() (bf16), 7 iterations; the default
    architecture with alt_pallas (fp32); and both with fused_lookup=True:
-   finite output of the right shape, exactly 4 launches an iteration of
-   the path's lookup kernel (1 of alt_corr and of fused_lookup) and none of
-   the others, median ms/frame, peak memory.
+   finite output of the right shape, exactly 1 launch an iteration of
+   the path's lookup kernel (windowed_sample's, alt_corr's or
+   fused_lookup's, each one launch for the four levels) and none of the
+   others, median ms/frame, peak memory.
 10. hires — the default architecture with alt_cuda (the fused_corr
    kernels, fp32) on a 1988x2880 pair (padded to 2016x2880), 32
    iterations: exactly 32 fused_corr forward launches (one for the four
@@ -72,8 +79,9 @@ Phases, each reported as one JSON line, in the order they run:
 12. train — the SceneFlow recipe (sceneflow_config(): bf16 compute, bf16
    volume) with reg_cuda, batch 8 at 320x720, 22 iterations, through
    make_train_step on a seeded synthetic batch: a warm-up step, then timed
-   steps, each with exactly 4 x 22 forward launches, as many recomputed
-   under remat_refinement and 4 x 22 backward launches; finite loss and
+   steps, each with exactly 22 forward launches (one for the four levels
+   an iteration), as many recomputed under remat_refinement and 22
+   backward launches (one for the four levels' dvol); finite loss and
    gradient norm, no skipped update, parameters that moved; median
    ms/step and peak memory.
 13. train_nan — a batch with a NaN pixel: the update is skipped, the
@@ -90,14 +98,16 @@ Phases, each reported as one JSON line, in the order they run:
    reg_cuda + fused_lookup in cuDNN at 64x352; the loss within 1e-5
    relative, and the gradients within the null floor of NULL_RUNS CPU
    null runs (see check_grad_parity).
-16. timings, bwd_timings — per pyramid level: each windowed_sample
-   kernel's time per launch (the forward at the default, realtime and
-   train pyramids, the backward at the train pyramid), its bound (bound_ms: bytes over 3.35 TB/s,
-   or operations over the peak of their type, whichever is larger), the
-   plain version's time and one PyTorch call computing the same function:
-   F.grid_sample for the forward, its backward (torch.autograd.grad on a
-   prebuilt graph) for the backward (the reference's formulation; a
-   yardstick only).
+16. timings, bwd_timings — windowed_sample's forward at the default,
+   realtime and train pyramids and its backward at the train pyramid: per
+   level, the one-level launch's time, its bound (bound_ms: bytes over
+   3.35 TB/s, or operations over the peak of their type, whichever is
+   larger), the plain version's time and one PyTorch call computing the
+   same function (F.grid_sample for the forward, its backward by
+   torch.autograd.grad on a prebuilt graph for the backward: the
+   reference's formulation); then the one launch for the four levels as
+   the main path runs it, on the same levels and centers, with its
+   four-level bound, its plain version's time and the levels' sums.
 17. fused_timings, alt_timings — fused_corr's forward in one launch for
    the four hires levels (fp32) and the four train levels (bf16), and per
    level; alt_corr's forward in one launch for the four levels of the
@@ -349,20 +359,32 @@ def alt_yardstick(f1, f2, center, ct=None):
     return lambda: torch.autograd.grad(out, (a, bb), cot, retain_graph=True)
 
 
-def lookup_bytes_flops(vol, center):
-    """Least bytes and flops of one lookup on these inputs: the center and
-    the in-range taps read once, the fp32 output written once; 4 flops per
-    output ((1-f), two products, one sum)."""
+def ws_bytes_flops(levels, center, backward=False):
+    """Least bytes and flops of one windowed_sample launch over ``levels``
+    (one volume or a list; level i looked up around center / 2**i) on
+    these inputs. Forward: the center read once, each level's in-range
+    taps read once, the fp32 output written once; 4 flops per output
+    ((1-f), two products, one sum). Backward as training runs it (no
+    dcoords): every level's dense dvol written once, the fp32 cotangent
+    and the center read once; 3 flops per in-range tap ((1-f)*ct_j,
+    f*ct_{j-1}, one sum)."""
     import torch
-    w2 = vol.shape[-1]
+    if torch.is_tensor(levels):
+        levels = [levels]
     k = 2 * RADIUS + 1
     c = torch.nan_to_num(center, nan=0.0).clamp(-1e8, 1e8)
-    base = torch.floor(c).long() - RADIUS
-    taps = base[..., None] + torch.arange(k + 1, device=c.device)
-    in_range = int(((taps >= 0) & (taps < w2)).sum().item())
     n_pix = center.numel()
-    nbytes = n_pix * 4 + in_range * vol.element_size() + n_pix * k * 4
-    return nbytes, n_pix * k * 4
+    in_range = 0
+    for i, vol in enumerate(levels):
+        base = torch.floor(c / (2 ** i)).long() - RADIUS
+        taps = base[..., None] + torch.arange(k + 1, device=c.device)
+        in_range += int(((taps >= 0) & (taps < vol.shape[-1])).sum().item())
+    n_out = n_pix * k * len(levels)
+    if not backward:
+        es = levels[0].element_size()
+        return n_pix * 4 + in_range * es + n_out * 4, n_out * 4
+    dvol = sum(v.numel() * v.element_size() for v in levels)
+    return dvol + n_out * 4 + n_pix * 4, in_range * 3
 
 
 def cuda_ms(fn, flush, reps=50):
@@ -402,23 +424,6 @@ def grid_sample_lookup(vol, center):
         return F.grid_sample(inp, grid, mode="bilinear",
                              padding_mode="zeros", align_corners=True)
     return call
-
-
-def lookup_bwd_bytes_flops(vol, center):
-    """Least bytes and flops of one backward launch as training runs it (no
-    dcoords): the dense dvol written once, the fp32 cotangent and the
-    center read once; 3 flops per in-range tap ((1-f)*ct_j, f*ct_{j-1},
-    one sum)."""
-    import torch
-    w2 = vol.shape[-1]
-    k = 2 * RADIUS + 1
-    c = torch.nan_to_num(center, nan=0.0).clamp(-1e8, 1e8)
-    base = torch.floor(c).long() - RADIUS
-    taps = base[..., None] + torch.arange(k + 1, device=c.device)
-    in_range = int(((taps >= 0) & (taps < w2)).sum().item())
-    n_pix = center.numel()
-    nbytes = vol.numel() * vol.element_size() + n_pix * k * 4 + n_pix * 4
-    return nbytes, in_range * 3
 
 
 def grid_sample_backward(vol, center, ct):
@@ -685,6 +690,87 @@ def run_pyramid_parity(dev, phase, kernel, pyramid, pyramid_plain, one_level,
             del out, again, ones, want
         del f1, f2, levels, center
     return err
+
+
+def run_ws_pyramid_parity(dev, ws):
+    """windowed_sample's one-launch pyramid (``ws``: the module), forward
+    and backward, against its plain versions: the default (fp32), realtime
+    and train (bf16) pyramids with 4 levels, the train pyramid with 1 to 3,
+    a narrow pyramid down to W2 <= 2r+2 and a ragged one whose last tile is
+    short, with the edge centers: forward and every level's dvol bitwise
+    equal (NaN patterns included), dcoords within KERNEL_TOL, far-out
+    centers zero, two runs bitwise equal, bitwise equal to the one-level
+    launches, and one launch a call each way. Returns the max abs errors
+    (forward, dvol, dcoords)."""
+    import torch
+    errs = dict(fwd=0.0, dvol=0.0, dcoords=0.0)
+    k = 2 * RADIUS + 1
+    cases = [("default", torch.float32, (1, 96, 312, 312), (4,)),
+             ("realtime", torch.bfloat16, (1, 48, 156, 156), (4,)),
+             ("train", torch.bfloat16, (8, 80, 180, 180), (1, 2, 3, 4)),
+             ("narrow", torch.float32, (1, 4, 15, 15), (4,)),
+             ("ragged", torch.bfloat16, (1, 3, 37, 37), (4,))]
+    for i, (cfg_name, dtype, shape, counts) in enumerate(cases):
+        b, h, w1, w2 = shape
+        g = torch.Generator(device=dev).manual_seed(SEED + 180 + i)
+        pyramid = [torch.randn((b, h, w1, w2 >> j), generator=g,
+                               device=dev).to(dtype) for j in range(4)]
+        center = window_centers(b, h, w1, w2, g, dev)
+        ct_all = torch.randn((b, h, w1, 4 * k), generator=g, device=dev)
+        for n in counts:
+            levels, ct = pyramid[:n], ct_all[..., :n * k].contiguous()
+            before = (ws.windowed_sample.launches,
+                      ws.windowed_sample.bwd_launches)
+            out = ws.windowed_sample_pyramid_forward(levels, center, RADIUS)
+            again = ws.windowed_sample_pyramid_forward(levels, center,
+                                                       RADIUS)
+            dvols, dc = ws.windowed_sample_pyramid_backward(
+                levels, center, ct, RADIUS)
+            dvols2, dc2 = ws.windowed_sample_pyramid_backward(
+                levels, center, ct, RADIUS)
+            check((ws.windowed_sample.launches - before[0],
+                   ws.windowed_sample.bwd_launches - before[1]) == (2, 2),
+                  f"ws_pyramid_parity: not one launch a call at {cfg_name}")
+            ones = torch.cat([ws.windowed_sample_forward(
+                v, center / (2 ** j), RADIUS) for j, v in enumerate(levels)],
+                dim=-1)
+            ones_dvol = [ws.windowed_sample_backward(
+                v, center / (2 ** j), ct[..., j * k:(j + 1) * k], RADIUS,
+                need_dcoords=False)[0] for j, v in enumerate(levels)]
+            want = ws.windowed_sample_pyramid_plain(levels, center, RADIUS)
+            want_dvols, want_dc = ws.windowed_sample_pyramid_backward_plain(
+                levels, center, ct, RADIUS)
+            torch.cuda.synchronize()
+            err_f, _ = within_bound(out, want, torch.float32)
+            err_v = max(within_bound(a, w, dtype)[0]
+                        for a, w in zip(dvols, want_dvols))
+            err_c, ok_c = within_bound(dc, want_dc, torch.float32)
+            row = dict(
+                fwd_bitwise_vs_plain=bitwise(out, want),
+                dvol_bitwise_vs_plain=all(bitwise(a, w) for a, w in
+                                          zip(dvols, want_dvols)),
+                deterministic=bitwise(out, again) and bitwise(dc, dc2)
+                and all(bitwise(a, c) for a, c in zip(dvols, dvols2)),
+                bitwise_vs_one_level_launches=bitwise(out, ones) and all(
+                    bitwise(a, c) for a, c in zip(dvols, ones_dvol)))
+            emit("ws_pyramid_parity", config=cfg_name, shape=list(shape),
+                 levels=[v.shape[-1] for v in levels],
+                 dtype=str(dtype).replace("torch.", ""), max_abs_err=err_f,
+                 max_abs_err_dvol=err_v, max_abs_err_dcoords=err_c, **row)
+            check(all(row.values()) and ok_c,
+                  f"ws_pyramid_parity at {cfg_name} {n} levels: {row}, "
+                  f"dcoords within {KERNEL_TOL}: {ok_c}")
+            check(bool(torch.isnan(out).any())
+                  and bool((out.view(-1, n * k)[6:8] == 0).all())
+                  and all(bool((a.view(-1, a.shape[-1])[6:8] == 0).all())
+                          for a in dvols),
+                  "ws_pyramid_parity: NaN or far-out centers mishandled")
+            errs = dict(fwd=max(errs["fwd"], err_f),
+                        dvol=max(errs["dvol"], err_v),
+                        dcoords=max(errs["dcoords"], err_c))
+            del out, again, dvols, dvols2, ones, ones_dvol, want, want_dvols
+        del pyramid, center, ct_all
+    return errs
 
 
 def run_wide_backward(dev, fc):
@@ -1070,13 +1156,13 @@ def run_hires(dev, fc, windowed_sample, model_seed):
 
 
 def run_train(dev, impl, kernel, others, model_seed, phase="train",
-              per_iter=4, per_iter_bwd=None, **overrides):
+              per_iter_bwd=1, **overrides):
     """Timed training steps at the SceneFlow recipe's shape with ``impl``
     (and the config ``overrides``): each step launches ``kernel``'s forward
-    ``per_iter`` x 22 times and as many again recomputed, its backward
-    ``per_iter_bwd`` (default ``per_iter``) x 22 times, and the kernels of
-    ``others`` never. For reg_cuda (phase "train"), then an injected NaN
-    step."""
+    once an iteration (22 times, one launch for the four levels) and as
+    many again recomputed, its backward ``per_iter_bwd`` x 22 times, and
+    the kernels of ``others`` never. For reg_cuda (phase "train"), then an
+    injected NaN step."""
     import torch
     from raft_stereo_tpu_torch.config import sceneflow_config
     from raft_stereo_tpu_torch.models import RAFTStereo
@@ -1097,8 +1183,7 @@ def run_train(dev, impl, kernel, others, model_seed, phase="train",
     torch.cuda.synchronize()
     start = [p.detach().clone() for p in model.parameters()]
     torch.cuda.reset_peak_memory_stats(dev)
-    want = (2 * per_iter * iters,
-            (per_iter if per_iter_bwd is None else per_iter_bwd) * iters)
+    want = (2 * iters, per_iter_bwd * iters)
     secs, losses, norms = [], [], []
     for _ in range(TRAIN_STEPS):
         for k in (kernel, *others):
@@ -1331,6 +1416,7 @@ def main():
     check(bwd_err <= KERNEL_TOL, f"backward error {bwd_err} > {KERNEL_TOL}")
     check(windowed_sample.bwd_launches - before == n_calls,
           "the parity calls did not launch the backward kernel")
+    ws_err = run_ws_pyramid_parity(dev, ws_mod)
 
     # fused_corr: kernels against plain, and the memory contract
     fused_err = run_feature_parity(
@@ -1366,18 +1452,17 @@ def main():
     # through the fused lookup+convc1 kernel
     left, right = stereo_pair(375, 1242, SEED)
     main = {}
-    for name, cfg, iters, kernel, per_iter in [
+    for name, cfg, iters, kernel in [
             ("default", RAFTStereoConfig(corr_implementation="reg_cuda"), 32,
-             windowed_sample, 4),
-            ("realtime", realtime_config(), 7, windowed_sample, 4),
+             windowed_sample),
+            ("realtime", realtime_config(), 7, windowed_sample),
             ("alt_pallas", RAFTStereoConfig(corr_implementation="alt_pallas"),
-             32, alt_corr, 1),
+             32, alt_corr),
             ("default_fused_lookup", RAFTStereoConfig(
                 corr_implementation="reg_cuda", fused_lookup=True), 32,
-             fused_lookup_c1, 1),
+             fused_lookup_c1),
             ("realtime_fused_lookup", dataclasses.replace(
-                realtime_config(), fused_lookup=True), 7, fused_lookup_c1,
-             1)]:
+                realtime_config(), fused_lookup=True), 7, fused_lookup_c1)]:
         state = seeded_weights(RAFTStereo(cfg), SEED)
         pred = StereoPredictor(cfg, state, valid_iters=iters, device=dev)
         pred(left, right)  # warm-up: cuDNN autotuning, allocator
@@ -1386,7 +1471,7 @@ def main():
             k.launches = 0
         flow, _ = pred.predict_timed(left, right)
         launches = kernel.launches
-        want = per_iter * iters
+        want = iters  # one launch for the four levels an iteration
         others = [k.launches for k in all_kernels if k is not kernel]
         check(launches == want and not any(others),
               f"{name}: {launches} kernel launches, expected {want}; "
@@ -1412,12 +1497,11 @@ def main():
 
     # 7. device against CPU, same weights, through each kernel (the fused
     # lookup at 64x352, the narrowest pair whose pyramid it takes)
-    for impl, kernel, (h, w), per_iter, extra in (
-            ("reg_cuda", windowed_sample, (64, 160), 4, {}),
-            ("alt_cuda", fused_corr, (64, 160), 1, {}),
-            ("alt_pallas", alt_corr, (64, 160), 1, {}),
-            ("reg_cuda", fused_lookup_c1, (64, 352), 1,
-             {"fused_lookup": True})):
+    for impl, kernel, (h, w), extra in (
+            ("reg_cuda", windowed_sample, (64, 160), {}),
+            ("alt_cuda", fused_corr, (64, 160), {}),
+            ("alt_pallas", alt_corr, (64, 160), {}),
+            ("reg_cuda", fused_lookup_c1, (64, 352), {"fused_lookup": True})):
         small_l, small_r = stereo_pair(h, w, SEED + 1, shift=6)
         cfg = RAFTStereoConfig(corr_implementation=impl, **extra)
         on_gpu = StereoPredictor(cfg, default_state, valid_iters=4,
@@ -1427,7 +1511,7 @@ def main():
         for k in all_kernels:
             k.launches = 0
         f_gpu = on_gpu(small_l, small_r)
-        check(kernel.launches == 4 * per_iter,
+        check(kernel.launches == 4,
               f"the card run of {impl} {extra} missed its kernel")
         f_cpu = on_cpu(small_l, small_r)
         dev_px = float(np.abs(f_gpu - f_cpu).max())
@@ -1445,15 +1529,12 @@ def main():
     train = run_train(dev, "reg_cuda", windowed_sample,
                       others(windowed_sample), SEED)
     train_fused = run_train(dev, "alt_cuda", fused_corr, others(fused_corr),
-                            SEED, phase="train_fused", per_iter=1,
-                            per_iter_bwd=4)
+                            SEED, phase="train_fused", per_iter_bwd=4)
     train_alt = run_train(dev, "alt_pallas", alt_corr, others(alt_corr),
-                          SEED, phase="train_alt", per_iter=1,
-                          per_iter_bwd=4)
+                          SEED, phase="train_alt", per_iter_bwd=4)
     train_lookup = run_train(dev, "reg_cuda", fused_lookup_c1,
                              others(fused_lookup_c1), SEED,
-                             phase="train_fused_lookup", per_iter=1,
-                             fused_lookup=True)
+                             phase="train_fused_lookup", fused_lookup=True)
 
     # 10. one fp32 training step, card against CPU, same weights: reg_cuda
     # with the card's convolutions in cuDNN (the main path's) and outside
@@ -1461,7 +1542,7 @@ def main():
     for impl, kernel, modes, size, launches, extra in (
             ("reg_cuda", windowed_sample, (("cudnn", True),
                                            ("cudnn_off", False)),
-             (64, 160), (16, 8), {}),
+             (64, 160), (4, 2), {}),
             ("alt_cuda", fused_corr, (("cudnn", True),), (64, 160), (4, 8),
              {}),
             ("alt_pallas", alt_corr, (("cudnn", True),), (64, 160), (4, 8),
@@ -1481,61 +1562,90 @@ def main():
             check(run["ok"], f"card ({impl}, {label}) vs CPU gradients "
                              f"beyond the null floor: {run}")
 
-    # 11. timings at the main-path level shapes
+    # 11. timings at the main-path pyramids: each level alone (its
+    # one-level launch, plain version and F.grid_sample), then the one
+    # launch for the four levels as the main path runs it, on the same
+    # levels and level-0 centers (level i around center / 2**i); the
+    # backward at the train pyramid, each level's cotangent a slice of the
+    # four levels' one
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=dev)
-    per_level = []
-    for cfg_name in ("default", "realtime", "train"):
-        dtype, shapes = level_shapes[cfg_name]
-        for i, shape in enumerate(shapes):
-            vol, center = lookup_inputs(shape, dtype, SEED + 10 + i, dev,
-                                        edges=False)
-            nbytes, flops = lookup_bytes_flops(vol, center)
+    taps = 2 * RADIUS + 1
+    per_level, pyramid_rows = [], {}
+    for which in ("fwd", "bwd"):
+        for cfg_name in (("default", "realtime", "train") if which == "fwd"
+                         else ("train",)):
+            dtype, shapes = level_shapes[cfg_name]
+            b, h, w1, w2 = shapes[0]
+            g = torch.Generator(device=dev).manual_seed(SEED + 10)
+            levels = [torch.randn(sh, generator=g, device=dev).to(dtype)
+                      for sh in shapes]
+            center = window_centers(b, h, w1, w2, g, dev, edges=False)
+            ct = torch.randn((b, h, w1, 4 * taps), generator=g, device=dev)
+            rows = []
+            for i, vol in enumerate(levels):
+                c_i = (center / (2 ** i)).contiguous()
+                ct_i = ct[..., i * taps:(i + 1) * taps]
+                if which == "fwd":
+                    lib_call = grid_sample_lookup(vol, c_i)
+                    want = ws_mod.windowed_sample_plain(vol, c_i, RADIUS)
+                    lib_err = (lib_call().float().reshape(want.shape)
+                               - want).abs().max().item()
+                    kernel = (lambda v=vol, c=c_i:
+                              ws_mod.windowed_sample_forward(v, c, RADIUS))
+                    plain = (lambda v=vol, c=c_i:
+                             ws_mod.windowed_sample_plain(v, c, RADIUS))
+                else:
+                    lib_call = grid_sample_backward(vol, c_i, ct_i)
+                    want = ws_mod.windowed_sample_backward_plain(
+                        vol, c_i, ct_i, RADIUS)[0]
+                    lib_err = (lib_call()[0].float().reshape(vol.shape)
+                               - want.float()).abs().max().item()
+                    kernel = (lambda v=vol, c=c_i, t=ct_i:
+                              ws_mod.windowed_sample_backward(
+                                  v, c, t, RADIUS, need_dcoords=False))
+                    plain = (lambda v=vol, c=c_i, t=ct_i:
+                             ws_mod.windowed_sample_backward_plain(
+                                 v, c, t, RADIUS))
+                nbytes, flops = ws_bytes_flops(vol, c_i, which == "bwd")
+                bound, bound_by = bound_ms(nbytes, flops, 0, torch.float32)
+                row = dict(kernel=which, config=cfg_name,
+                           shape=list(vol.shape),
+                           dtype=str(dtype).replace("torch.", ""),
+                           ms=cuda_ms(kernel, flush),
+                           plain_ms=cuda_ms(plain, flush),
+                           library_ms=cuda_ms(lib_call, flush),
+                           library_max_abs_diff=lib_err,
+                           bound_ms=bound, bound_by=bound_by,
+                           bytes=nbytes, flops=flops)
+                rows.append(row)
+                emit("timings" if which == "fwd" else "bwd_timings", **row)
+                del lib_call, want
+            if which == "fwd":
+                kernel = lambda: ws_mod.windowed_sample_pyramid_forward(
+                    levels, center, RADIUS)
+                plain = lambda: ws_mod.windowed_sample_pyramid_plain(
+                    levels, center, RADIUS)
+            else:
+                kernel = lambda: ws_mod.windowed_sample_pyramid_backward(
+                    levels, center, ct, RADIUS, need_dcoords=False)
+                plain = lambda: ws_mod.windowed_sample_pyramid_backward_plain(
+                    levels, center, ct, RADIUS)
+            nbytes, flops = ws_bytes_flops(levels, center, which == "bwd")
             bound, bound_by = bound_ms(nbytes, flops, 0, torch.float32)
-            lib_call = grid_sample_lookup(vol, center)
-            lib_err = (lib_call().float().reshape(center.shape + (-1,))
-                       - ws_mod.windowed_sample_plain(vol, center, RADIUS)
-                       ).abs().max().item()
-            row = dict(
-                config=cfg_name, shape=list(shape),
-                dtype=str(dtype).replace("torch.", ""),
-                ms=cuda_ms(lambda: windowed_sample(vol, center, RADIUS),
-                           flush),
-                plain_ms=cuda_ms(lambda: ws_mod.windowed_sample_plain(
-                    vol, center, RADIUS), flush),
-                library_ms=cuda_ms(lib_call, flush),
-                library_max_abs_diff=lib_err,
-                bound_ms=bound, bound_by=bound_by,
-                bytes=nbytes, flops=flops)
-            per_level.append(row)
-            emit("timings", **row)
-
-    bwd_levels = []
-    dtype, shapes = level_shapes["train"]
-    for i, shape in enumerate(shapes):
-        vol, center = lookup_inputs(shape, dtype, SEED + 40 + i, dev,
-                                    edges=False)
-        g = torch.Generator(device=dev).manual_seed(SEED + 50 + i)
-        ct = torch.randn(center.shape + (2 * RADIUS + 1,), generator=g,
-                         device=dev)
-        nbytes, flops = lookup_bwd_bytes_flops(vol, center)
-        bound, bound_by = bound_ms(nbytes, flops, 0, torch.float32)
-        lib_call = grid_sample_backward(vol, center, ct)
-        want = ws_mod.windowed_sample_backward_plain(vol, center, ct, RADIUS)
-        lib_err = (lib_call()[0].float().reshape(vol.shape)
-                   - want[0].float()).abs().max().item()
-        row = dict(
-            config="train", shape=list(shape),
-            dtype=str(dtype).replace("torch.", ""),
-            ms=cuda_ms(lambda: ws_mod.windowed_sample_backward(
-                vol, center, ct, RADIUS, need_dcoords=False), flush),
-            plain_ms=cuda_ms(lambda: ws_mod.windowed_sample_backward_plain(
-                vol, center, ct, RADIUS), flush),
-            library_ms=cuda_ms(lib_call, flush),
-            library_max_abs_diff=lib_err,
-            bound_ms=bound, bound_by=bound_by,
-            bytes=nbytes, flops=flops)
-        bwd_levels.append(row)
-        emit("bwd_timings", **row)
+            row = dict(kernel=which + "_pyramid", config=cfg_name,
+                       levels=[list(v.shape) for v in levels],
+                       dtype=str(dtype).replace("torch.", ""),
+                       ms=cuda_ms(kernel, flush),
+                       plain_ms=cuda_ms(plain, flush),
+                       bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                       flops=flops,
+                       levels_ms_sum=sum(r["ms"] for r in rows),
+                       library_levels_ms_sum=sum(r["library_ms"]
+                                                 for r in rows))
+            pyramid_rows[which, cfg_name] = row
+            per_level += rows
+            emit("timings" if which == "fwd" else "bwd_timings", **row)
+            del levels, center, ct
 
     # fused_corr and alt_corr: each forward as the main paths run it (one
     # launch for the four levels: fused_corr's at the hires frame and the
@@ -1642,11 +1752,7 @@ def main():
         emit("fused_lookup_timings", kernel=which, **row)
         del yard, levels, coords, ct
 
-    # kernels line: per-launch means over the levels each kernel runs at on
-    # its main path (the default forward's four, the training step's four)
-    dflt = [r for r in per_level if r["config"] == "default"]
-    train_fwd = [r for r in per_level if r["config"] == "train"]
-
+    # kernels line: per launch as each kernel's main path launches it
     def mean(rows, key):
         return sum(r[key] for r in rows) / len(rows)
 
@@ -1655,34 +1761,55 @@ def main():
 
     def smooth(rows):
         return [r for r in rows if r["field"] == "smooth"]
+
+    def levels_of(which, cfg_name):
+        return [r for r in per_level
+                if (r["kernel"], r["config"]) == (which, cfg_name)]
+    ws_fwd, ws_bwd = pyramid_rows["fwd", "default"], pyramid_rows[
+        "bwd", "train"]
     print(json.dumps({"kernels": [{
         "name": ws_mod.KERNEL_NAME, "route": "cuda",
         "source": ws_mod.SOURCE, "replaces": ws_mod.REPLACES,
         "launches": main["default"]["launches"],
         "launches_realtime": main["realtime"]["launches"],
         "launches_train_step": train["launches_fwd"],
-        "max_abs_err": max_err,
-        "ms": mean(dflt, "ms"), "plain_ms": mean(dflt, "plain_ms"),
-        "bound_ms": mean(dflt, "bound_ms"), "bound_by": dflt[0]["bound_by"],
-        "library_ms": mean(dflt, "library_ms"),
-        "ms_train": mean(train_fwd, "ms"),
-        "bound_ms_train": mean(train_fwd, "bound_ms"),
-        "timed_at": "mean per launch over the default path's 4 levels "
-                    "(1,96,312,{312,156,78,39}) fp32, L2 flushed; _train: "
-                    "the train step's 4 levels (8,80,180,{180,90,45,22}) "
-                    "bf16",
+        "max_abs_err": max(max_err, ws_err["fwd"]),
+        "ms": ws_fwd["ms"], "plain_ms": ws_fwd["plain_ms"],
+        "bound_ms": ws_fwd["bound_ms"], "bound_by": ws_fwd["bound_by"],
+        "library_ms": None,
+        "yardstick_ms": ws_fwd["library_levels_ms_sum"],
+        "yardstick": "four F.grid_sample calls, one a level; no single "
+                     "PyTorch call computes the four-level lookup",
+        "ms_levels_one_each": [r["ms"] for r in levels_of("fwd",
+                                                          "default")],
+        "library_ms_levels": [r["library_ms"] for r in levels_of(
+            "fwd", "default")],
+        "ms_realtime": pyramid_rows["fwd", "realtime"]["ms"],
+        "bound_ms_realtime": pyramid_rows["fwd", "realtime"]["bound_ms"],
+        "ms_train": pyramid_rows["fwd", "train"]["ms"],
+        "bound_ms_train": pyramid_rows["fwd", "train"]["bound_ms"],
+        "timed_at": "per launch: one launch for the default path's 4 levels "
+                    "(1,96,312,{312,156,78,39}) fp32, L2 flushed; "
+                    "_realtime: (1,48,156,{156,78,39,19}) bf16; _train: "
+                    "(8,80,180,{180,90,45,22}) bf16",
     }, {
         "name": ws_mod.KERNEL_NAME + "_bwd", "route": "cuda",
         "source": ws_mod.SOURCE, "replaces": ws_mod.REPLACES_BWD,
         "launches": train["launches_bwd"],
-        "max_abs_err": bwd_err,
-        "ms": mean(bwd_levels, "ms"), "plain_ms": mean(bwd_levels,
-                                                       "plain_ms"),
-        "bound_ms": mean(bwd_levels, "bound_ms"),
-        "bound_by": bwd_levels[0]["bound_by"],
-        "library_ms": mean(bwd_levels, "library_ms"),
-        "timed_at": "mean per launch over the training step's 4 levels "
-                    "(8,80,180,{180,90,45,22}) bf16, L2 flushed",
+        "max_abs_err": max(bwd_err, ws_err["dvol"], ws_err["dcoords"]),
+        "ms": ws_bwd["ms"], "plain_ms": ws_bwd["plain_ms"],
+        "bound_ms": ws_bwd["bound_ms"], "bound_by": ws_bwd["bound_by"],
+        "library_ms": None,
+        "yardstick_ms": ws_bwd["library_levels_ms_sum"],
+        "yardstick": "four F.grid_sample backwards (torch.autograd.grad), "
+                     "one a level; no single PyTorch call computes the "
+                     "four levels' dvol",
+        "ms_levels_one_each": [r["ms"] for r in levels_of("bwd", "train")],
+        "library_ms_levels": [r["library_ms"] for r in levels_of(
+            "bwd", "train")],
+        "timed_at": "per launch: one launch for the training step's 4 "
+                    "levels (8,80,180,{180,90,45,22}) bf16, dvol only, L2 "
+                    "flushed",
     }] + [{
         "name": fc.KERNEL_NAME + suffix, "route": "cuda",
         "source": fc.SOURCE, "replaces": replaces,

@@ -66,11 +66,13 @@
 //   shared memory, adds the tile to its dk/db partial, which stays in
 //   registers across the block's tiles, computes dcorr[q][c] (4 x 4
 //   register tiles, ascending over o), and writes each level's dvol rows of
-//   the tile, one contiguous run of P x W2_l elements: each warp fills
-//   768-byte pieces of the run in shared memory (zeros, then the dg values of the
-//   windows that meet the piece) and one lane writes each piece with a bulk
-//   copy (cp.async.bulk, the Tensor Memory Accelerator), so the stores
-//   drain while the block goes on to its next tile. Every element is
+//   the tile, one contiguous run of P x W2_l elements (the writer of
+//   csrc/dvol_writer.cuh, shared with windowed_sample's backward): each
+//   warp fills 768-byte pieces of the run in shared memory (zeros, then
+//   the dg values of the windows that meet the piece) and one lane writes
+//   each piece with a bulk copy (cp.async.bulk, the Tensor Memory
+//   Accelerator), so the stores drain while the block goes on to its next
+//   tile. Every element is
 //   written once: no memset, no atomics. Row C of corr_s holds 1 for every
 //   pixel, so the product's row C is db. One partial per block goes to
 //   scratch; a second kernel sums the blocks' partials in a fixed order, so
@@ -94,11 +96,10 @@
 
 #include <type_traits>
 
-#include "window.cuh"
+#include "dvol_writer.cuh"
 
 namespace {
 
-constexpr int kLevels = 4;
 constexpr int kCo = 64;                     // convc1's output channels
 constexpr int kMaxFwdThreads = 256;         // 64 pixels a forward tile
 constexpr int kBwdTile = 64;                // pixels a backward tile
@@ -106,18 +107,7 @@ constexpr int kBwdLog2 = 6;
 constexpr int kBwdThreads = 4 * kBwdTile;   // 8 warps
 constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kCorrStride = kBwdTile + 8;   // backward corr_s row: conflict-free mma loads
-constexpr int kPiece = 768;                 // bytes of dvol a warp writes with one bulk copy
 constexpr unsigned kFull = 0xffffffffu;
-
-// The pyramid's levels and widths, and their gradients, passed by value.
-struct Levels {
-  const void* vol[kLevels];
-  int w2[kLevels];
-};
-
-struct GradLevels {
-  void* dvol[kLevels];
-};
 
 // Sizes of one radius' arrays, in floats.
 template <int R>
@@ -157,21 +147,6 @@ __device__ __forceinline__ float round_to(float v) {
 
 // torch.relu: max(v, 0), NaN kept.
 __device__ __forceinline__ float relu(float v) { return (v > 0.0f || isnan(v)) ? v : 0.0f; }
-
-__device__ __forceinline__ int level_width(const Levels& lv, int l) {
-  return l == 0 ? lv.w2[0] : l == 1 ? lv.w2[1] : l == 2 ? lv.w2[2] : lv.w2[3];
-}
-
-__device__ __forceinline__ const void* level_volume(const Levels& lv, int l) {
-  return l == 0 ? lv.vol[0] : l == 1 ? lv.vol[1] : l == 2 ? lv.vol[2] : lv.vol[3];
-}
-
-// level l's window around the level-0 center x: base (frac in *f); x / 2^l
-// is exact as a product with 2^-l
-template <int R>
-__device__ __forceinline__ int level_window(float x, int l, int w2, float* f) {
-  return window_base(__fmul_rn(x, __int_as_float((127 - l) << 23)), w2, R, f);
-}
 
 // corr_s[c][q] (rows cs floats apart) for the tile's pixels p0 + q, q < P,
 // by threads tid of nthreads = 4 P. Item (l, q, k) of the 4 P K
@@ -439,116 +414,6 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
   v[3] = __uint_as_float(u.y & 0xffff0000u);
 }
 
-// Bulk copies (the Tensor Memory Accelerator) from shared to device memory,
-// in groups a thread commits: wait_read1 returns once all but the newest of
-// its groups have read their source, wait_all once all are written.
-__device__ __forceinline__ void bulk_store(void* dst, const void* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(src));
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-               "r"(s), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait_read1() {
-  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-// orders this thread's shared-memory writes before later bulk copies' reads
-__device__ __forceinline__ void fence_shared_to_bulk() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// The gradient of tap j in [0, 2r+1] of pixel q's level-l window: dg_j =
-// (1 - f) dcorr_j + f dcorr_{j-1} (dcorr 0 outside [0, 2r]), each
-// operation rounded as the plain version's window_grads.
-template <int R>
-__device__ __forceinline__ float tap_grad(int q, int l, int j, const float* frac_s,
-                                          const float* dcorr_s) {
-  constexpr int K = Dims<R>::K;
-  const float f = frac_s[l * kBwdTile + q];
-  const float* dc = dcorr_s + q * Dims<R>::C + l * K;
-  const float ct_j = j < K ? dc[j] : 0.0f;
-  const float ct_prev = j > 0 ? dc[j - 1] : 0.0f;
-  return __fadd_rn(__fmul_rn(1.0f - f, ct_j), __fmul_rn(f, ct_prev));
-}
-
-// Element e of level l's dvol run (pixel q = e / w2 of the tile): tap_grad
-// where x = e mod w2 is in the window, else 0.
-template <int R>
-__device__ __forceinline__ float dvol_value(int e, int w2, int l, const int* base_s,
-                                            const float* frac_s, const float* dcorr_s) {
-  const int q = e / w2, j = e - q * w2 - base_s[l * kBwdTile + q];
-  return j < 0 || j > Dims<R>::K ? 0.0f : tap_grad<R>(q, l, j, frac_s, dcorr_s);
-}
-
-// piece[0, n) = elements [s0, s0 + n) of level l's dvol run, by one warp:
-// zeros, 16 bytes a lane, then the dg values of every window that meets the
-// piece (the rows q0..q1 it spans, 2r+2 values each).
-template <typename T, int R>
-__device__ __forceinline__ void fill_piece(T* piece, int s0, int n, int w2, int n_valid, int l,
-                                           const int* base_s, const float* frac_s,
-                                           const float* dcorr_s, int lane) {
-  constexpr int K = Dims<R>::K, V = V16<T>::n, P = kBwdTile;
-  for (int e = lane * V; e < n; e += 32 * V)
-    *reinterpret_cast<uint4*>(piece + e) = make_uint4(0u, 0u, 0u, 0u);
-  __syncwarp();
-  const int q0 = s0 / w2, q1 = min((s0 + n - 1) / w2, n_valid - 1);
-  for (int it = lane; it < (q1 - q0 + 1) * (K + 1); it += 32) {
-    const int r = it / (K + 1), j = it - r * (K + 1);
-    const int q = q0 + r;
-    const int x = base_s[l * P + q] + j;
-    const int e = q * w2 + x - s0;
-    if (x >= 0 && x < w2 && e >= 0 && e < n)
-      piece[e] = from_float(tap_grad<R>(q, l, j, frac_s, dcorr_s), (T*)nullptr);
-  }
-}
-
-// Each level's dvol rows of the tile: one contiguous run of n_valid * W2_l
-// elements, every one written once (zeros included; no memset, no
-// atomics). Warp w fills pieces w, w + 8, ... of kPiece bytes of the run in
-// shared memory (fill_piece) and one lane writes each with a bulk copy, two
-// pieces in flight a warp; the copies drain while the block goes on to its
-// next tile. The run's last elements that do not fill 16 bytes, and a run
-// that does not start 16-byte aligned, are stored directly.
-template <typename T, int R>
-__device__ __forceinline__ void write_dvol(const Levels& lv, const GradLevels& glv, int64_t p0,
-                                           int n_valid, const int* base_s, const float* frac_s,
-                                           const float* dcorr_s, unsigned char* pieces,
-                                           int& n_pieces) {
-  constexpr int V = V16<T>::n, EP = kPiece / (int)sizeof(T);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned char* mine = pieces + warp * 2 * kPiece;
-#pragma unroll
-  for (int l = 0; l < kLevels; ++l) {
-    const int w2 = lv.w2[l];
-    T* run = static_cast<T*>(glv.dvol[l]) + p0 * (int64_t)w2;
-    const int n_el = n_valid * w2;
-    const int n_bulk = aligned16(run) ? n_el / V * V : 0;
-    for (int s0 = warp * EP; s0 < n_bulk; s0 += kBwdWarps * EP) {
-      T* piece = reinterpret_cast<T*>(mine + (n_pieces & 1) * kPiece);
-      if (n_pieces >= 2) {  // the piece's buffer was copied from two pieces ago
-        if (lane == 0) bulk_wait_read1();
-        __syncwarp();
-      }
-      const int n = min(EP, n_bulk - s0);
-      fill_piece<T, R>(piece, s0, n, w2, n_valid, l, base_s, frac_s, dcorr_s, lane);
-      fence_shared_to_bulk();
-      __syncwarp();
-      if (lane == 0) {
-        bulk_store(run + s0, piece, n * (int)sizeof(T));
-        bulk_commit();
-      }
-      ++n_pieces;
-    }
-    for (int e = n_bulk + threadIdx.x; e < n_el; e += kBwdThreads)
-      run[e] = from_float(dvol_value<R>(e, w2, l, base_s, frac_s, dcorr_s), (T*)nullptr);
-  }
-}
-
 template <typename T, typename DT, int R>
 __global__ void __launch_bounds__(kBwdThreads, 3)
     fused_lookup_bwd_kernel(Levels lv, GradLevels glv, const float* __restrict__ coords,
@@ -644,7 +509,8 @@ __global__ void __launch_bounds__(kBwdThreads, 3)
             make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
     }
     __syncthreads();
-    write_dvol<T, R>(lv, glv, p0, n_valid, base_s, frac_s, dcorr_s, pieces, n_pieces);
+    write_dvol<T, R, P, kBwdWarps>(lv, glv, p0, n_valid, base_s, frac_s, dcorr_s, pieces,
+                                   n_pieces);
   }
   dk.store(partials + (int64_t)blockIdx.x * D::PART);
   if ((tid & 31) == 0) bulk_wait_all();  // this warp's copies are written and its pieces free
@@ -664,13 +530,6 @@ __global__ void fused_lookup_reduce_kernel(const float* __restrict__ partials,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc = __fadd_rn(acc, __shfl_xor_sync(kFull, acc, off));
   if (lane == 0) out[e] = acc;
-}
-
-inline cudaError_t sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 // The forward's tile: 64 pixels (256 threads), or 32 or 16 where fewer
@@ -761,15 +620,6 @@ int dispatch_grid(int64_t n_pix, int radius, int* grid) {
 #define CALL(R) bwd_grid<T, DT, R>(n_pix, grid)
   RADIUS_DISPATCH(radius, CALL)
 #undef CALL
-}
-
-Levels make_levels(const void* const* vols, const int* w2s) {
-  Levels lv;
-  for (int l = 0; l < kLevels; ++l) {
-    lv.vol[l] = vols[l];
-    lv.w2[l] = w2s[l];
-  }
-  return lv;
 }
 
 }  // namespace

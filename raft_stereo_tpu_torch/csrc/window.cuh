@@ -1,8 +1,8 @@
 // Helpers shared by the port's lookup kernels (windowed_sample, fused_corr,
 // alt_corr, fused_lookup): loads and stores in the tensor's dtype, 16-byte
 // feature chunks and asynchronous copies, the window's base, the taps'
-// gradient and the dispatch of a radius onto its compile-time
-// instantiation.
+// gradient, the volume pyramid's descriptor and the dispatch of a radius
+// onto its compile-time instantiation.
 //
 // Every kernel must compute window_base bit for bit alike (their results are
 // compared with each other and with the plain PyTorch versions), so it lives
@@ -79,6 +79,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
+// One 4-byte asynchronous copy (cp.async.ca: any 4-byte aligned address).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::);  // all but the newest group
@@ -128,6 +133,56 @@ __device__ __forceinline__ void store16(T* row, int first, int d, bool vec, cons
 #pragma unroll
   for (int e = 0; e < V; ++e)
     if (first + e < d) row[first + e] = from_float(x[e], (T*)nullptr);
+}
+
+// ------------------------------------------------- the volume pyramid
+//
+// windowed_sample and fused_lookup take the reg pyramid's levels (n_pix,
+// W2_l) in one launch; level l is looked up around the level-0 center
+// scaled by 2^-l.
+
+constexpr int kLevels = 4;  // the most levels a launch takes
+
+// The pyramid's levels and widths, and their gradients, passed by value;
+// a level past the pyramid has width 0 and no volume.
+struct Levels {
+  const void* vol[kLevels];
+  int w2[kLevels];
+};
+
+struct GradLevels {
+  void* dvol[kLevels];
+};
+
+inline Levels make_levels(const void* const* vols, const int* w2s, int n_levels = kLevels) {
+  Levels lv;
+  for (int l = 0; l < kLevels; ++l) {
+    lv.vol[l] = l < n_levels ? vols[l] : nullptr;
+    lv.w2[l] = l < n_levels ? w2s[l] : 0;
+  }
+  return lv;
+}
+
+__device__ __forceinline__ int level_width(const Levels& lv, int l) {
+  return l == 0 ? lv.w2[0] : l == 1 ? lv.w2[1] : l == 2 ? lv.w2[2] : lv.w2[3];
+}
+
+__device__ __forceinline__ const void* level_volume(const Levels& lv, int l) {
+  return l == 0 ? lv.vol[0] : l == 1 ? lv.vol[1] : l == 2 ? lv.vol[2] : lv.vol[3];
+}
+
+// level l's window around the level-0 center x: base (frac in *f); x / 2^l
+// is exact as a product with 2^-l
+template <int R>
+__device__ __forceinline__ int level_window(float x, int l, int w2, float* f) {
+  return window_base(__fmul_rn(x, __int_as_float((127 - l) << 23)), w2, R, f);
+}
+
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 }  // namespace

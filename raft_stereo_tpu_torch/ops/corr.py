@@ -7,7 +7,8 @@ current disparity coordinates. Five implementations are registered:
 * ``reg`` — the all-pairs volume ``(B, H, W1, W2)``, pooled into a pyramid
   along W2; the lookup is plain PyTorch (``ops/sampler.py``).
 * ``reg_pallas`` (``reg_cuda`` on the reference's command line) — the same
-  pyramid, looked up by the hand-written ``windowed_sample`` CUDA kernel.
+  pyramid, looked up by the hand-written ``windowed_sample`` CUDA kernels:
+  one forward launch for the four levels, and one backward launch.
 * ``alt`` — no persistent volume: the state is ``fmap1`` and a pyramid of
   ``fmap2`` pooled along W; each lookup recomputes every level's volume
   with ``torch.matmul`` and samples its window (plain PyTorch).
@@ -37,7 +38,8 @@ from raft_stereo_tpu_torch.ops.geometry import pool_last_axis2, pool_w2
 from raft_stereo_tpu_torch.ops.kernels.alt_corr import alt_corr_pyramid
 from raft_stereo_tpu_torch.ops.kernels.fused_corr import (MAX_LEVELS,
                                                           fused_corr_pyramid)
-from raft_stereo_tpu_torch.ops.kernels.windowed_sample import windowed_sample
+from raft_stereo_tpu_torch.ops.kernels.windowed_sample import \
+    windowed_sample_pyramid
 from raft_stereo_tpu_torch.ops.sampler import windowed_linear_sample
 
 
@@ -104,16 +106,32 @@ def _lookup_alt(state: CorrState, coords_x: torch.Tensor) -> torch.Tensor:
     return torch.cat(out, dim=-1)
 
 
+def _by_chunks(state: CorrState, coords_x: torch.Tensor,
+               lookup_levels: Callable) -> torch.Tensor:
+    """``lookup_levels(levels, center)`` (one launch) per MAX_LEVELS levels
+    of ``state``, its first level ``i`` at ``center = coords_x / 2**i``,
+    concatenated in the ``reg`` channel order."""
+    out = [lookup_levels(state.levels[i:i + MAX_LEVELS],
+                         coords_x if i == 0 else coords_x / (2 ** i))
+           for i in range(0, len(state.levels), MAX_LEVELS)]
+    return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
+
+
 def _lookup_pyramid(corr_pyramid: Callable) -> Callable:
     def lookup(state: CorrState, coords_x: torch.Tensor) -> torch.Tensor:
         """One ``corr_pyramid`` call (one forward launch) per MAX_LEVELS
-        levels, level ``i`` at ``coords_x / 2**i``, in the ``reg`` channel
-        order."""
-        out = [corr_pyramid(state.fmap1, state.levels[i:i + MAX_LEVELS],
-                            coords_x / (2 ** i), state.radius)
-               for i in range(0, len(state.levels), MAX_LEVELS)]
-        return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
+        levels of the feature pyramid."""
+        return _by_chunks(state, coords_x, lambda levels, c: corr_pyramid(
+            state.fmap1, levels, c, state.radius))
     return lookup
+
+
+def _lookup_volume_pyramid(state: CorrState,
+                           coords_x: torch.Tensor) -> torch.Tensor:
+    """One ``windowed_sample_pyramid`` call (one forward launch) per
+    MAX_LEVELS levels of the volume pyramid."""
+    return _by_chunks(state, coords_x, lambda levels, c:
+                      windowed_sample_pyramid(levels, c, state.radius))
 
 
 def _lookup_with(sample: Callable) -> Callable:
@@ -143,7 +161,7 @@ def register_corr(name: str, builder: Callable, lookup: Callable) -> None:
 
 register_corr("reg", _build_reg, _lookup_with(windowed_linear_sample))
 register_corr("reg_pallas", functools.partial(_build_reg, impl="reg_pallas"),
-              _lookup_with(windowed_sample))
+              _lookup_volume_pyramid)
 register_corr("alt", functools.partial(_build_features, impl="alt"),
               _lookup_alt)
 register_corr("alt_pallas",

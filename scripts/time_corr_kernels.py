@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's fused_corr, alt_corr and fused_lookup kernels of one
-checkout on one NVIDIA GPU, on inputs that any checkout makes alike.
+"""Time the port's windowed_sample, fused_corr, alt_corr and fused_lookup
+kernels of one checkout on one NVIDIA GPU, on inputs that any checkout
+makes alike.
 
     python3 scripts/time_corr_kernels.py [--root DIR] [--label NAME]
-        [--kernels lookup_fwd,lookup_bwd]
+        [--kernels ws_fwd,ws_bwd,lookup_fwd,lookup_bwd]
 
 ``--root`` is the checkout whose ``raft_stereo_tpu_torch`` is imported (its
 kernels built from its own ``csrc/``; default: this one). Run it once per
@@ -27,6 +28,15 @@ before each launch, median of ``--reps``):
   level: ``sum_ms`` is what its lookup costs);
 * ``fused_bwd`` and ``alt_bwd``: each backward (df1 and df2) at the train
   levels;
+* ``ws_fwd`` and ``ws_bwd``: windowed_sample's forward and backward (dvol
+  only, as training runs it) at chip_smoke.py's ``LOOKUP_C1`` pyramids
+  (default fp32, realtime bf16, train bf16): each level on its own (the
+  one-level launch, level i around ``center / 2**i``; the backward's
+  cotangent a slice of the four levels' one), their sum, and, where the
+  checkout has ``windowed_sample_pyramid_forward`` /
+  ``windowed_sample_pyramid_backward``, the one launch for the four levels;
+  beside the backward, ``memset_ms``: a memset of the four dvols' bytes
+  (what writing them alone costs on this timer);
 * ``lookup_fwd`` and ``lookup_bwd``: fused_lookup's forward and backward,
   one launch for the four levels, at chip_smoke.py's three ``LOOKUP_C1``
   pyramids (default fp32, realtime bf16, train bf16), on the ``random`` and
@@ -77,8 +87,8 @@ def main() -> int:
     ap.add_argument("--label", default="change")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--fields", default="random,smooth,shared")
-    ap.add_argument("--kernels", default="fused_fwd,alt_fwd,fused_bwd,"
-                    "alt_bwd,lookup_fwd,lookup_bwd")
+    ap.add_argument("--kernels", default="ws_fwd,ws_bwd,fused_fwd,alt_fwd,"
+                    "fused_bwd,alt_bwd,lookup_fwd,lookup_bwd")
     args = ap.parse_args()
     wanted = set(args.kernels.split(","))
 
@@ -91,6 +101,7 @@ def main() -> int:
     from raft_stereo_tpu_torch.ops.kernels import alt_corr as ac
     from raft_stereo_tpu_torch.ops.kernels import fused_corr as fc
     from raft_stereo_tpu_torch.ops.kernels import fused_lookup as fl
+    from raft_stereo_tpu_torch.ops.kernels import windowed_sample as ws
     assert os.path.dirname(fc.__file__).startswith(
         os.path.abspath(args.root)), fc.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -98,10 +109,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
+    ws_kernels, lookup_kernels = {"ws_fwd", "ws_bwd"}, {"lookup_fwd",
+                                                        "lookup_bwd"}
     _build.build_all(
         ([fc.KERNEL_NAME, ac.KERNEL_NAME]
-         if wanted - {"lookup_fwd", "lookup_bwd"} else [])
-        + ([fl.KERNEL_NAME] if wanted & {"lookup_fwd", "lookup_bwd"} else []))
+         if wanted - ws_kernels - lookup_kernels else [])
+        + ([ws.KERNEL_NAME] if wanted & ws_kernels else [])
+        + ([fl.KERNEL_NAME] if wanted & lookup_kernels else []))
     print(json.dumps({"label": args.label, "root": args.root,
                       "nvidia_smi": smi, "torch": torch.__version__}),
           flush=True)
@@ -157,10 +171,59 @@ def main() -> int:
                 emit(**row)
         del f1, levels, ct
 
-    # fused_lookup: one launch for the four levels, forward and backward
     fields = [f for f in args.fields.split(",") if f in ("random", "smooth")]
+    # windowed_sample: each level on its own and, where the checkout has
+    # it, the one launch for the four levels
+    k = 2 * RADIUS + 1
+    ws_pyramid = {"ws_fwd": getattr(ws, "windowed_sample_pyramid_forward",
+                                    None),
+                  "ws_bwd": getattr(ws, "windowed_sample_pyramid_backward",
+                                    None)}
+    for cfg_name, (vname, _, (b, h, w1, w2)) in chip_smoke.LOOKUP_C1.items():
+        if not wanted & ws_kernels:
+            break
+        dt = getattr(torch, vname)
+        g = torch.Generator(device=dev).manual_seed(17)
+        levels = [torch.randn((b, h, w1, w2 >> i), generator=g,
+                              device=dev).to(dt) for i in range(4)]
+        gt = torch.Generator(device=dev).manual_seed(19)
+        ct = torch.randn((b, h, w1, 4 * k), generator=gt, device=dev)
+        for field in fields:
+            gc = torch.Generator(device=dev).manual_seed(11)
+            c0 = centers(field, b, h, w1, w2, gc, dev)
+            cs = [(c0 / (2 ** i)).contiguous() for i in range(4)]
+            for kernel in ("ws_fwd", "ws_bwd"):
+                if kernel not in wanted:
+                    continue
+                if kernel == "ws_fwd":
+                    per = [ms(lambda v=v, c=c: ws.windowed_sample_forward(
+                        v, c, RADIUS)) for v, c in zip(levels, cs)]
+                    one = lambda fn=ws_pyramid[kernel]: fn(  # noqa: E731
+                        levels, c0, RADIUS)
+                else:
+                    per = [ms(lambda v=v, c=c, i=i:
+                              ws.windowed_sample_backward(
+                                  v, c, ct[..., i * k:(i + 1) * k], RADIUS,
+                                  need_dcoords=False))
+                           for i, (v, c) in enumerate(zip(levels, cs))]
+                    one = lambda fn=ws_pyramid[kernel]: fn(  # noqa: E731
+                        levels, c0, ct, RADIUS, need_dcoords=False)
+                row = dict(kernel=kernel, config=cfg_name, field=field,
+                           dtype=vname, per_level_ms=per, sum_ms=sum(per))
+                if ws_pyramid[kernel] is not None:
+                    row["one_launch_ms"] = ms(one)
+                if kernel == "ws_bwd":  # the dvols' bytes zeroed: writes alone
+                    zeros = torch.empty(sum(v.numel() * v.element_size()
+                                            for v in levels),
+                                        dtype=torch.uint8, device=dev)
+                    row["memset_ms"] = ms(zeros.zero_)
+                    del zeros
+                emit(**row)
+        del levels, ct
+
+    # fused_lookup: one launch for the four levels, forward and backward
     for cfg_name, (vname, dname, shape) in chip_smoke.LOOKUP_C1.items():
-        if not wanted & {"lookup_fwd", "lookup_bwd"}:
+        if not wanted & lookup_kernels:
             break
         dt = getattr(torch, dname)
         levels, coords, kern, bias = chip_smoke.lookup_c1_inputs(

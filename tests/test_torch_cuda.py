@@ -18,6 +18,7 @@ import torch
 
 from raft_stereo_tpu_torch.config import RAFTStereoConfig
 from raft_stereo_tpu_torch.models import RAFTStereo, init_weights
+from raft_stereo_tpu_torch.ops.kernels import windowed_sample as ws
 from raft_stereo_tpu_torch.ops.kernels.windowed_sample import (
     windowed_sample, windowed_sample_backward, windowed_sample_backward_plain,
     windowed_sample_plain)
@@ -112,7 +113,8 @@ def test_model_kernel_matches_plain_lookup(cuda):
     with torch.inference_mode():
         lo_k, up_k = model_k(left, right, iters=5)
         lo_p, up_p = model_p(left, right, iters=5)
-    assert windowed_sample.launches == 4 * 5
+    # one launch for the four levels an iteration
+    assert windowed_sample.launches == 5
     assert (up_k - up_p).abs().max().item() <= 1e-5
 
 
@@ -237,8 +239,10 @@ def test_model_train_kernels_match_plain_lookup(cuda, mixed):
                  "valid": torch.ones((2, 64, 128), device=cuda)}
         windowed_sample.launches = windowed_sample.bwd_launches = 0
         loss_k, _, grads_k = loss_and_grads(model_k, batch, 3)
+        # one forward launch for the four levels an iteration (and its
+        # remat recompute), one backward launch
         assert (windowed_sample.launches, windowed_sample.bwd_launches) == (
-            2 * 4 * 3, 4 * 3)
+            2 * 3, 3)
         _, _, again = loss_and_grads(model_k, batch, 3)
         loss_p, _, grads_p = loss_and_grads(model_p, batch, 3)
     finally:
@@ -1076,3 +1080,147 @@ def test_fused_lookup_model_train_step_matches_reg(cuda, impl):
     # a 1/4-resolution grid 16x96: pyramid widths 96/48/24/12, all > 2r+2
     _model_step_matches_reg(cuda, impl, fl.fused_lookup_c1,
                             (2 * 3, 3), fused_lookup=True)
+
+
+# ---------------------------------------------- windowed_sample_pyramid
+
+# (volume dtype, (B, H, W1, level-0 W2)): the default, realtime and train
+# pyramids, and ragged or odd ones (tiles that do not fill, levels down to
+# W2 <= 2r+2, W1 != W2)
+WS_PYRAMIDS = [(torch.float32, (1, 96, 312, 312)),
+               (torch.bfloat16, (1, 48, 156, 156)),
+               (torch.bfloat16, (8, 80, 180, 180)),
+               (torch.float32, (1, 3, 37, 37)),
+               (torch.bfloat16, (2, 5, 15, 15)),
+               (torch.float32, (1, 7, 50, 23)),
+               (torch.bfloat16, (3, 1, 65, 130))]
+
+
+def _ws_pyramid_inputs(dtype, shape, n, device, radius=R, seed=0):
+    b, h, w1, w2 = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    levels = [torch.randn((b, h, w1, w2 >> i), generator=g,
+                          device=device).to(dtype) for i in range(n)]
+    center = (torch.rand((b, h, w1), generator=g, device=device)
+              * (w2 + 4 * radius + 4) - 2 * radius - 2)
+    edge = [0.0, -1.0, float(w2 - 1), float(w2), 1e9, -1e9, float("nan"),
+            0.999999, -radius - 0.5]
+    center.view(-1)[:len(edge)] = torch.tensor(edge, device=device)
+    ct = torch.randn((b, h, w1, n * (2 * radius + 1)), generator=g,
+                     device=device)
+    return levels, center, ct
+
+
+def _ws_pyramid_check(levels, center, ct, radius):
+    """The pyramid kernels against their plain versions: forward and every
+    dvol bitwise equal (NaN patterns included), dcoords within 1e-5, two
+    runs bitwise equal, one launch a call each way."""
+    before = (ws.windowed_sample.launches, ws.windowed_sample.bwd_launches)
+    out = ws.windowed_sample_pyramid_forward(levels, center, radius)
+    again = ws.windowed_sample_pyramid_forward(levels, center, radius)
+    dvols, dc = ws.windowed_sample_pyramid_backward(levels, center, ct,
+                                                    radius)
+    dvols2, dc2 = ws.windowed_sample_pyramid_backward(levels, center, ct,
+                                                      radius)
+    torch.cuda.synchronize()
+    assert (ws.windowed_sample.launches, ws.windowed_sample.bwd_launches) \
+        == (before[0] + 2, before[1] + 2)
+    want = ws.windowed_sample_pyramid_plain(levels, center, radius)
+    want_dvols, want_dc = ws.windowed_sample_pyramid_backward_plain(
+        levels, center, ct, radius)
+    assert out.shape == want.shape and _same(out, want) and _same(out, again)
+    assert bool(torch.isnan(out).any())
+    k = 2 * radius + 1
+    assert bool((out.view(-1, len(levels) * k)[4:6] == 0).all())
+    for v, dv, dv2, wdv in zip(levels, dvols, dvols2, want_dvols):
+        assert dv.dtype == v.dtype and dv.shape == v.shape
+        assert _same(dv, wdv) and _same(dv, dv2)
+        assert bool((dv.view(-1, v.shape[-1])[4:6] == 0).all())
+    assert _same(dc, dc2)
+    nan = torch.isnan(want_dc)
+    assert torch.equal(torch.isnan(dc), nan)
+    assert (dc - want_dc)[~nan].abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,shape", WS_PYRAMIDS)
+def test_ws_pyramid_kernels_bitwise_plain(cuda, dtype, shape):
+    _ws_pyramid_check(*_ws_pyramid_inputs(dtype, shape, 4, cuda), R)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("dtype,shape", [WS_PYRAMIDS[2], WS_PYRAMIDS[3]])
+def test_ws_pyramid_fewer_levels(cuda, dtype, shape, n):
+    _ws_pyramid_check(*_ws_pyramid_inputs(dtype, shape, n, cuda), R)
+
+
+@pytest.mark.parametrize("radius", [0, 1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ws_pyramid_other_radii(cuda, dtype, radius):
+    _ws_pyramid_check(*_ws_pyramid_inputs(dtype, (2, 6, 70, 70), 4, cuda,
+                                          radius=radius), radius)
+
+
+def test_ws_pyramid_equals_one_level_launches(cuda):
+    levels, center, ct = _ws_pyramid_inputs(torch.bfloat16, (8, 80, 180, 180),
+                                            4, cuda)
+    out = ws.windowed_sample_pyramid_forward(levels, center, R)
+    dvols, _ = ws.windowed_sample_pyramid_backward(levels, center, ct, R,
+                                                   need_dcoords=False)
+    k = 2 * R + 1
+    ones = torch.cat([ws.windowed_sample_forward(v, center / 2 ** i, R)
+                      for i, v in enumerate(levels)], dim=-1)
+    assert _same(out, ones)
+    for i, (v, dv) in enumerate(zip(levels, dvols)):
+        one, _ = ws.windowed_sample_backward(
+            v, center / 2 ** i, ct[..., i * k:(i + 1) * k], R,
+            need_dcoords=False)
+        assert _same(dv, one)
+
+
+def test_ws_pyramid_autograd_launches(cuda):
+    levels, center, ct = _ws_pyramid_inputs(torch.float32, (1, 4, 32, 32), 4,
+                                            cuda)
+    levels = [v.requires_grad_() for v in levels]
+    center = center.nan_to_num(0.0)
+    before = (ws.windowed_sample.launches, ws.windowed_sample.bwd_launches)
+    out = ws.windowed_sample_pyramid(levels, center, R)
+    grads = torch.autograd.grad(out, levels, ct)
+    assert (ws.windowed_sample.launches, ws.windowed_sample.bwd_launches) \
+        == (before[0] + 1, before[1] + 1)
+    want, _ = ws.windowed_sample_pyramid_backward_plain(
+        [v.detach() for v in levels], center, ct, R)
+    assert all(_same(a, b) for a, b in zip(grads, want))
+    # the center's gradient only where asked for, from the same launch
+    c = center.clone().requires_grad_()
+    out = ws.windowed_sample_pyramid([v.detach() for v in levels], c, R)
+    (dc,) = torch.autograd.grad(out, (c,), ct)
+    _, want_dc = ws.windowed_sample_pyramid_backward_plain(levels, center,
+                                                           ct, R)
+    assert (dc - want_dc).abs().max().item() <= 1e-5
+
+
+def test_ws_pyramid_refuses_bad_inputs(cuda):
+    levels, center, _ = _ws_pyramid_inputs(torch.float32, (1, 2, 16, 16), 4,
+                                           cuda)
+    with pytest.raises(ValueError, match="5 levels"):
+        ws.windowed_sample_pyramid(levels + levels[:1], center, R)
+    with pytest.raises(TypeError, match="not all float32"):
+        ws.windowed_sample_pyramid([levels[0], levels[1].bfloat16()], center,
+                                   R)
+    with pytest.raises(ValueError, match="want volumes"):
+        ws.windowed_sample_pyramid([levels[0], levels[1][:, :1].contiguous()],
+                                   center, R)
+    with pytest.raises(ValueError, match="want volumes"):
+        ws.windowed_sample_pyramid(
+            [levels[0], levels[1][..., :15, :].contiguous()], center, R)
+    strided = levels[1].transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ws.windowed_sample_pyramid_forward([levels[0], strided], center, R)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ws.windowed_sample_pyramid_forward([levels[0], levels[1].cpu()],
+                                           center, R)
+    with pytest.raises(ValueError, match="radius"):
+        ws.windowed_sample_pyramid(levels, center, 9)
+    with pytest.raises(ValueError, match="cotangent"):
+        ws.windowed_sample_pyramid_backward(
+            levels, center, torch.zeros((1, 2, 16, 9), device=cuda), R)
