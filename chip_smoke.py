@@ -76,6 +76,35 @@ Phases, each reported as one JSON line, in the order they run:
    reg_cuda, alt_cuda and alt_pallas at 64x160 and with reg_cuda +
    fused_lookup at 64x352 (the narrowest pair whose pyramid the fused
    kernel takes). Bound: 1e-3 px on flow_up.
+11b. eval_kitti, eval_cli, eval_microbatch, eval_middlebury, eval_cpu —
+   the evaluation path on synthetic trees written by the port's png.py
+   (Paeth rows, as photographs are written) in a temporary directory,
+   seeded weights: eval_kitti runs validate_kitti over 42 KITTI frames (40
+   timed after the validator's warm-up) at 375x1242 (the
+   default architecture, reg_cuda, mixed precision as the eval entry point
+   sets it, 32 iterations, warmup_frames=1; PyTorch's TF32 defaults, as
+   the entry point leaves them) sequentially, streamed (window 3,
+   decoded in worker processes) and streamed with decode threads (the
+   alternative, measured): per-frame flows bitwise equal, the same EPE
+   and D1, kitti-fps and kitti-fps-e2e sequentially and kitti-fps-e2e
+   streamed, 32
+   windowed_sample launches a frame and none of the other kernels', an
+   events.jsonl each that passes the port's validate_events with one step
+   a frame and one validation; then a profiled streamed run gives the
+   card's idle share. eval_cli runs python3 -m
+   raft_stereo_tpu_torch.evaluate on the same tree and weights, streamed,
+   in a subprocess: exit 0 and the streamed run's EPE and D1.
+   eval_microbatch sends three of those frames through predict_async two
+   a dispatch (B1 at B=2), in bf16 and in fp32: 32 launches a dispatch, a
+   frame's flow bitwise independent of its partner and slot, B1 at B=2
+   bitwise equal to B=1, the first departure from batch 1 a rounding
+   difference from equal inputs (cuDNN's and PyTorch's kernel choices by
+   batch size), fp32 EPE within 1e-3 px of batch 1's.
+   eval_middlebury runs validate_middlebury (split F) on one 1988x2880
+   scene with alt_cuda in mixed precision: 32 fused_corr launches, the
+   EPE of StereoPredictor.__call__ on the same pair, ms per frame.
+   eval_cpu runs validate_eth3d on 2 frames at 64x128 (fp32 reg_cuda, 4
+   iterations) on the card and on the CPU: EPE within 1e-3 px.
 12. train — the SceneFlow recipe (sceneflow_config(): bf16 compute, bf16
    volume) with reg_cuda, batch 8 at 320x720, 22 iterations, through
    make_train_step on a seeded synthetic batch: a warm-up step, then timed
@@ -125,7 +154,10 @@ Phases, each reported as one JSON line, in the order they run:
    launch, bound, plain time and the unfused formulation (F.grid_sample
    x4, cat, a 1x1 conv, ReLU) as a yardstick.
 
-Then the kernels line and, last, {"ok": true, "device": {...}}. Any failed
+Then the kernels line; the decode pools' fork server is stopped and no
+process the script started (nor one started by those) may still be
+running: a leftover is killed and fails the run. Last, {"ok": true,
+"device": {...}}. Any failed
 check raises, and the script exits non-zero without that last line. It
 exits non-zero at once when torch.cuda is not available.
 """
@@ -137,6 +169,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 1234
@@ -169,6 +202,17 @@ WIDE_BWD_SHAPE = (1, 4, 4000, 4000, 256)
 LOOKUP_C1 = {"default": ("float32", "float32", (1, 96, 312, 312)),
              "realtime": ("bfloat16", "bfloat16", (1, 48, 156, 156)),
              "train": ("bfloat16", "bfloat16", (8, 80, 180, 180))}
+# the evaluation phases: KITTI frames, their size, their pairs' shift (the
+# disparity), iterations. validate_kitti times the frames after
+# warmup_frames=1 (frames 0 and 1 are its warm-up): 40 timed frames
+EVAL_FRAMES = 42
+EVAL_KITTI_HW = (375, 1242)
+EVAL_SHIFT = 12
+EVAL_ITERS = 32
+# batch 2 against batch 1: the first layer's departure, relative to its
+# output's largest magnitude, that rounding can make: four bf16 rounding
+# steps (one is at most 2^-7 of a value); a logic fault departs by O(1)
+DEPARTURE_REL = 2.0 ** -5
 
 
 def emit(phase, **fields):
@@ -178,6 +222,54 @@ def emit(phase, **fields):
 def check(cond, message):
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {message}")
+
+
+def live_processes():
+    """{pid: (ppid, session id, command)} of every process alive on the
+    machine (zombies, already exited, are left out), from /proc."""
+    procs = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:  # exited while we looked
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        if fields[0] != "Z":
+            procs[int(name)] = (int(fields[1]), int(fields[3]), cmd.strip())
+    return procs
+
+
+def stop_leftovers(procs, what):
+    """Kill the processes ``procs`` ({pid: command}) and fail naming them:
+    a process this script started outlived its phase."""
+    import signal
+    for pid in procs:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    check(not procs, f"{what} left processes running: {procs}")
+
+
+def check_no_descendants():
+    """No process started by this script, or by one it started, is still
+    running: the decode pools' fork server and resource tracker are
+    stopped, every subprocess and nvcc build was waited for."""
+    procs = live_processes()
+    children = {}
+    for pid, (ppid, _, _) in procs.items():
+        children.setdefault(ppid, []).append(pid)
+    found, todo = {}, list(children.get(os.getpid(), []))
+    while todo:
+        pid = todo.pop()
+        found[pid] = procs[pid][2]
+        todo.extend(children.get(pid, []))
+    stop_leftovers(found, "chip_smoke")
 
 
 def seeded_weights(model, seed):
@@ -1291,6 +1383,556 @@ def train_cpu_parity(dev, impl, kernel, state, modes, size=(64, 160),
     return runs
 
 
+# --------------------------------------------------------- evaluation path
+
+class FlowRecorder:
+    """Wraps a predictor and keeps every flow it returns, in return order:
+    ``__call__``, ``predict_timed`` and the results of ``predict_async``'s
+    handles (the stream driver fetches each handle once, in index
+    order)."""
+
+    class _Handle:
+        def __init__(self, handle, sink):
+            self._handle, self._sink = handle, sink
+
+        def result(self):
+            flow = self._handle.result()
+            self._sink.append(flow)
+            return flow
+
+        def __getattr__(self, name):  # dispatch_s, fetch_s, ready, ...
+            return getattr(self._handle, name)
+
+    def __init__(self, predictor):
+        self.predictor, self.flows = predictor, []
+
+    def __call__(self, im1, im2, iters=None):
+        flow = self.predictor(im1, im2, iters)
+        self.flows.append(flow)
+        return flow
+
+    def predict_timed(self, im1, im2, iters=None):
+        flow, dt = self.predictor.predict_timed(im1, im2, iters)
+        self.flows.append(flow)
+        return flow, dt
+
+    def predict_async(self, im1, im2, iters=None):
+        return self._Handle(self.predictor.predict_async(im1, im2, iters),
+                            self.flows)
+
+
+def write_kitti_tree(root, n, h, w, seed):
+    """A KITTI-layout tree (``training/{image_2,image_3,disp_occ_0}``) of
+    ``n`` textured pairs whose right view is the left one shifted by
+    EVAL_SHIFT px; the 16-bit disparity PNGs hold that shift, a fifth of
+    the pixels invalid (0). Written by the port's png.py with Paeth rows,
+    so decoding costs what a photograph written by libpng costs."""
+    import numpy as np
+    from raft_stereo_tpu_torch.data import png
+    base = os.path.join(root, "KITTI", "training")
+    for d in ("image_2", "image_3", "disp_occ_0"):
+        os.makedirs(os.path.join(base, d), exist_ok=True)
+    for i in range(n):
+        left, right = stereo_pair(h, w, seed + i, shift=EVAL_SHIFT)
+        name = f"{i:06d}_10.png"
+        png.write_png(os.path.join(base, "image_2", name),
+                      left[0].astype(np.uint8), 4)
+        png.write_png(os.path.join(base, "image_3", name),
+                      right[0].astype(np.uint8), 4)
+        disp = np.full((h, w), EVAL_SHIFT * 256, np.uint16)
+        disp[np.random.default_rng(seed + i).uniform(size=(h, w)) < 0.2] = 0
+        png.write_png(os.path.join(base, "disp_occ_0", name), disp, 4)
+    return root
+
+
+def check_events(run_dir, frames):
+    """The run's events.jsonl: schema-valid (the port's validate_events),
+    one ``step`` a frame, one ``validation``; returns the event counts."""
+    import collections
+    from raft_stereo_tpu_torch.obs import read_events, validate_events
+    events = read_events(os.path.join(run_dir, "events.jsonl"))
+    errors = validate_events(events)
+    check(not errors, f"{run_dir}: events.jsonl fails the schema: "
+                      f"{errors[:5]}")
+    kinds = collections.Counter(e["event"] for e in events)
+    check(kinds["step"] == frames and kinds["validation"] == 1,
+          f"{run_dir}: {kinds['step']} step and {kinds['validation']} "
+          f"validation records for {frames} frames")
+    return dict(kinds)
+
+
+def frame_rates(run_dir, streamed):
+    """The timed frames' (index > 1, as validate_kitti's warmup_frames=1)
+    rates from a run's step records, over the first and the second half
+    of them: sequentially ``kitti-fps`` (device forward) and
+    ``kitti-fps-e2e`` (predict call) with the device forward's quartiles
+    (ms); streamed ``kitti-fps-e2e`` (frames over the span between their
+    retires)."""
+    import numpy as np
+    from raft_stereo_tpu_torch.obs import read_events
+    steps = [e for e in read_events(os.path.join(run_dir, "events.jsonl"))
+             if e["event"] == "step"]
+    half = (len(steps) - 2) // 2
+    if streamed:  # the span from frame 1's retire to frame k's
+        t = [e["t"] for e in steps[1:]]
+        return {"kitti-fps-e2e_halves": [half / (t[half] - t[0]),
+                                         (len(t) - 1 - half)
+                                         / (t[-1] - t[half])]}
+    dev = [e["dispatch_s"] for e in steps[2:]]
+    call = [e["dispatch_s"] + e["fetch_s"] for e in steps[2:]]
+    return {"kitti-fps_halves": [1 / np.mean(dev[:half]),
+                                 1 / np.mean(dev[half:])],
+            "kitti-fps-e2e_halves": [1 / np.mean(call[:half]),
+                                     1 / np.mean(call[half:])],
+            "device_ms_quartiles": [float(np.percentile(dev, p)) * 1e3
+                                    for p in (25, 50, 75)]}
+
+
+def idle_share(fn):
+    """Run ``fn`` under torch.profiler: the share of the span from its first
+    device kernel's start to its last one's end in which no kernel ran
+    (kernels of one stream do not overlap), and the kernel count."""
+    kernels = device_kernels(fn)
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    span = (max(e.time_range.end for e in kernels)
+            - min(e.time_range.start for e in kernels))
+    return 1.0 - busy / span, len(kernels), busy / 1e3, span / 1e3
+
+
+def run_eval_kitti(dev, work, all_kernels, ws_kernel):
+    """eval_kitti: validate_kitti on a KITTI tree of EVAL_FRAMES frames at
+    375x1242 (default architecture, reg_cuda, mixed precision as the eval
+    entry point sets it, 32 iterations, warmup_frames=1), sequential and
+    streamed (window 3, decoded in worker processes as the port's datasets
+    are), each with an events.jsonl; the same stream with decode threads
+    (the dataset behind a plain wrapper), for what processes save; then
+    one profiled streamed run for the card's idle share. The host's decode
+    of a frame is timed alone first. Returns the phase's fields and the
+    tree and checkpoint eval_cli reuses."""
+    import numpy as np
+    import torch
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.data import KITTI
+    from raft_stereo_tpu_torch.eval.stream import (StreamConfig,
+                                                   decodes_in_processes,
+                                                   run_frames)
+    from raft_stereo_tpu_torch.eval.validate import validate_kitti
+    from raft_stereo_tpu_torch.inference import StereoPredictor
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    from raft_stereo_tpu_torch.obs import Telemetry
+    iters, frames, (h, w) = EVAL_ITERS, EVAL_FRAMES, EVAL_KITTI_HW
+    t0 = time.perf_counter()
+    tree = write_kitti_tree(os.path.join(work, "kitti"), frames, h, w,
+                            SEED + 200)
+    write_s = time.perf_counter() - t0
+    ds = KITTI(root=os.path.join(tree, "KITTI"))
+    decode_s = []
+    for i in range(6):  # one frame's three PNGs, on this thread alone
+        t0 = time.perf_counter()
+        ds.sample(i)
+        decode_s.append(time.perf_counter() - t0)
+    cfg = RAFTStereoConfig(corr_implementation="reg_cuda",
+                           mixed_precision=True)
+    state = seeded_weights(RAFTStereo(cfg), SEED)
+    ckpt = os.path.join(work, "eval_kitti.pth")
+    torch.save(state, ckpt)
+    pred = StereoPredictor(cfg, state, valid_iters=iters, device=dev)
+    stream = StreamConfig(enabled=True, window=3)
+    check(decodes_in_processes(ds),
+          "eval_kitti: the KITTI dataset does not decode in processes")
+    runs = {}
+    for mode, arg in (("sequential", False), ("streamed", stream)):
+        rec = FlowRecorder(pred)
+        run_dir = os.path.join(work, f"eval_kitti_{mode}")
+        tel = Telemetry(run_dir, stall_deadline_s=None, device=dev)
+        tel.run_start(config={"dataset": "kitti", "valid_iters": iters,
+                              "stream": mode})
+        for k in all_kernels:
+            k.launches = 0
+        t_run = time.perf_counter()
+        res = validate_kitti(rec, root=tree, iters=iters, warmup_frames=1,
+                             telemetry=tel, stream=arg)
+        wall = time.perf_counter() - t_run
+        launches = {k.__name__: k.launches for k in all_kernels}
+        tel.emit("run_end", steps=tel.steps, ok=True)
+        tel.close()
+        check(launches[ws_kernel.__name__] == iters * frames
+              and sum(launches.values()) == iters * frames,
+              f"eval_kitti {mode}: launches {launches}, expected "
+              f"{iters} {ws_kernel.__name__} launches a frame")
+        check(len(rec.flows) == frames and all(
+            f.shape == (1, h, w, 1) and np.isfinite(f).all()
+            for f in rec.flows), f"eval_kitti {mode}: bad flows")
+        runs[mode] = dict(results=res, flows=rec.flows, wall_s=wall,
+                          launches=launches,
+                          events=check_events(run_dir, frames),
+                          rates=frame_rates(run_dir, arg))
+    seq, strm = runs["sequential"], runs["streamed"]
+
+    class OnThreads:  # not a port dataset: the driver decodes on threads
+        def __len__(self):
+            return len(ds)
+
+        def sample(self, i):
+            return ds.sample(i)
+
+    thr_flows, thr_e2e = [], []
+
+    def on_frame(i, sample, flow, timing):
+        thr_flows.append(flow[None])
+        if i > 1:  # validate_kitti's warmup_frames=1
+            thr_e2e.append(timing.e2e_s)
+    t_run = time.perf_counter()
+    run_frames(pred, OnThreads(), on_frame, iters=iters, stream=stream)
+    thr_wall = time.perf_counter() - t_run
+    same = all(np.array_equal(a, b) and np.array_equal(a, c)
+               for a, b, c in zip(seq["flows"], strm["flows"], thr_flows))
+    check(same, "eval_kitti: streamed flows differ from sequential")
+    for key in ("kitti-epe", "kitti-d1"):
+        check(seq["results"][key] == strm["results"][key],
+              f"eval_kitti: {key} {strm['results'][key]} streamed, "
+              f"{seq['results'][key]} sequential")
+    check({"kitti-fps", "kitti-fps-e2e"} <= set(seq["results"])
+          and "kitti-fps-e2e" in strm["results"]
+          and "kitti-fps" not in strm["results"],
+          f"eval_kitti: FPS keys {sorted(seq['results'])} / "
+          f"{sorted(strm['results'])}")
+    thr_fps = 1.0 / float(np.mean(thr_e2e))
+    idle, n_kernels, busy_ms, span_ms = idle_share(
+        lambda: validate_kitti(pred, root=tree, iters=iters,
+                               warmup_frames=1, stream=stream))
+    del pred
+    result = dict(frames=frames, size=[h, w],
+                  cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                  iters=iters, dtype="bfloat16 (mixed precision)",
+                  launches={m: r["launches"] for m, r in runs.items()},
+                  launches_per_frame=strm["launches"][ws_kernel.__name__]
+                  / frames, tree_write_s=write_s,
+                  decode_ms_per_frame_median=statistics.median(
+                      decode_s[1:]) * 1e3,
+                  decode_ms_per_frame=[t * 1e3 for t in decode_s],
+                  sequential=seq["results"], streamed=strm["results"],
+                  streamed_on_decode_threads={"kitti-fps-e2e": thr_fps},
+                  wall_s={**{m: r["wall_s"] for m, r in runs.items()},
+                          "streamed_on_decode_threads": thr_wall},
+                  rates_by_half={m: r["rates"] for m, r in runs.items()},
+                  events=strm["events"], flows_bitwise_equal=same,
+                  streamed_idle_share=idle,
+                  streamed_profiled_kernels=n_kernels,
+                  streamed_profiled_busy_ms=busy_ms,
+                  streamed_profiled_span_ms=span_ms)
+    emit("eval_kitti", **result)
+    print(f"eval_kitti: kitti-fps {seq['results']['kitti-fps']:.3f} "
+          f"(device, sequential), kitti-fps-e2e "
+          f"{seq['results']['kitti-fps-e2e']:.3f} sequential / "
+          f"{strm['results']['kitti-fps-e2e']:.3f} streamed / "
+          f"{thr_fps:.3f} streamed on decode threads; idle share "
+          f"streamed {idle:.3f}", flush=True)
+    return result, tree, ckpt
+
+
+def first_divergence(pred, pair, iters=1):
+    """The first leaf module, in call order, whose output for frame 0
+    differs between a forward of ``pair`` (two frames, one dispatch) and
+    a forward of frame 0 alone: ``(name, type, inputs_equal, max_abs,
+    scale)`` (``scale`` the largest magnitude of frame 0's output alone),
+    or None when every output is bitwise equal."""
+    import torch
+    padder, im1, im2, _ = pred._prepared(*pair)
+    leaves = [(n, m) for n, m in pred.model.named_modules()
+              if not list(m.children())]
+    seen, found = [], []
+
+    def record(name, batch):
+        def hook(mod, inputs, out):
+            if not isinstance(out, torch.Tensor) or found:
+                return
+            x = inputs[0] if inputs and isinstance(inputs[0],
+                                                   torch.Tensor) else None
+            if batch == 1:  # copies: later layers may work in place
+                seen.append((name, None if x is None else x[:1].clone(),
+                             out[:1].clone()))
+                return
+            k = record.calls
+            record.calls += 1
+            name1, x1, out1 = seen[k]
+            if not torch.equal(out[:1], out1):
+                same_in = (x is not None and x1 is not None
+                           and torch.equal(x[:1], x1))
+                found.append((name1, type(mod).__name__, same_in,
+                              (out[:1].float() - out1.float()).abs().max()
+                              .item(), out1.float().abs().max().item()))
+        return hook
+
+    for batch, sl in ((1, slice(0, 1)), (2, slice(0, 2))):
+        record.calls = 0
+        handles = [m.register_forward_hook(record(n, batch))
+                   for n, m in leaves]
+        try:
+            pred._forward(im1[sl], im2[sl], iters)
+        finally:
+            for h in handles:
+                h.remove()
+    return found[0] if found else None
+
+
+def run_eval_microbatch(dev, tree, all_kernels, ws_kernel):
+    """eval_microbatch: micro-batch 2 on the card, B1 at B=2. The first
+    three frames of eval_kitti's tree go through ``predict_async`` two a
+    dispatch, (0, 1), (0, 2) and (2, 0), and one a call through
+    ``__call__``, in the eval entry point's numerics (bf16, cuDNN TF32 on)
+    and in fp32 (TF32 off), 32 iterations. Checks: 32 windowed_sample
+    launches a dispatch and no other kernel's; frame 0's flow bitwise the
+    same whatever its partner and slot (no element of a batch leaks into
+    another); B1 at B=2 bitwise equal to its two launches at B=1 (the
+    kernel's bound) at the KITTI level shapes; the first leaf module whose
+    output for frame 0 differs between batch 2 and batch 1 (one
+    iteration) gets bitwise equal inputs and departs by rounding, within
+    DEPARTURE_REL of its output's magnitude (cuDNN's convolutions and
+    PyTorch's reductions choose their kernels by batch size: the gap is
+    theirs, and 32 iterations of a random-weight update amplify it); in
+    fp32 the frames' EPE within CPU_PARITY_TOL_PX of batch 1's. Reports
+    the flows' gap."""
+    import numpy as np
+    import torch
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.data import KITTI
+    from raft_stereo_tpu_torch.inference import StereoPredictor
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    from raft_stereo_tpu_torch.ops.kernels import windowed_sample as ws
+    ds = KITTI(root=os.path.join(tree, "KITTI"))
+    frames = [ds.sample(i) for i in range(3)]
+    left = [f["image1"][None] for f in frames]
+    right = [f["image2"][None] for f in frames]
+
+    def epe(flow, f):
+        valid = f["valid"] >= 0.5
+        return float(np.abs(flow[..., 0] - f["flow"][..., 0])[valid].mean())
+
+    dispatches = ((0, 1), (0, 2), (2, 0))
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    for numerics, mixed in (("bf16", True), ("fp32", False)):
+        torch.backends.cudnn.allow_tf32 = mixed
+        cfg = RAFTStereoConfig(corr_implementation="reg_cuda",
+                               mixed_precision=mixed)
+        pred = StereoPredictor(cfg, seeded_weights(RAFTStereo(cfg), SEED),
+                               valid_iters=EVAL_ITERS, device=dev)
+        alone = [pred(left[i], right[i])[0] for i in range(3)]
+        for k in all_kernels:
+            k.launches = 0
+        handles = [pred.predict_async(np.concatenate([left[i], left[j]]),
+                                      np.concatenate([right[i], right[j]]))
+                   for i, j in dispatches]
+        flows = [h.result() for h in handles]
+        launches = {k.__name__: k.launches for k in all_kernels}
+        good = all(f.shape == (2,) + alone[0].shape and np.isfinite(f).all()
+                   for f in flows)
+        independent = (np.array_equal(flows[0][0], flows[1][0])
+                       and np.array_equal(flows[0][0], flows[2][1])
+                       and np.array_equal(flows[1][1], flows[2][0]))
+        diverge = first_divergence(pred, (np.concatenate(left[:2]),
+                                          np.concatenate(right[:2])))
+        rounding = diverge is None or (
+            diverge[2] and diverge[3] <= DEPARTURE_REL * diverge[4])
+        pairs = [(flows[0][0], alone[0]), (flows[0][1], alone[1]),
+                 (flows[1][1], alone[2])]
+        epe_gap = max(abs(epe(a, frames[i]) - epe(b, frames[i]))
+                      for i, (a, b) in enumerate(pairs))
+        dtype = torch.bfloat16 if mixed else torch.float32
+        levels = [lookup_inputs((2, 96, 312, 312 >> i), dtype, SEED + i,
+                                dev, edges=False)[0] for i in range(4)]
+        center = lookup_inputs((2, 96, 312, 312), dtype, SEED + 9, dev,
+                               edges=False)[1]
+        both = ws.windowed_sample_pyramid_forward(levels, center, RADIUS)
+        one = torch.cat([ws.windowed_sample_pyramid_forward(
+            [lv[b:b + 1].contiguous() for lv in levels],
+            center[b:b + 1].contiguous(), RADIUS) for b in range(2)])
+        out[numerics] = dict(
+            launches=launches, partner_and_slot_bitwise=independent,
+            b1_batch2_bitwise=bool(torch.equal(both, one)),
+            first_divergence=None if diverge is None else dict(
+                zip(("module", "type", "inputs_equal", "max_abs",
+                     "output_max_abs"), diverge)),
+            flow_gap_max_px=max(float(np.abs(a - b).max())
+                                for a, b in pairs),
+            flow_gap_mean_px=max(float(np.abs(a - b).mean())
+                                 for a, b in pairs),
+            epe_gap_px=epe_gap, epe_batch1=[epe(a, f) for a, f in
+                                            zip(alone, frames)])
+        emit("eval_microbatch", numerics=numerics, size=list(EVAL_KITTI_HW),
+             iters=EVAL_ITERS, dispatches=[list(d) for d in dispatches],
+             epe_bound_fp32_px=CPU_PARITY_TOL_PX, **out[numerics])
+        check(launches[ws_kernel.__name__] == EVAL_ITERS * len(dispatches)
+              and sum(launches.values()) == EVAL_ITERS * len(dispatches),
+              f"eval_microbatch {numerics}: launches {launches}, expected "
+              f"{EVAL_ITERS} {ws_kernel.__name__} a dispatch")
+        check(good, f"eval_microbatch {numerics}: bad flows")
+        check(independent, f"eval_microbatch {numerics}: a frame's flow "
+                           "depends on its partner or slot")
+        check(out[numerics]["b1_batch2_bitwise"],
+              f"eval_microbatch {numerics}: B1 at B=2 differs from B=1")
+        check(rounding, f"eval_microbatch {numerics}: batch 2 first "
+                        f"departs from batch 1 at {diverge}, not by "
+                        "rounding from equal inputs")
+        check(mixed or epe_gap <= CPU_PARITY_TOL_PX,
+              f"eval_microbatch fp32: batch-2 EPE {epe_gap} px from batch "
+              "1's")
+        del pred
+    torch.backends.cudnn.allow_tf32 = tf32
+    return out["bf16"]["launches"][ws_kernel.__name__] / len(dispatches)
+
+
+def run_eval_cli(work, tree, ckpt, streamed):
+    """eval_cli: ``python3 -m raft_stereo_tpu_torch.evaluate`` on
+    eval_kitti's tree and weights, streamed, in a subprocess: exit 0, the
+    streamed run's EPE and D1, a valid events.jsonl (the kernels are
+    already built: no compile record)."""
+    import ast
+    run_dir = os.path.join(work, "eval_cli")
+    cmd = [sys.executable, "-m", "raft_stereo_tpu_torch.evaluate",
+           "--dataset", "kitti", "--data_root", tree,
+           "--corr_implementation", "reg_cuda", "--stream", "on",
+           "--run_dir", run_dir, "--restore_ckpt", ckpt]
+    t0 = time.perf_counter()
+    # a session of its own: whatever it starts and leaves running (its
+    # decode pool's fork server) keeps that session after it exits
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        stop_leftovers({pid: cmd_ for pid, (_, sid, cmd_)
+                        in live_processes().items() if sid == proc.pid},
+                       "eval_cli")
+    out = subprocess.CompletedProcess(cmd, proc.returncode, stdout, stderr)
+    secs = time.perf_counter() - t0
+    check(out.returncode == 0, f"eval_cli exited {out.returncode}:\n"
+                               f"{out.stderr[-3000:]}")
+    results = ast.literal_eval(out.stdout.strip().splitlines()[-1])
+    for key in ("kitti-epe", "kitti-d1"):
+        check(results[key] == streamed[key],
+              f"eval_cli: {key} {results[key]}, eval_kitti streamed "
+              f"{streamed[key]}")
+    kinds = check_events(run_dir, EVAL_FRAMES)
+    check("compile" not in kinds, f"eval_cli: compile records {kinds}")
+    emit("eval_cli", command=" ".join(cmd[1:]), seconds=secs,
+         results=results, events=kinds)
+
+
+def run_eval_middlebury(dev, work, all_kernels, fc_kernel):
+    """eval_middlebury: one MiddEval3-F scene at 1988x2880 through
+    validate_middlebury (split F, streamed by default) with alt_cuda in
+    mixed precision, 32 iterations: 32 fused_corr launches and no other
+    kernel's, and the EPE of StereoPredictor.__call__ on the same pair."""
+    import numpy as np
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.data import Middlebury, frame_utils, png
+    from raft_stereo_tpu_torch.eval.validate import validate_middlebury
+    from raft_stereo_tpu_torch.inference import StereoPredictor
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    h, w, iters, shift = HIRES_H, HIRES_W, EVAL_ITERS, 24
+    root = os.path.join(work, "middlebury")
+    scene = os.path.join(root, "Middlebury", "MiddEval3", "trainingF",
+                         "SceneA")
+    os.makedirs(scene)
+    left, right = stereo_pair(h, w, SEED + 210, shift=shift)
+    png.write_png(os.path.join(scene, "im0.png"), left[0].astype(np.uint8),
+                  4)
+    png.write_png(os.path.join(scene, "im1.png"), right[0].astype(np.uint8),
+                  4)
+    disp = np.full((h, w), float(shift), np.float32)
+    disp[:, :shift] = np.inf  # no match in the right view: invalid
+    frame_utils.write_pfm(os.path.join(scene, "disp0GT.pfm"), disp)
+    png.write_png(os.path.join(scene, "mask0nocc.png"),
+                  np.where(np.isfinite(disp), 255, 0).astype(np.uint8))
+    with open(os.path.join(root, "Middlebury", "MiddEval3",
+                           "official_train.txt"), "w") as f:
+        f.write("SceneA\n")
+    cfg = RAFTStereoConfig(corr_implementation="alt_cuda",
+                           mixed_precision=True)
+    pred = StereoPredictor(cfg, seeded_weights(RAFTStereo(cfg), SEED),
+                           valid_iters=iters, device=dev)
+    for k in all_kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = validate_middlebury(pred, root=root, iters=iters, split="F")
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in all_kernels}
+    check(launches[fc_kernel.__name__] == iters
+          and sum(launches.values()) == iters,
+          f"eval_middlebury: launches {launches}, expected {iters} "
+          f"{fc_kernel.__name__}")
+    sample = Middlebury(root=os.path.join(root, "Middlebury")).sample(0)
+    flow = pred(sample["image1"][None], sample["image2"][None])[0]
+    gt = sample["flow"]
+    valid = (sample["valid"] >= -0.5) & (gt[..., 0] > -1000)
+    epe = np.sqrt(np.sum((flow - gt) ** 2, axis=-1))[valid].mean().item()
+    check(epe == res["middleburyF-epe"],
+          f"eval_middlebury: validator EPE {res['middleburyF-epe']}, "
+          f"__call__ EPE {epe}")
+    secs = [pred.predict_timed(sample["image1"][None],
+                               sample["image2"][None])[1]
+            for _ in range(HIRES_RUNS)]
+    del pred
+    result = dict(size=[h, w], iters=iters,
+                  dtype="bfloat16 (mixed precision)", launches=launches,
+                  results=res, call_epe=epe, validator_wall_s=wall,
+                  ms_per_frame_median=statistics.median(secs) * 1e3,
+                  ms_per_frame_runs=[s * 1e3 for s in secs])
+    emit("eval_middlebury", **result)
+    return result
+
+
+def run_eval_cpu(dev, work, ws_kernel):
+    """eval_cpu: an ETH3D-layout tree (2 frames, 64x128) through
+    validate_eth3d, default architecture with reg_cuda in fp32, 4
+    iterations, on the card (kernel) and on the CPU (plain version): EPE
+    within CPU_PARITY_TOL_PX."""
+    import numpy as np
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.data import frame_utils, png
+    from raft_stereo_tpu_torch.eval.validate import validate_eth3d
+    from raft_stereo_tpu_torch.inference import StereoPredictor
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    h, w, iters, shift = 64, 128, 4, 6
+    root = os.path.join(work, "eth3d")
+    for i in range(2):
+        scene = os.path.join(root, "ETH3D", "two_view_training", f"s{i}")
+        gt = os.path.join(root, "ETH3D", "two_view_training_gt", f"s{i}")
+        os.makedirs(scene)
+        os.makedirs(gt)
+        left, right = stereo_pair(h, w, SEED + 220 + i, shift=shift)
+        png.write_png(os.path.join(scene, "im0.png"),
+                      left[0].astype(np.uint8))
+        png.write_png(os.path.join(scene, "im1.png"),
+                      right[0].astype(np.uint8))
+        frame_utils.write_pfm(os.path.join(gt, "disp0GT.pfm"),
+                              np.full((h, w), float(shift), np.float32))
+    cfg = RAFTStereoConfig(corr_implementation="reg_cuda")
+    state = seeded_weights(RAFTStereo(cfg), SEED)
+    res = {}
+    for where in (dev, "cpu"):
+        pred = StereoPredictor(cfg, state, valid_iters=iters, device=where)
+        ws_kernel.launches = 0
+        res[str(where)] = validate_eth3d(pred, root=root, iters=iters,
+                                         stream=False)
+        want = iters * 2 if where == dev else 0
+        check(ws_kernel.launches == want,
+              f"eval_cpu on {where}: {ws_kernel.launches} launches, "
+              f"expected {want}")
+    card, cpu = res[str(dev)], res["cpu"]
+    dev_px = abs(card["eth3d-epe"] - cpu["eth3d-epe"])
+    emit("eval_cpu", size=[h, w], iters=iters, card=card, cpu=cpu,
+         epe_abs_diff_px=dev_px, bound_px=CPU_PARITY_TOL_PX)
+    check(dev_px <= CPU_PARITY_TOL_PX,
+          f"eval_cpu: card and CPU EPE differ by {dev_px} px")
+
+
 def main():
     import numpy as np
     import torch
@@ -1301,6 +1943,7 @@ def main():
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from raft_stereo_tpu_torch.config import RAFTStereoConfig, realtime_config
+    from raft_stereo_tpu_torch.eval.stream import stop_decode_server
     from raft_stereo_tpu_torch.inference import StereoPredictor
     from raft_stereo_tpu_torch.models import RAFTStereo
     from raft_stereo_tpu_torch.ops.kernels import _build
@@ -1520,6 +2163,21 @@ def main():
              max_abs_flow=float(np.abs(f_cpu).max()))
         check(dev_px <= CPU_PARITY_TOL_PX,
               f"card vs CPU forward ({impl}) differ by {dev_px} px")
+
+    # the evaluation path (validators, stream driver, predict_async, the
+    # entry point) on synthetic trees written by the port's own png.py
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as work:
+        # eval_kitti and the entry point's subprocess both under PyTorch's
+        # TF32 defaults, which the entry point leaves as they are
+        torch.backends.cudnn.allow_tf32 = True
+        eval_kitti, tree, ckpt = run_eval_kitti(dev, work, all_kernels,
+                                                windowed_sample)
+        run_eval_cli(work, tree, ckpt, eval_kitti["streamed"])
+        eval_ub = run_eval_microbatch(dev, tree, all_kernels,
+                                      windowed_sample)
+        torch.backends.cudnn.allow_tf32 = False
+        eval_mb = run_eval_middlebury(dev, work, all_kernels, fused_corr)
+        run_eval_cpu(dev, work, windowed_sample)
 
     # 8-9. training steps at the SceneFlow recipe's shape, a NaN step;
     # then the same recipe with alt_cuda, with alt_pallas and with the
@@ -1773,6 +2431,8 @@ def main():
         "launches": main["default"]["launches"],
         "launches_realtime": main["realtime"]["launches"],
         "launches_train_step": train["launches_fwd"],
+        "launches_eval_kitti_per_frame": eval_kitti["launches_per_frame"],
+        "launches_eval_microbatch_per_dispatch": eval_ub,
         "max_abs_err": max(max_err, ws_err["fwd"]),
         "ms": ws_fwd["ms"], "plain_ms": ws_fwd["plain_ms"],
         "bound_ms": ws_fwd["bound_ms"], "bound_by": ws_fwd["bound_by"],
@@ -1828,6 +2488,8 @@ def main():
     } for which, suffix, replaces, launches, extra, rows, timed_at in (
         ("fwd", "", fc.REPLACES, hires["launches"],
          {"launches_train_step": train_fused["launches_fwd"],
+          "launches_eval_middlebury": eval_mb["launches"][
+              fused_corr.__name__],
           "ms_train": rnd(fused_rows["fwd_train"])[0]["ms"],
           "ms_levels_one_each": [r["ms"] for r in rnd(
               fused_rows["fwd_level"])]},
@@ -1898,6 +2560,10 @@ def main():
          lookup_rows["bwd"][0], "per launch at the train batch's pyramid "
          "(8,80,180,{180,90,45,22}) bf16, L2 flushed"))]}),
         flush=True)
+    # the streamed runs' decode fork server stops with the run: no process
+    # this script started outlives it
+    stop_decode_server()
+    check_no_descendants()
     emit("total", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

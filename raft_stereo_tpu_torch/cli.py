@@ -1,12 +1,13 @@
 """Command-line flags -> the port's config (the reference's flag names).
 
 The flag surface is the JAX package's (``raft_stereo_tpu/cli.py``
-``add_model_args`` and ``build_demo_parser``) plus ``--device``. Flags that
-only steer training memory or the JAX package's TPU kernels (such as
-``--fused_block_w``) are accepted so that the same command lines parse;
-test-mode inference does not read them. ``--corr_implementation alt_cuda``
-runs the memoryless ``fused_corr`` kernels, ``alt_pallas`` the ``alt_corr``
-kernels, and ``--fused_lookup on`` the ``fused_lookup`` kernel.
+``add_model_args``, ``build_eval_parser`` and ``build_demo_parser``) plus
+``--device``. Flags that only steer training memory or the JAX package's
+TPU kernels (such as ``--fused_block_w``) are accepted so that the same
+command lines parse; test-mode inference does not read them.
+``--corr_implementation alt_cuda`` runs the memoryless ``fused_corr``
+kernels, ``alt_pallas`` the ``alt_corr`` kernels, and ``--fused_lookup on``
+the ``fused_lookup`` kernel.
 """
 
 from __future__ import annotations
@@ -111,5 +112,55 @@ def build_demo_parser() -> argparse.ArgumentParser:
     parser.add_argument("--valid_iters", type=int, default=32)
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on ('cuda' or 'cpu')")
+    add_model_args(parser)
+    return parser
+
+
+def build_eval_parser() -> argparse.ArgumentParser:
+    """The evaluation flag surface (the JAX package's, reference
+    evaluate_stereo.py) plus ``--device``."""
+    parser = argparse.ArgumentParser(description="RAFT-Stereo PyTorch "
+                                                 "evaluation")
+    parser.add_argument("--restore_ckpt", default=None,
+                        help="reference .pth checkpoint (default: seeded "
+                             "random weights)")
+    parser.add_argument("--run_dir", default=None,
+                        help="write events.jsonl telemetry (per-frame timing "
+                             "+ results) under this run directory")
+    parser.add_argument("--dataset", required=True,
+                        choices=["eth3d", "kitti", "things", "middlebury_F",
+                                 "middlebury_H", "middlebury_Q"])
+    parser.add_argument("--valid_iters", type=int, default=32,
+                        help="number of refinement iterations")
+    parser.add_argument("--data_root", default="datasets")
+    parser.add_argument("--bucket", type=int, default=0,
+                        help="pad eval images up to multiples of this size "
+                             "(0 = exact /32 padding)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to run on ('cuda' or 'cpu')")
+    g = parser.add_argument_group(
+        "streaming", "pipelined evaluation (eval/stream.py): overlap frame "
+        "decode, device dispatch and result fetch")
+    g.add_argument("--stream", choices=["auto", "on", "off"], default="auto",
+                   help="auto streams (the predictor dispatches "
+                        "asynchronously); off runs the serial loop (and, on "
+                        "kitti, the device-only FPS measurement)")
+    g.add_argument("--stream_window", type=int, default=3,
+                   help="max in-flight device dispatches (1 = no overlap)")
+    g.add_argument("--stream_microbatch", type=int, default=1,
+                   help="stack up to this many consecutive same-shape "
+                        "frames through one dispatch")
+    g.add_argument("--decode_workers", type=int, default=2,
+                   help="background frame decoders (worker processes "
+                        "for the port's datasets, eval/stream.py)")
+    c = parser.add_argument_group(
+        "convergence and numerics",
+        "the JAX package's per-iteration outputs; the port's model has none "
+        "yet (ROADMAP A11), so a port run is a JAX run with --no_converge "
+        "--no_numerics, and --iter_epe / --iter_policy raise")
+    c.add_argument("--no_converge", action="store_true")
+    c.add_argument("--iter_epe", action="store_true")
+    c.add_argument("--iter_policy", default=None, metavar="PATH")
+    c.add_argument("--no_numerics", action="store_true")
     add_model_args(parser)
     return parser

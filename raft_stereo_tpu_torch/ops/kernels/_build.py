@@ -6,7 +6,8 @@ It is compiled for Hopper (``sm_90a``) into a shared library under
 ``raft_stereo_tpu_torch/build/`` at first use, named by the hash of its
 source, the headers and the flags, so a changed source or header is
 rebuilt and an unchanged one is loaded as it is. Nothing here runs at
-import time.
+import time. Each finished build is reported to the listeners added with
+:func:`add_build_listener` (the telemetry bus's ``compile`` records).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -29,6 +30,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_build_listeners: List[Callable[[str, float], None]] = []
+
+
+def add_build_listener(fn: Callable[[str, float], None]) -> None:
+    """Call ``fn(kernel_name, seconds)`` after every nvcc build that
+    succeeds (seconds from the build's start to nvcc's exit); a listener
+    added twice is called once."""
+    if fn not in _build_listeners:
+        _build_listeners.append(fn)
 
 
 def nvcc_path() -> str:
@@ -115,6 +125,9 @@ def build_all(names: Iterable[str]) -> Dict[str, float]:
             errors.append(str(exc))
     if errors:
         raise RuntimeError("\n".join(errors))
+    for name, secs in seconds.items():
+        for fn in list(_build_listeners):
+            fn(name, secs)
     return seconds
 
 

@@ -1,8 +1,12 @@
-"""The PyTorch port imports nothing of JAX, flax or ``raft_stereo_tpu``.
+"""The PyTorch port imports nothing of JAX, flax or ``raft_stereo_tpu``,
+and no port module imports PIL or cv2 at module level (the card's machine
+has neither).
 
 Checked twice: a fresh interpreter imports every module of the port and
 inspects ``sys.modules`` (a subprocess, because this pytest process has
 already imported jax), and an AST scan of every port source backs it up.
+A third check reads a KITTI tree through the eval modules in a fresh
+interpreter where importing PIL or cv2 fails.
 """
 
 import ast
@@ -14,10 +18,19 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "raft_stereo_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "raft_stereo_tpu")
+NOT_ON_CARD = ("PIL", "cv2")  # lazily imported by the demo only
 
 
-def _forbidden(name: str) -> bool:
-    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+def _forbidden(name: str, forbidden=FORBIDDEN) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in forbidden)
+
+
+def _imported_names(node):
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if isinstance(node, ast.ImportFrom) and node.level == 0:
+        return [node.module or ""]
+    return []
 
 
 def _port_modules():
@@ -46,7 +59,7 @@ def test_port_modules_load_no_jax():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert set(mods) <= set(loaded)
-    bad = [m for m in loaded if _forbidden(m)]
+    bad = [m for m in loaded if _forbidden(m, FORBIDDEN + NOT_ON_CARD)]
     assert not bad, f"port import pulled in {bad[:10]}"
 
 
@@ -60,10 +73,58 @@ def test_port_sources_import_no_jax():
             with open(path) as f:
                 tree = ast.parse(f.read(), path)
             for node in ast.walk(tree):
-                names = []
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                    names = [node.module or ""]
-                offenders += [f"{path}: {n}" for n in names if _forbidden(n)]
+                offenders += [f"{path}: {n}" for n in _imported_names(node)
+                              if _forbidden(n)]
+            # module level: the body outside functions (and classes' bodies)
+            stack = list(tree.body)
+            while stack:
+                node = stack.pop()
+                if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    continue
+                offenders += [f"{path}: {n} at module level"
+                              for n in _imported_names(node)
+                              if _forbidden(n, NOT_ON_CARD)]
+                stack.extend(ast.iter_child_nodes(node))
     assert not offenders, offenders
+
+
+def test_eval_reads_kitti_tree_without_pil_or_cv2(tmp_path):
+    """Write a KITTI tree with the port's own writers and read every frame
+    (images, 16-bit disparity, a flow PNG) through the eval modules, in an
+    interpreter where importing PIL or cv2 raises."""
+    code = f"""
+import importlib.abc, json, sys
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in {NOT_ON_CARD!r}:
+            raise ImportError("no " + name + " on the card")
+sys.meta_path.insert(0, Refuse())
+import numpy as np
+from raft_stereo_tpu_torch.data import datasets, frame_utils, png
+from raft_stereo_tpu_torch.eval import validate
+from raft_stereo_tpu_torch import evaluate
+root = {str(tmp_path)!r} + "/KITTI/training"
+import os
+rng = np.random.default_rng(0)
+for d in ("image_2", "image_3", "disp_occ_0"):
+    os.makedirs(f"{{root}}/{{d}}")
+for i in range(2):
+    for d in ("image_2", "image_3"):
+        png.write_png(f"{{root}}/{{d}}/00000{{i}}_10.png",
+                      rng.integers(0, 255, (20, 30, 3), dtype=np.uint8))
+    png.write_png(f"{{root}}/disp_occ_0/00000{{i}}_10.png",
+                  rng.integers(0, 9000, (20, 30), dtype=np.uint16))
+ds = datasets.KITTI(root={str(tmp_path)!r} + "/KITTI")
+shapes = [ds.sample(i)["image1"].shape for i in range(len(ds))]
+frame_utils.write_flow_kitti(root + "/flow.png", rng.normal(size=(4, 5, 2)))
+frame_utils.read_flow_kitti(root + "/flow.png")
+print(json.dumps([shapes, sorted(m for m in sys.modules
+                                 if m.split(".")[0] in {NOT_ON_CARD!r})]))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    shapes, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert shapes == [[20, 30, 3], [20, 30, 3]]
+    assert loaded == []

@@ -1224,3 +1224,102 @@ def test_ws_pyramid_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError, match="cotangent"):
         ws.windowed_sample_pyramid_backward(
             levels, center, torch.zeros((1, 2, 16, 9), device=cuda), R)
+
+
+# ------------------------------------------------- the evaluation path
+
+def _eval_predictor(cuda, **kw):
+    from raft_stereo_tpu_torch.inference import StereoPredictor
+    cfg = RAFTStereoConfig(corr_implementation="reg_cuda", **kw)
+    model = init_weights(RAFTStereo(cfg), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.update_block.flow_head.conv2.weight.mul_(0.1)
+    return StereoPredictor(cfg, model.state_dict(), valid_iters=4,
+                           device=cuda)
+
+
+def test_predict_async_in_flight_matches_call(cuda):
+    """Four handles in flight at once (pinned staging, asynchronous
+    copies, an event each), fetched in turn: each equals ``__call__`` on
+    its own frame, bitwise, and the kernel ran for every frame."""
+    import numpy as np
+    pred = _eval_predictor(cuda)
+    rng = np.random.default_rng(0)
+    frames = [(rng.integers(0, 255, (1, 64, 160, 3), dtype=np.uint8),
+               rng.integers(0, 255, (1, 64, 160, 3), dtype=np.uint8))
+              for _ in range(4)]
+    want = [pred(a, b) for a, b in frames]
+    ws.windowed_sample.launches = 0
+    handles = [pred.predict_async(a, b) for a, b in frames]
+    assert handles[-1]._host.is_pinned()
+    assert all(h._staged[0].is_pinned() for h in handles)
+    got = [h.result() for h in handles]
+    assert ws.windowed_sample.launches == 4 * 4
+    for g, w in zip(got, want):
+        assert g.shape == (1, 64, 160, 1) and np.array_equal(g, w)
+    assert all(h.ready() and h.fetch_s is not None for h in handles)
+
+
+def test_telemetry_reads_the_card(cuda, tmp_path):
+    import json
+    from raft_stereo_tpu_torch.obs import Telemetry
+    x = torch.ones(1 << 20, device=cuda)
+    tel = Telemetry(str(tmp_path), stall_deadline_s=None)
+    tel.run_start()
+    tel.memory()
+    tel.close()
+    recs = [json.loads(line) for line in open(tel.events_path)]
+    assert recs[0]["devices"] == {"platform": "gpu",
+                                  "kind": torch.cuda.get_device_name(),
+                                  "count": torch.cuda.device_count()}
+    stats = recs[-1]["stats"]
+    assert stats["bytes_in_use"] >= x.numel() * 4
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"]
+    assert stats["bytes_limit"] == torch.cuda.mem_get_info()[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ws_pyramid_batch_of_two_equals_batch_of_one(cuda, dtype):
+    """B1 at B=2 (a micro-batched dispatch) is bitwise equal to its two
+    launches at B=1, at the default frame's level shapes."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    levels = [torch.randn((2, 96, 312, 312 >> i), generator=g,
+                          device=cuda).to(dtype) for i in range(4)]
+    center = torch.rand((2, 96, 312), generator=g, device=cuda) * 320 - 4
+    both = ws.windowed_sample_pyramid_forward(levels, center, R)
+    one = torch.cat([ws.windowed_sample_pyramid_forward(
+        [lv[b:b + 1].contiguous() for lv in levels],
+        center[b:b + 1].contiguous(), R) for b in range(2)])
+    assert torch.equal(both, one)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_predict_async_batch_of_two(cuda, mixed):
+    """Micro-batch 2 on the card: one dispatch of two frames launches B1
+    once an iteration; a frame's flow is bitwise independent of its
+    partner and slot; the first layer whose output departs from batch 1's
+    gets bitwise equal inputs and departs by rounding (cuDNN and PyTorch's
+    reductions choose kernels by batch size); fp32 flows within 1e-3 px of
+    batch 1's."""
+    import numpy as np
+    from chip_smoke import DEPARTURE_REL, first_divergence
+    pred = _eval_predictor(cuda, mixed_precision=mixed)
+    rng = np.random.default_rng(1)
+    left = rng.integers(0, 255, (3, 64, 160, 3), dtype=np.uint8)
+    right = rng.integers(0, 255, (3, 64, 160, 3), dtype=np.uint8)
+    alone = [pred(left[i:i + 1], right[i:i + 1]) for i in range(3)]
+    ws.windowed_sample.launches = 0
+    pair = pred.predict_async(left[:2], right[:2]).result()
+    assert ws.windowed_sample.launches == 4
+    other = pred.predict_async(left[[0, 2]], right[[0, 2]]).result()
+    swapped = pred.predict_async(left[[2, 0]], right[[2, 0]]).result()
+    assert np.array_equal(pair[0], other[0])
+    assert np.array_equal(pair[0], swapped[1])
+    assert np.array_equal(other[1], swapped[0])
+    diverge = first_divergence(pred, (left[:2], right[:2]))
+    assert diverge is None or (
+        diverge[2] and diverge[3] <= DEPARTURE_REL * diverge[4]), diverge
+    if not mixed:
+        for got, want in ((pair[0], alone[0]), (pair[1], alone[1]),
+                          (other[1], alone[2])):
+            assert np.abs(got - want[0]).max() <= 1e-3
