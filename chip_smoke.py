@@ -127,6 +127,37 @@ Phases, each reported as one JSON line, in the order they run:
    reg_cuda + fused_lookup in cuDNN at 64x352; the loss within 1e-5
    relative, and the gradients within the null floor of NULL_RUNS CPU
    null runs (see check_grad_parity).
+15b. train_loader, train_trainer, train_trainer_steady,
+   train_trainer_fused, train_resume — the training path on a synthetic
+   FlyingThings tree written by the port's png.py (8 frames a pass at
+   540x960, the "sceneflow" mix of 64 samples, 8 batches an epoch; 2 TEST
+   frames). train_loader: the port's Loader at the recipe's augmentation,
+   samples/s with its worker processes, ms a sample by stage (decode,
+   photometric, resize, crop), two passes bitwise equal and a
+   start_batch resume equal to the uninterrupted stream. train_trainer:
+   train() in this process at the recipe (reg_cuda, bf16, batch 8 at
+   320x720, 22 iterations, 12 steps, checkpoints every 4, validation
+   every 6 on the TEST frames at 32 iterations): exactly (44, 22)
+   windowed_sample launches every step and no other kernel's, finite
+   losses, an events.jsonl the port's validate_events passes with the
+   fleet stamp and heartbeats; ms/step (median of steps 3-12), pairs/s,
+   the data_wait/dispatch/fetch medians and data_wait's share, peak
+   memory, checkpoint bytes and save seconds. train_trainer_steady: the
+   same for STEADY_STEPS steps with no checkpoint or validation, timed
+   from the second epoch: data_wait's share of the window's time, where a
+   loader slower than the card shows. train_trainer_fused: the same with
+   alt_cuda for 2 steps, (44, 88) fused_corr launches a step.
+   train_resume: python -m raft_stereo_tpu_torch.train at the recipe in
+   sessions of their own: an uninterrupted run A; a run sent SIGTERM
+   after its step-5 record (a preempt checkpoint, exit 0) resumed with
+   --restore_ckpt auto (its resume record at the preempt step); a second
+   uninterrupted run B; a run C restored from A's step-4 checkpoint for
+   one step. Step 1's loss equal in A, B and the resumed run; C's step-5
+   loss A's bitwise and its update one AdamW step of A's step-4 state
+   (adamw_step_deviation within ADAMW_V_TOL and ADAMW_P_TOL); the resumed
+   run's parameters bitwise A's where A and B are bitwise equal; no
+   process left in any run's session; the distances between the three
+   runs' final parameters and their per-step loss gaps reported.
 16. timings, bwd_timings — windowed_sample's forward at the default,
    realtime and train pyramids and its backward at the train pyramid: per
    level, the one-level launch's time, its bound (bound_ms: bytes over
@@ -1445,6 +1476,522 @@ def write_kitti_tree(root, n, h, w, seed):
     return root
 
 
+def write_sceneflow_tree(root, n, h, w, seed, test_frames=0,
+                         max_disp=64.0):
+    """A FlyingThings3D-layout tree: ``n`` frames of each pass (clean and
+    final, TRAIN/A/0000) and ``test_frames`` of the final pass's TEST
+    split, textured pairs whose right view is the left one shifted by a
+    disparity in [1, max_disp) a frame, written by the port's png.py with
+    Paeth rows and frame_utils.write_pfm (a smooth disparity field around
+    that shift)."""
+    import numpy as np
+    from raft_stereo_tpu_torch.data import frame_utils, png
+    things = os.path.join(root, "FlyingThings3D")
+    frames = [(p, "TRAIN", i) for p in ("frames_cleanpass",
+                                        "frames_finalpass")
+              for i in range(n)]
+    frames += [("frames_finalpass", "TEST", i) for i in range(test_frames)]
+    for k, (dstype, split, i) in enumerate(frames):
+        rng = np.random.default_rng(seed + k)
+        shift = int(rng.integers(1, int(max_disp)))
+        left, right = stereo_pair(h, w, seed + k, shift=shift)
+        seq = os.path.join(things, dstype, split, "A", "0000")
+        for side, img in (("left", left), ("right", right)):
+            os.makedirs(os.path.join(seq, side), exist_ok=True)
+            png.write_png(os.path.join(seq, side, f"{i:04d}.png"),
+                          img[0].astype(np.uint8), 4)
+        ddir = os.path.join(things, "disparity", split, "A", "0000", "left")
+        os.makedirs(ddir, exist_ok=True)
+        yy = np.linspace(0, 1, h, dtype=np.float32)[:, None]
+        disp = (shift + 2 * np.sin(6 * yy) * np.ones((1, w), np.float32))
+        frame_utils.write_pfm(os.path.join(ddir, f"{i:04d}.pfm"),
+                              disp.astype(np.float32))
+    return root
+
+
+# the training path's phases: the SceneFlow recipe (sceneflow_config():
+# batch 8, 320x720, 22 iterations, bf16) through train() and python -m
+# raft_stereo_tpu_torch.train on a synthetic FlyingThings tree at 540x960:
+# 8 frames a pass (the "sceneflow" mix takes each 4 times: 64 samples, 8
+# batches an epoch) and 2 TEST frames for the validation hook
+TRAIN_TREE_FRAMES = 8
+TRAIN_TREE_HW = (540, 960)
+TRAINER_STEPS = 12
+TRAINER_CKPT_EVERY = 4
+TRAINER_VAL_EVERY = 6
+TRAINER_WORKERS = 6          # loader worker processes (8 host cores)
+# the steady window: train() with no checkpoint or validation (each gives
+# the loader time to catch up), long enough that a loader slower than the
+# card shows in data_wait_s; timed from the second epoch on (the loader's
+# queue starts empty each epoch, so every epoch's first step waits)
+STEADY_STEPS = 40
+STEADY_SKIP = 8
+RESUME_SIGTERM_AFTER = 5     # SIGTERM once the step-5 record is written
+# the card's training is not bitwise run to run (scripts/
+# train_determinism.py), but its forward is (step 1's loss is the same
+# in every run): a run resumed from A's own step-RESUME_FROM checkpoint
+# must give A's step RESUME_FROM + 1 loss bitwise (parameters and stream
+# position restored exactly), and its one AdamW update must be the one
+# the restored moments, count and LR make (adamw_step_deviation) within
+# these bounds (fp32 rounding; a lost moment, count or LR is O(1))
+RESUME_FROM = 4
+ADAMW_V_TOL = 1e-4
+ADAMW_P_TOL = 1e-3
+
+
+def recipe_config(tree, run_root, name, **overrides):
+    """The recipe's (model, train) configs on ``tree``, reg_cuda."""
+    from raft_stereo_tpu_torch.config import sceneflow_config
+    mcfg, tcfg = sceneflow_config()
+    mcfg = dataclasses.replace(mcfg, corr_implementation="reg_cuda")
+    tcfg = dataclasses.replace(
+        tcfg, name=name, num_steps=TRAINER_STEPS, data_root=tree,
+        ckpt_dir=os.path.join(run_root, "ckpts"),
+        run_dir=os.path.join(run_root, "runs"),
+        checkpoint_frequency=TRAINER_CKPT_EVERY,
+        validation_frequency=TRAINER_VAL_EVERY, valid_iters=EVAL_ITERS,
+        num_workers=TRAINER_WORKERS, ckpt_keep_last=0, **overrides)
+    return mcfg, tcfg
+
+
+def loader_stages(dataset, n, seed):
+    """ms a sample, in this process, split into decode (read_raw),
+    photometric (colour jitter and the eraser), resize (the three
+    resize_linear calls) and crop (flips and the crop), over the first
+    ``n`` samples of epoch 0; the same calls sample() makes."""
+    from raft_stereo_tpu_torch.data import augment
+    from raft_stereo_tpu_torch.data.loader import sample_rng
+    spent = {"decode": 0.0, "photometric": 0.0, "resize": 0.0, "crop": 0.0}
+    resize = augment.resize_linear
+
+    def timed_resize(*args):
+        t = time.perf_counter()
+        out = resize(*args)
+        spent["resize"] += time.perf_counter() - t
+        return out
+    augment.resize_linear = timed_resize
+    try:
+        for i in range(n):
+            t0 = time.perf_counter()
+            img1, img2, flow, _ = dataset.read_raw(i)
+            t1 = time.perf_counter()
+            aug = dataset._source(i).augmentor
+            rng = sample_rng(seed, 0, i)
+            img1, img2 = aug.color_transform(img1, img2, rng)
+            img2 = augment._eraser(img2, rng)
+            t2 = time.perf_counter()
+            before = spent["resize"]
+            aug.spatial_transform(img1, img2, flow, rng)
+            t3 = time.perf_counter()
+            spent["decode"] += t1 - t0
+            spent["photometric"] += t2 - t1
+            spent["crop"] += (t3 - t2) - (spent["resize"] - before)
+    finally:
+        augment.resize_linear = resize
+    return {k: v * 1e3 / n for k, v in spent.items()}
+
+
+def run_train_loader(tree):
+    """The port's Loader at the recipe's augmentation on the tree:
+    samples/s over epoch 1 (after an epoch that starts the worker
+    processes), ms a sample by stage; a second loader's pass over epoch 0
+    bitwise the first's, and its start_batch resume of epoch 1 equal to
+    the uninterrupted stream."""
+    from raft_stereo_tpu_torch.data.datasets import fetch_dataloader
+    _, tcfg = recipe_config(tree, os.path.dirname(tree), "loader")
+    loader = fetch_dataloader(tcfg)
+    epochs = [list(loader)]
+    t0 = time.perf_counter()
+    epochs.append(list(loader))
+    rate = len(epochs[1]) * tcfg.batch_size / (time.perf_counter() - t0)
+    loader.close()
+    # the "sceneflow" mix: both passes, each 4 times
+    want_batches = 2 * 4 * TRAIN_TREE_FRAMES // tcfg.batch_size
+    check(len(epochs[1]) == len(loader) == want_batches,
+          f"{len(epochs[1])} batches an epoch, not {want_batches}")
+
+    def same(got, want):
+        return len(got) == len(want) and all(
+            a[k].tobytes() == b[k].tobytes()
+            for a, b in zip(got, want) for k in a)
+    again = fetch_dataloader(tcfg)
+    check(same(list(again), epochs[0]),
+          "two passes over epoch 0 made different batches")
+    again.start_batch = 3
+    check(same(list(again), epochs[1][3:]),
+          "a start_batch resume differs from the uninterrupted stream")
+    again.close()
+    stages = loader_stages(again.dataset, 8, tcfg.seed)
+    result = dict(samples_per_s=rate, ms_per_sample=stages,
+                  ms_per_sample_total=sum(stages.values()),
+                  batches_per_epoch=want_batches, host_cpus=os.cpu_count(),
+                  workers=TRAINER_WORKERS, image=list(TRAIN_TREE_HW),
+                  crop=list(tcfg.image_size), passes_bitwise=True,
+                  resume_bitwise=True)
+    emit("train_loader", **result)
+    return result
+
+
+def step_records(run_dir):
+    """The run's events.jsonl: schema-valid (the port's validate_events);
+    returns the records."""
+    from raft_stereo_tpu_torch.obs import read_events, validate_events
+    events = read_events(os.path.join(run_dir, "events.jsonl"))
+    errors = validate_events(events)
+    check(not errors, f"{run_dir}: events.jsonl fails the schema: "
+                      f"{errors[:5]}")
+    return events
+
+
+def run_train_trainer(dev, tree, work, all_kernels, kernel, impl="reg_cuda",
+                      phase="train_trainer", steps=TRAINER_STEPS,
+                      per_iter=(2, 1), skip=2):
+    """train() in this process at the recipe (``impl``), ``steps`` steps
+    (other than the recipe's 12: no checkpoint or validation): the
+    launches of ``kernel`` each step (counted around each step function
+    call), none of the other kernels', finite losses, a valid events.jsonl
+    with the fleet stamp and heartbeats; over the steps after the first
+    ``skip``, ms/step, the data_wait/dispatch/fetch split and data_wait's
+    share (of the median step, and of the window's time with and without
+    each epoch's first step, where the loader's queue starts empty); peak
+    memory, checkpoint bytes and save seconds."""
+    import torch
+    from raft_stereo_tpu_torch.training import trainer as trainer_mod
+    run_root = os.path.join(work, phase)
+    mcfg, tcfg = recipe_config(tree, run_root, phase, heartbeat_every_s=2.0)
+    mcfg = dataclasses.replace(mcfg, corr_implementation=impl)
+    if steps != TRAINER_STEPS:
+        tcfg = dataclasses.replace(tcfg, num_steps=steps,
+                                   checkpoint_frequency=None,
+                                   validation_frequency=10 ** 6)
+    per_step, saves = [], []
+    make_step, save = trainer_mod.make_train_step, trainer_mod.save_train_state
+
+    def counted_make_step(*args, **kwargs):
+        step_fn = make_step(*args, **kwargs)
+
+        def step(state, batch):
+            before = [(k.launches, k.bwd_launches) for k in all_kernels]
+            out = step_fn(state, batch)
+            per_step.append([(k.launches - b[0], k.bwd_launches - b[1])
+                             for k, b in zip(all_kernels, before)])
+            return out
+        return step
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        path = save(*args, **kwargs)
+        saves.append((time.perf_counter() - t0, path))
+        return path
+    trainer_mod.make_train_step = counted_make_step
+    trainer_mod.save_train_state = timed_save
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in all_kernels:
+        k.launches = k.bwd_launches = 0
+    try:
+        t0 = time.perf_counter()
+        final = trainer_mod.train(mcfg, tcfg, device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        trainer_mod.make_train_step = make_step
+        trainer_mod.save_train_state = save
+    iters = tcfg.train_iters
+    want = (per_iter[0] * iters, per_iter[1] * iters)
+    idx = list(all_kernels).index(kernel)
+    check(len(per_step) == steps, f"{phase}: {len(per_step)} steps ran")
+    for i, counts in enumerate(per_step):
+        check(counts[idx] == want and all(
+            c == (0, 0) for j, c in enumerate(counts) if j != idx),
+              f"{phase}: step {i + 1} launched {counts}, expected {want} "
+              f"of {kernel.__name__} and nothing else")
+    events = step_records(os.path.join(tcfg.run_dir, tcfg.name))
+    records = [e for e in events if e["event"] == "step"]
+    check([r["step"] for r in records] == list(range(1, steps + 1)),
+          f"{phase}: step records {[r['step'] for r in records]}")
+    losses = [r["loss"] for r in records]
+    check(all(map(math.isfinite, losses)) and not any(
+        r["skipped_updates"] for r in records),
+          f"{phase}: losses {losses}")
+    start = next(e for e in events if e["event"] == "run_start")
+    beats = sum(e["event"] == "heartbeat" for e in events)
+    check("host_id" in start and "pid" in start and any(
+        e["event"] == "clock_anchor" for e in events),
+          f"{phase}: run_start carries no fleet stamp")
+    check(beats > 0 or steps < TRAINER_STEPS,
+          f"{phase}: no heartbeat in a {wall:.1f} s run at "
+          f"{tcfg.heartbeat_every_s} s")
+    timed = records[skip:] if steps > skip else records
+    step_s = [r["data_wait_s"] + r["dispatch_s"] + r["fetch_s"]
+              for r in timed]
+    med = {k: statistics.median(r[k] for r in timed)
+           for k in ("data_wait_s", "dispatch_s", "fetch_s")}
+    per_epoch = 2 * 4 * TRAIN_TREE_FRAMES // tcfg.batch_size
+    inner = [(r["data_wait_s"], t) for r, t in zip(timed, step_s)
+             if (r["step"] - 1) % per_epoch]
+    ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, fs in os.walk(final) for f in fs)
+    result = dict(
+        config=f"sceneflow_config() + {impl}", batch=tcfg.batch_size,
+        image_size=list(tcfg.image_size), iters=iters, steps=steps,
+        # the (fwd, bwd) counts the steps measured: one pair, as checked
+        launches_per_step=[list(c) for c in sorted({tuple(c[idx])
+                                                    for c in per_step})],
+        wall_s=wall, timed_steps=[timed[0]["step"], timed[-1]["step"]],
+        ms_per_step_median=statistics.median(step_s) * 1e3,
+        ms_per_step=[x * 1e3 for x in step_s],
+        pairs_per_s=tcfg.batch_size / statistics.median(step_s),
+        pairs_per_s_window=tcfg.batch_size * len(step_s) / sum(step_s),
+        median_s=med,
+        data_wait_share=med["data_wait_s"] / statistics.median(step_s),
+        data_wait_share_window=sum(r["data_wait_s"] for r in timed)
+        / sum(step_s),
+        data_wait_share_window_within_epochs=sum(w for w, _ in inner)
+        / sum(t for _, t in inner),
+        peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+        checkpoint_bytes=ckpt_bytes,
+        save_s=[round(t, 3) for t, _ in saves], losses=losses,
+        data_wait_s=[r["data_wait_s"] for r in records],
+        dispatch_s=[r["dispatch_s"] for r in records],
+        heartbeats=beats, validations=sum(e["event"] == "validation"
+                                          for e in events),
+        workers=tcfg.num_workers)
+    emit(phase, **result)
+    return result
+
+
+def final_params(path):
+    from raft_stereo_tpu_torch.training.checkpoint import load_payload
+    return load_payload(path)["model"]
+
+
+def param_distance(a, b):
+    """Relative L2 distance of two parameter dicts (all leaves)."""
+    import torch
+    num = sum(float(torch.sum((a[k].double() - b[k].double()) ** 2))
+              for k in a if a[k].is_floating_point())
+    den = sum(float(torch.sum(b[k].double() ** 2))
+              for k in b if b[k].is_floating_point())
+    return math.sqrt(num / den)
+
+
+def adamw_step_deviation(before, after, names, lr, wdecay,
+                         betas=(0.9, 0.999), eps=1e-8):
+    """How far checkpoint ``after`` is from one AdamW update (the port's
+    Optimizer: torch.optim.AdamW) of checkpoint ``before``, both
+    load_payload dicts whose optimizer lists follow the parameter
+    ``names``. The update's gradient g is read off the first moment
+    (m1 = b1 m0 + (1 - b1) g); it must give the second moment
+    (v1 = b2 v0 + (1 - b2) g^2), and the moments, the count t and ``lr``
+    the parameters (p1 = p0 (1 - lr wd) - lr / (1 - b1^t) m1 /
+    (sqrt(v1 / (1 - b2^t)) + eps)). Returns ``(v, p)``: the largest
+    relative L2 deviation of a parameter's second moment, and the
+    parameters' deviation beyond two fp32 roundings of p relative to the
+    whole update. An exact restore and update leaves fp32 rounding; a
+    restore that lost the moments, the count, the LR or the parameters
+    leaves O(1)."""
+    import torch
+    b1, b2 = betas
+    t = int(after["optimizer"]["count"])
+    bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+    dev_v, p_err, p_step = 0.0, 0.0, 0.0
+    for i, name in enumerate(names):
+        m0, v0, m1, v1 = (x["optimizer"][k][i].double()
+                          for x in (before, after)
+                          for k in ("exp_avg", "exp_avg_sq"))
+        p0, p1 = before["model"][name].double(), after["model"][name].double()
+        g = (m1 - b1 * m0) / (1 - b1)
+        num = float(torch.linalg.vector_norm(v1 - (b2 * v0
+                                                   + (1 - b2) * g * g)))
+        den = float(torch.linalg.vector_norm(v1))
+        dev_v = max(dev_v, num / den if den else (0.0 if num == 0
+                                                  else math.inf))
+        p_want = p0 * (1 - lr * wdecay) - lr / bc1 * m1 / (
+            torch.sqrt(v1) / math.sqrt(bc2) + eps)
+        slack = (p1 - p_want).abs() - 2.0 ** -23 * p0.abs()
+        p_err += float(torch.sum(slack.clamp(min=0) ** 2))
+        p_step += float(torch.sum((p_want - p0) ** 2))
+    return dev_v, math.sqrt(p_err / p_step) if p_step else math.inf
+
+
+def run_train_resume(tree, work):
+    """python -m raft_stereo_tpu_torch.train at the recipe, each run in a
+    session of its own: an uninterrupted run A; a run sent SIGTERM after
+    its step-5 record (a preempt checkpoint, exit 0), resumed with
+    --restore_ckpt auto to the end (its resume record at the preempt
+    step); a second uninterrupted run B; a run C restored from A's
+    step-RESUME_FROM checkpoint for one step. Holds: step 1's loss is the
+    same in A, B and the resumed run; C's first step's loss is A's at that
+    step bitwise, and its update is one AdamW step of A's restored state
+    (adamw_step_deviation); where A and B end bitwise equal, the resumed
+    run ends bitwise A's; nothing is left in any run's session. The
+    final parameters' distances and the largest per-step loss gaps
+    between A, B and the resumed run are reported (the card's training is
+    not bitwise run to run, so they are one sample each of its spread)."""
+    import signal
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig, TrainConfig
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    from raft_stereo_tpu_torch.training.checkpoint import load_payload
+    from raft_stereo_tpu_torch.training.optim import fetch_schedule
+    root = os.path.join(work, "train_resume")
+    base = [sys.executable, "-m", "raft_stereo_tpu_torch.train",
+            "--batch_size", "8", "--train_iters", "22",
+            "--spatial_scale", "-0.2", "0.4", "--saturation_range", "0",
+            "1.4", "--mixed_precision", "--corr_implementation", "reg_cuda",
+            "--image_size", "320", "720",
+            "--checkpoint_frequency", str(TRAINER_CKPT_EVERY),
+            "--validation_frequency", str(TRAINER_VAL_EVERY),
+            "--valid_iters", str(EVAL_ITERS), "--data_root", tree,
+            "--num_workers", str(TRAINER_WORKERS), "--ckpt_keep_last", "0"]
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def start(name, leg, extra=(), steps=TRAINER_STEPS):
+        cmd = base + ["--name", name, "--num_steps", str(steps),
+                      "--ckpt_dir", os.path.join(root, "ckpts", name),
+                      "--run_dir", os.path.join(root, "runs", leg),
+                      *extra]
+        log = open(os.path.join(root, f"{leg}.log"), "w")
+        proc = subprocess.Popen(cmd, cwd=here, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        log.close()
+        return proc
+
+    def finish(proc, leg):
+        rc = proc.wait(timeout=600)
+        time.sleep(1.0)
+        left = {pid: cmd for pid, (_, sid, cmd) in live_processes().items()
+                if sid == proc.pid}
+        stop_leftovers(left, f"train_resume {leg}")
+        with open(os.path.join(root, f"{leg}.log")) as f:
+            tail = f.read()[-3000:]
+        return rc, tail
+
+    def events(name, leg):
+        path = os.path.join(root, "runs", leg, name, "events.jsonl")
+        out = []
+        if os.path.exists(path):
+            with open(path) as f:
+                for line in f:
+                    try:
+                        out.append(json.loads(line))
+                    except json.JSONDecodeError:
+                        pass
+        return out
+
+    def losses(*evs):
+        out = {}
+        for ev in evs:
+            out.update({e["step"]: e["loss"] for e in ev
+                        if e.get("event") == "step"})
+        return out
+
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    rc, tail = finish(start("a", "a"), "a")
+    check(rc == 0, f"train_resume: run A exited {rc}: {tail}")
+    run_a_s = time.perf_counter() - t0
+    proc = start("r", "r1")
+    deadline = time.monotonic() + 600
+    while not any(e.get("event") == "step" and e["step"]
+                  >= RESUME_SIGTERM_AFTER for e in events("r", "r1")):
+        check(proc.poll() is None and time.monotonic() < deadline,
+              "train_resume: the run to interrupt ended before step "
+              f"{RESUME_SIGTERM_AFTER}")
+        time.sleep(0.05)
+    proc.send_signal(signal.SIGTERM)
+    rc, tail = finish(proc, "r1")
+    check(rc == 0, f"train_resume: SIGTERM exit {rc}: {tail}")
+    first = events("r", "r1")
+    preempt = [e for e in first if e.get("event") == "checkpoint"
+               and e.get("reason") == "preempt"]
+    check(len(preempt) == 1 and any(e.get("event") == "preempt"
+                                    for e in first),
+          "train_resume: no preempt checkpoint on record")
+    rc, tail = finish(start("r", "r2", ("--restore_ckpt", "auto")), "r2")
+    check(rc == 0, f"train_resume: resume exited {rc}: {tail}")
+    second = events("r", "r2")
+    resume = [e for e in second if e.get("event") == "resume"]
+    check(len(resume) == 1 and resume[0]["step"] == preempt[0]["step"],
+          f"train_resume: resume {resume}, preempt {preempt}")
+    rc, tail = finish(start("b", "b"), "b")
+    check(rc == 0, f"train_resume: run B exited {rc}: {tail}")
+    a_from = os.path.join(root, "ckpts", "a", f"{RESUME_FROM}_a")
+    rc, tail = finish(start("c", "c", ("--restore_ckpt", a_from),
+                            steps=RESUME_FROM + 1), "c")
+    check(rc == 0, f"train_resume: run C exited {rc}: {tail}")
+    step_records(os.path.join(root, "runs", "r2", "r"))
+    third = step_records(os.path.join(root, "runs", "c", "c"))
+    pa, pb, pr = (final_params(os.path.join(root, "ckpts", n, n))
+                  for n in ("a", "b", "r"))
+    la, lb, lr = losses(events("a", "a")), losses(events("b", "b")), \
+        losses(first, second)
+    lc = losses(third)
+    check(sorted(la) == sorted(lb) == sorted(lr)
+          == list(range(1, TRAINER_STEPS + 1)),
+          "train_resume: step records missing")
+    check(la[1] == lb[1] == lr[1],
+          f"train_resume: step 1 (one batch, one set of weights) gave "
+          f"losses {la[1]}, {lb[1]}, {lr[1]}")
+    # C: A's step-RESUME_FROM state restored, one step
+    resume_c = [e for e in third if e["event"] == "resume"]
+    check(len(resume_c) == 1 and resume_c[0]["step"] == RESUME_FROM
+          and sorted(lc) == [RESUME_FROM + 1],
+          f"train_resume: run C resumed {resume_c}, stepped {sorted(lc)}")
+    check(lc[RESUME_FROM + 1] == la[RESUME_FROM + 1],
+          f"train_resume: restored from A's step {RESUME_FROM}, step "
+          f"{RESUME_FROM + 1}'s loss is {lc[RESUME_FROM + 1]}, A's "
+          f"{la[RESUME_FROM + 1]}: the parameters or the stream position "
+          "were not restored")
+    before = load_payload(a_from)
+    after = load_payload(os.path.join(root, "ckpts", "c", "c"))
+    check(int(before["optimizer"]["count"]) == RESUME_FROM
+          and int(after["optimizer"]["count"]) == RESUME_FROM + 1
+          and int(after["step"]) == RESUME_FROM + 1,
+          f"train_resume: run C's update counts "
+          f"{before['optimizer']['count']} -> {after['optimizer']['count']}")
+    run_c = next(e for e in third if e["event"] == "run_start")
+    ccfg = run_c["config"]
+    names = [n for n, _ in RAFTStereo(RAFTStereoConfig(**{
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in ccfg["model"].items()})).named_parameters()]
+    lr_c = fetch_schedule(TrainConfig(**{
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in ccfg["train"].items()}))(RESUME_FROM)
+    dev_v, dev_p = adamw_step_deviation(before, after, names, lr_c,
+                                        ccfg["train"]["wdecay"])
+    check(dev_v <= ADAMW_V_TOL and dev_p <= ADAMW_P_TOL,
+          f"train_resume: run C's update is not one AdamW step of A's "
+          f"step-{RESUME_FROM} state: second moment {dev_v} (bound "
+          f"{ADAMW_V_TOL}), parameters {dev_p} (bound {ADAMW_P_TOL})")
+    ab_bitwise = all(pa[k].equal(pb[k]) for k in pa)
+    if ab_bitwise:
+        check(all(pr[k].equal(pa[k]) for k in pa) and lr == la,
+              "train_resume: run to run is bitwise, the resumed run is not")
+    d_ra, d_ba, d_rb = (param_distance(pr, pa), param_distance(pb, pa),
+                        param_distance(pr, pb))
+    # the scale a misplaced resume works at: what the last 4 steps move
+    d_a4 = param_distance(pa, final_params(os.path.join(
+        root, "ckpts", "a", f"{TRAINER_STEPS - TRAINER_CKPT_EVERY}_a")))
+    result = dict(preempt_step=preempt[0]["step"],
+                  resumed_step=resume[0]["step"],
+                  sigterm_after_record=RESUME_SIGTERM_AFTER,
+                  run_to_run_bitwise=ab_bitwise,
+                  rel_l2_resumed_vs_a=d_ra, rel_l2_b_vs_a=d_ba,
+                  rel_l2_resumed_vs_b=d_rb, rel_l2_a_last_4_steps=d_a4,
+                  max_loss_diff_resumed_vs_a=max(abs(lr[s] - la[s])
+                                                 for s in la),
+                  max_loss_diff_b_vs_a=max(abs(lb[s] - la[s]) for s in la),
+                  restored_from_step=RESUME_FROM,
+                  restored_step_loss_bitwise=True,
+                  restored_adamw_dev_v=dev_v, restored_adamw_dev_p=dev_p,
+                  restored_lr=lr_c, run_a_wall_s=run_a_s,
+                  losses_a=[la[s] for s in sorted(la)],
+                  losses_b=[lb[s] for s in sorted(lb)],
+                  losses_resumed=[lr[s] for s in sorted(lr)])
+    emit("train_resume", **result)
+    return result
+
+
 def check_events(run_dir, frames):
     """The run's events.jsonl: schema-valid (the port's validate_events),
     one ``step`` a frame, one ``validation``; returns the event counts."""
@@ -2220,6 +2767,26 @@ def main():
             check(run["ok"], f"card ({impl}, {label}) vs CPU gradients "
                              f"beyond the null floor: {run}")
 
+    # 10b. the training path: the loader, train() in this process (B1
+    # through the trainer, then B2 for two steps), and python -m
+    # raft_stereo_tpu_torch.train interrupted and resumed
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
+        tree = write_sceneflow_tree(
+            os.path.join(work, "data"), TRAIN_TREE_FRAMES, *TRAIN_TREE_HW,
+            SEED + 200, test_frames=2)
+        train_loader = run_train_loader(tree)
+        trainer = run_train_trainer(dev, tree, work, all_kernels,
+                                    windowed_sample)
+        run_train_trainer(dev, tree, work, all_kernels, windowed_sample,
+                          phase="train_trainer_steady", steps=STEADY_STEPS,
+                          skip=STEADY_SKIP)
+        trainer_fused = run_train_trainer(
+            dev, tree, work, all_kernels, fused_corr, impl="alt_cuda",
+            phase="train_trainer_fused", steps=2, per_iter=(2, 4))
+        torch.cuda.empty_cache()
+        train_resume = run_train_resume(tree, work)
+    del train_loader, train_resume
+
     # 11. timings at the main-path pyramids: each level alone (its
     # one-level launch, plain version and F.grid_sample), then the one
     # launch for the four levels as the main path runs it, on the same
@@ -2431,6 +2998,7 @@ def main():
         "launches": main["default"]["launches"],
         "launches_realtime": main["realtime"]["launches"],
         "launches_train_step": train["launches_fwd"],
+        "launches_trainer_per_step": trainer["launches_per_step"][0][0],
         "launches_eval_kitti_per_frame": eval_kitti["launches_per_frame"],
         "launches_eval_microbatch_per_dispatch": eval_ub,
         "max_abs_err": max(max_err, ws_err["fwd"]),
@@ -2456,6 +3024,7 @@ def main():
         "name": ws_mod.KERNEL_NAME + "_bwd", "route": "cuda",
         "source": ws_mod.SOURCE, "replaces": ws_mod.REPLACES_BWD,
         "launches": train["launches_bwd"],
+        "launches_trainer_per_step": trainer["launches_per_step"][0][1],
         "max_abs_err": max(bwd_err, ws_err["dvol"], ws_err["dcoords"]),
         "ms": ws_bwd["ms"], "plain_ms": ws_bwd["plain_ms"],
         "bound_ms": ws_bwd["bound_ms"], "bound_by": ws_bwd["bound_by"],
@@ -2488,6 +3057,8 @@ def main():
     } for which, suffix, replaces, launches, extra, rows, timed_at in (
         ("fwd", "", fc.REPLACES, hires["launches"],
          {"launches_train_step": train_fused["launches_fwd"],
+          "launches_trainer_per_step":
+          trainer_fused["launches_per_step"][0][0],
           "launches_eval_middlebury": eval_mb["launches"][
               fused_corr.__name__],
           "ms_train": rnd(fused_rows["fwd_train"])[0]["ms"],
@@ -2496,7 +3067,9 @@ def main():
          fused_rows["fwd"], "per launch: one launch for the hires path's 4 "
          "levels (1,504,720,{720,360,180,90},256) fp32 on random centers, "
          "L2 flushed"),
-        ("bwd", "_bwd", fc.REPLACES_BWD, train_fused["launches_bwd"], {},
+        ("bwd", "_bwd", fc.REPLACES_BWD, train_fused["launches_bwd"],
+         {"launches_trainer_per_step":
+          trainer_fused["launches_per_step"][0][1]},
          fused_rows["bwd"], "mean per launch over the train_fused step's 4 "
          "levels (8,80,180,{180,90,45,22},256) bf16 on random centers, L2 "
          "flushed"))] + [{

@@ -1,8 +1,8 @@
 """Command-line flags -> the port's config (the reference's flag names).
 
 The flag surface is the JAX package's (``raft_stereo_tpu/cli.py``
-``add_model_args``, ``build_eval_parser`` and ``build_demo_parser``) plus
-``--device``. Flags that only steer training memory or the JAX package's
+``add_model_args``, ``add_train_args``, ``build_train_parser``,
+``build_eval_parser`` and ``build_demo_parser``) plus ``--device``. Flags that only steer training memory or the JAX package's
 TPU kernels (such as ``--fused_block_w``) are accepted so that the same
 command lines parse; test-mode inference does not read them.
 ``--corr_implementation alt_cuda`` runs the memoryless ``fused_corr``
@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import argparse
 
-from raft_stereo_tpu_torch.config import RAFTStereoConfig
+from raft_stereo_tpu_torch.config import RAFTStereoConfig, TrainConfig
 
 
 def add_model_args(parser: argparse.ArgumentParser) -> None:
@@ -58,8 +58,9 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
                         "compute dtype for the CUDA kernels' implementations")
     t = parser.add_argument_group(
         "training and TPU-kernel knobs",
-        "accepted so JAX-package command lines parse; inference ignores "
-        "them")
+        "accepted so JAX-package command lines parse; the port reads "
+        "--no_remat (training keeps every iteration's activations) and "
+        "--fused_lookup, and ignores the others")
     t.add_argument("--no_remat", action="store_true")
     t.add_argument("--fused_block_w", type=int, default=256,
                    help="the JAX package's W2 tile of its TPU 'fused' "
@@ -94,7 +95,152 @@ def model_config(args: argparse.Namespace) -> RAFTStereoConfig:
         corr_storage_dtype=args.corr_storage_dtype,
         fused_lookup={"auto": None, "on": True, "off": False}[
             getattr(args, "fused_lookup", "auto")],
+        remat_refinement=not getattr(args, "no_remat", False),
     )
+
+
+def add_train_args(parser: argparse.ArgumentParser) -> None:
+    """The training flags (the reference's train_stereo.py and the JAX
+    package's own)."""
+    parser.add_argument("--name", default="raft-stereo",
+                        help="name your experiment")
+    parser.add_argument("--restore_ckpt", default=None,
+                        help="checkpoint directory, reference .pth, or "
+                             "'auto': resume from the newest checkpoint of "
+                             "this run in ckpt_dir that verifies (corrupt, "
+                             "truncated and foreign ones are skipped with a "
+                             "ckpt_integrity record)")
+    parser.add_argument("--batch_size", type=int, default=6)
+    parser.add_argument("--train_datasets", nargs="+", default=["sceneflow"])
+    parser.add_argument("--lr", type=float, default=0.0002)
+    parser.add_argument("--num_steps", type=int, default=100000)
+    parser.add_argument("--image_size", type=int, nargs="+",
+                        default=[320, 720])
+    parser.add_argument("--train_iters", type=int, default=16)
+    parser.add_argument("--valid_iters", type=int, default=32)
+    parser.add_argument("--wdecay", type=float, default=1e-5)
+    g = parser.add_argument_group("data augmentation")
+    g.add_argument("--img_gamma", type=float, nargs="+", default=None)
+    g.add_argument("--saturation_range", type=float, nargs="+", default=None)
+    g.add_argument("--do_flip", choices=["h", "v"], default=None)
+    g.add_argument("--spatial_scale", type=float, nargs="+", default=[0, 0])
+    g.add_argument("--noyjitter", action="store_true")
+    o = parser.add_argument_group("ours")
+    o.add_argument("--data_root", default="datasets")
+    o.add_argument("--ckpt_dir", default="checkpoints")
+    o.add_argument("--validation_frequency", type=int, default=10000)
+    o.add_argument("--num_workers", type=int, default=4,
+                   help="loader worker processes")
+    o.add_argument("--seed", type=int, default=1234)
+    o.add_argument("--data_parallel", type=int, default=0,
+                   help="data-parallel shards; the port trains on one "
+                        "device (0 or 1; more raises)")
+    o.add_argument("--seq_parallel", type=int, default=1,
+                   help="width (sequence) parallel shards; 1 only")
+    o.add_argument("--grad_accum_steps", type=int, default=1,
+                   help="average grads over k micro-batches per update")
+    o.add_argument("--run_dir", default="runs",
+                   help="run-artifact root: logs and the events.jsonl "
+                        "telemetry land under <run_dir>/<name>")
+    o.add_argument("--stall_deadline_s", type=float, default=300.0,
+                   help="stall-watchdog deadline: a `stall` record when no "
+                        "step completes within this many seconds (0 "
+                        "disables)")
+    o.add_argument("--no_trace", action="store_true",
+                   help="no step and loader spans on the bus")
+    f = parser.add_argument_group(
+        "fault tolerance", "atomic checkpoints, preemption handling and "
+        "the anomaly guard (training/resilience.py)")
+    f.add_argument("--checkpoint_frequency", type=int, default=None,
+                   help="checkpoint every N steps (default: "
+                        "validation_frequency); a SIGKILL loses at most "
+                        "this many steps, SIGTERM/SIGINT lose none")
+    f.add_argument("--ckpt_keep_last", type=int, default=3,
+                   help="retention: keep the newest K step checkpoints "
+                        "(0 = keep everything)")
+    f.add_argument("--ckpt_keep_every", type=int, default=0,
+                   help="retention: also spare checkpoints whose step is a "
+                        "multiple of N (0 = none)")
+    f.add_argument("--no_anomaly_guard", action="store_true",
+                   help="apply every update, even on a non-finite loss or "
+                        "gradient norm")
+    f.add_argument("--anomaly_max_skips", type=int, default=10,
+                   help="halt (for rollback to the last valid checkpoint) "
+                        "after M consecutive skipped updates (0 = never)")
+    n = parser.add_argument_group(
+        "numerics", "per-leaf gradient norms on the event bus "
+        "(obs/numerics.py)")
+    n.add_argument("--no_numerics", action="store_true",
+                   help="no per-leaf gradient norms")
+    n.add_argument("--numerics_every", type=int, default=50,
+                   help="one grad `numerics` record every N steps (a "
+                        "non-finite norm always emits)")
+    fl = parser.add_argument_group(
+        "fleet", "host identity, clock anchor and heartbeats on the event "
+        "stream")
+    fl.add_argument("--no_fleet", action="store_true",
+                    help="no host_id/pid stamps, clock_anchor or heartbeat "
+                         "records")
+    fl.add_argument("--host_id", default=None,
+                    help="host identity stamped on every record (default: "
+                         "RAFT_HOST_ID, else <hostname>-<pid>)")
+    fl.add_argument("--heartbeat_every", type=float, default=10.0,
+                    help="trainer heartbeat cadence in seconds (0 "
+                         "disables the beats)")
+
+
+def train_config(args: argparse.Namespace) -> TrainConfig:
+    return TrainConfig(
+        name=args.name,
+        restore_ckpt=args.restore_ckpt,
+        batch_size=args.batch_size,
+        train_datasets=tuple(args.train_datasets),
+        lr=args.lr,
+        num_steps=args.num_steps,
+        image_size=tuple(args.image_size),
+        train_iters=args.train_iters,
+        valid_iters=args.valid_iters,
+        wdecay=args.wdecay,
+        img_gamma=tuple(args.img_gamma) if args.img_gamma else None,
+        saturation_range=(tuple(args.saturation_range)
+                          if args.saturation_range else None),
+        do_flip=args.do_flip,
+        spatial_scale=tuple(args.spatial_scale),
+        noyjitter=args.noyjitter,
+        data_root=args.data_root,
+        seed=args.seed,
+        ckpt_dir=args.ckpt_dir,
+        validation_frequency=args.validation_frequency,
+        num_workers=args.num_workers,
+        data_parallel=args.data_parallel,
+        seq_parallel=args.seq_parallel,
+        grad_accum_steps=args.grad_accum_steps,
+        run_dir=args.run_dir,
+        stall_deadline_s=args.stall_deadline_s or None,
+        trace=not args.no_trace,
+        checkpoint_frequency=args.checkpoint_frequency,
+        ckpt_keep_last=args.ckpt_keep_last,
+        ckpt_keep_every=args.ckpt_keep_every,
+        anomaly_guard=not args.no_anomaly_guard,
+        anomaly_max_skips=args.anomaly_max_skips,
+        numerics=not args.no_numerics,
+        numerics_every=args.numerics_every,
+        fleet=not args.no_fleet,
+        host_id=args.host_id,
+        heartbeat_every_s=args.heartbeat_every,
+    )
+
+
+def build_train_parser() -> argparse.ArgumentParser:
+    """The training flag surface (the reference's train_stereo.py) plus
+    ``--device``."""
+    parser = argparse.ArgumentParser(description="RAFT-Stereo PyTorch "
+                                                 "training")
+    add_train_args(parser)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to train on ('cuda' or 'cpu')")
+    add_model_args(parser)
+    return parser
 
 
 def build_demo_parser() -> argparse.ArgumentParser:

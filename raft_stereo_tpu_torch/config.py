@@ -1,14 +1,14 @@
-"""Architecture and training-step config for the PyTorch port.
+"""Architecture and training config for the PyTorch port.
 
-The port's own copies of ``raft_stereo_tpu.config.RAFTStereoConfig`` and
-``TrainConfig``, limited to the fields that inference and one training
-step read, plus ``sceneflow_config()``. Defaults, validation and the
+The port's own copies of ``raft_stereo_tpu.config.RAFTStereoConfig`` (the
+fields inference and training read) and ``TrainConfig`` (every field of
+the JAX package's), and the presets. Defaults, validation and the
 ``CORR_ALIASES`` folding are the same, so a reference command line selects
-the same implementation in both packages. Corr implementations the port
-does not have yet are refused with a ``ValueError``: the port never
-substitutes another implementation. The JAX package's other knobs (remat
-modes, save policies, fused loss, parallelism) are not fields here at
-all; ROADMAP.md queues them.
+the same implementation in both packages. What the port does not have yet
+is refused with a ``ValueError`` (corr ``ring``, data and sequence
+parallelism): the port never substitutes another implementation. The JAX
+package's other architecture knobs (remat modes, save policies, fused
+loss) are not fields here at all; ROADMAP.md queues them.
 """
 
 from __future__ import annotations
@@ -112,39 +112,111 @@ class RAFTStereoConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The fields of the JAX package's ``TrainConfig`` that the optimizer
-    and one training step read (reference "Training parameters"), with its
-    defaults. The step's own switches (``anomaly_guard``, ``numerics``) are
-    arguments of ``make_train_step``; the loader, checkpoint, telemetry and
-    parallelism fields belong to the trainer (ROADMAP A10) and are not
-    here."""
+    """Training loop config (the reference's "Training parameters"), the
+    JAX package's fields with its defaults. ``restore_ckpt`` takes a
+    checkpoint directory, a reference ``.pth`` (weights only) or ``"auto"``
+    (resume from the newest checkpoint of this run that verifies). The
+    port trains on one device: ``data_parallel`` and ``seq_parallel``
+    above 1 raise (ROADMAP A10c and A13); 0 and 1 mean one device."""
 
+    name: str = "raft-stereo"
+    restore_ckpt: Optional[str] = None
     batch_size: int = 6
+    train_datasets: Tuple[str, ...] = ("sceneflow",)
     lr: float = 0.0002
     # micro-steps; the LR schedule's horizon is the number of updates
     num_steps: int = 100000
     image_size: Tuple[int, int] = (320, 720)
     train_iters: int = 16
+    valid_iters: int = 32
     wdecay: float = 1e-5
+    # data augmentation
+    img_gamma: Optional[Tuple[float, ...]] = None
+    saturation_range: Optional[Tuple[float, float]] = None
+    do_flip: Optional[str] = None  # None/'h'/'v' ('hf' mirrors only)
+    spatial_scale: Tuple[float, float] = (0.0, 0.0)
+    noyjitter: bool = False
+    data_root: str = "datasets"
+    seed: int = 1234
+    ckpt_dir: str = "checkpoints"
+    validation_frequency: int = 10000
+    num_workers: int = 4
+    data_parallel: int = 0
+    seq_parallel: int = 1
     # average the gradients of k micro-steps before one optimizer update
     grad_accum_steps: int = 1
+    # observability: events.jsonl and the logs land under <run_dir>/<name>;
+    # a `stall` record when no step completes within stall_deadline_s
+    # (None/0: no watchdog); trace: step/loader spans on the bus
+    run_dir: str = "runs"
+    stall_deadline_s: Optional[float] = 300.0
+    trace: bool = True
+    # checkpoint cadence in steps (None: validation_frequency); retention
+    # keeps the newest ckpt_keep_last step checkpoints (0: all) and spares
+    # multiples of ckpt_keep_every
+    checkpoint_frequency: Optional[int] = None
+    ckpt_keep_last: int = 3
+    ckpt_keep_every: int = 0
+    # skip the update on a non-finite loss or gradient norm; halt after
+    # anomaly_max_skips consecutive skips (0: never)
+    anomaly_guard: bool = True
+    anomaly_max_skips: int = 10
+    # per-leaf gradient norms, sampled into `numerics` records every
+    # numerics_every steps
+    numerics: bool = True
+    numerics_every: int = 50
+    # host identity on every record, a clock anchor and heartbeats every
+    # heartbeat_every_s seconds (fleet=False: none of it)
+    fleet: bool = True
+    heartbeat_every_s: float = 10.0
+    host_id: Optional[str] = None
 
     def __post_init__(self):
         object.__setattr__(self, "image_size", tuple(self.image_size))
+        object.__setattr__(self, "train_datasets",
+                           tuple(self.train_datasets))
+        object.__setattr__(self, "spatial_scale", tuple(self.spatial_scale))
+        for field in ("img_gamma", "saturation_range"):
+            value = getattr(self, field)
+            if value is not None:
+                object.__setattr__(self, field, tuple(value))
         if self.grad_accum_steps < 1:
             raise ValueError(f"grad_accum_steps must be >= 1, got "
                              f"{self.grad_accum_steps}")
         if self.train_iters < 1 or self.num_steps < 1:
             raise ValueError("train_iters and num_steps must be >= 1")
+        if self.data_parallel > 1:
+            raise ValueError(
+                f"data_parallel={self.data_parallel}: data-parallel training "
+                "is not ported yet (ROADMAP A10c); the port trains on one "
+                "device (data_parallel 0 or 1)")
+        if self.seq_parallel > 1:
+            raise ValueError(
+                f"seq_parallel={self.seq_parallel}: sequence-parallel "
+                "correlation is not ported yet (ROADMAP A13)")
 
 
 def sceneflow_config() -> Tuple[RAFTStereoConfig, TrainConfig]:
     """The SceneFlow recipe: batch 8, 22 train iterations, 200k steps, bf16
-    compute and bf16 volume storage (the augmentation fields of the JAX
-    preset belong to the loader, ROADMAP A10)."""
+    compute and bf16 volume storage, spatial scale (-0.2, 0.4) and
+    saturation (0, 1.4)."""
     return (
         RAFTStereoConfig(mixed_precision=True, corr_storage_dtype="bfloat16"),
-        TrainConfig(batch_size=8, train_iters=22, num_steps=200000),
+        TrainConfig(batch_size=8, train_iters=22, num_steps=200000,
+                    spatial_scale=(-0.2, 0.4), saturation_range=(0.0, 1.4)),
+    )
+
+
+def middlebury_finetune_config() -> Tuple[RAFTStereoConfig, TrainConfig]:
+    """The Middlebury 2014 finetune: 4k steps, lr 2e-5, batch 2, crop
+    384x1000, warm-started from the SceneFlow checkpoint."""
+    return (
+        RAFTStereoConfig(mixed_precision=True),
+        TrainConfig(train_datasets=("middlebury_2014",), num_steps=4000,
+                    image_size=(384, 1000), lr=2e-5, batch_size=2,
+                    train_iters=22, valid_iters=32,
+                    spatial_scale=(-0.2, 0.4), saturation_range=(0.0, 1.4),
+                    restore_ckpt="models/raftstereo-sceneflow.pth"),
     )
 
 

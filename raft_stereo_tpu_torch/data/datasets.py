@@ -1,16 +1,20 @@
-"""Stereo datasets for evaluation (the port's copy of the unaugmented half
-of ``raft_stereo_tpu/data/datasets.py``).
+"""Stereo datasets (the port's copy of ``raft_stereo_tpu/data/datasets.py``).
 
 Samples are numpy NHWC dicts (``image1``, ``image2``, ``flow``, ``valid``,
-``paths``), equal to the JAX package's ``sample(i)`` on the same tree:
+``paths``), equal to the JAX package's ``sample(i, rng)`` on the same tree
+and generator:
 
+* ``sample(index, rng)`` takes an explicit ``np.random.Generator`` for the
+  augmentor; without one an augmented dataset keys a Philox generator by
+  the index, so an ad-hoc call is reproducible; the evaluation stream
+  calls ``sample(index)`` on unaugmented datasets;
 * ``dataset * k`` replicates the index list and ``a + b`` concatenates,
-  each item decoded by its own dataset;
+  each item decoded and augmented by its own dataset;
 * the directory layouts are the reference's, so existing dataset downloads
-  work unchanged.
-
-Augmentation (the training half: ``aug_params``, the loader) is not ported
-yet (ROADMAP A10b): passing ``aug_params`` raises.
+  work unchanged;
+* :func:`build_train_dataset` mixes datasets with the reference's
+  oversampling ratios and :func:`fetch_dataloader` builds the training
+  loader from a ``TrainConfig``.
 """
 
 from __future__ import annotations
@@ -25,22 +29,32 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from raft_stereo_tpu_torch.data import frame_utils
+from raft_stereo_tpu_torch.data.augment import (FlowAugmentor,
+                                                SparseFlowAugmentor)
 
 logger = logging.getLogger(__name__)
 
 MAX_FLOW_VALID = 512.0  # dense-GT validity threshold
 
 
+def _make_augmentor(aug_params: Optional[dict], sparse: bool):
+    if aug_params is None or "crop_size" not in aug_params:
+        return None
+    params = dict(aug_params)
+    params.pop("img_pad", None)
+    cls = SparseFlowAugmentor if sparse else FlowAugmentor
+    return cls(**params)
+
+
 class StereoDataset:
-    """Base dataset: path lists + decode -> numpy NHWC sample dict."""
+    """Base dataset: path lists + decode + augment -> numpy NHWC sample
+    dict."""
 
     def __init__(self, aug_params: Optional[dict] = None, sparse: bool = False,
                  reader=None):
-        if aug_params is not None:
-            raise ValueError("aug_params: augmentation is not ported yet "
-                             "(ROADMAP A10b); the port's datasets give "
-                             "unaugmented frames")
         self.sparse = sparse
+        self.img_pad = (aug_params or {}).get("img_pad")
+        self.augmentor = _make_augmentor(aug_params, sparse)
         self.disparity_reader = reader or frame_utils.read_disp_pfm
         self.image_list: List[List[str]] = []
         self.disparity_list: List[str] = []
@@ -65,7 +79,7 @@ class StereoDataset:
         out.image_list = self.image_list + other.image_list
         out.disparity_list = self.disparity_list + other.disparity_list
         out.extra_info = self.extra_info + other.extra_info
-        # per-item decode settings must travel with each item
+        # per-item decode/augment settings must travel with each item
         out._delegates = (getattr(self, "_delegates", None)
                           or [self] * len(self.image_list)) + \
                          (getattr(other, "_delegates", None)
@@ -106,14 +120,35 @@ class StereoDataset:
         flow = np.stack([-disp, np.zeros_like(disp)], axis=-1)
         return img1, img2, flow, np.asarray(valid)
 
-    def sample(self, index: int) -> Dict[str, np.ndarray]:
+    def sample(self, index: int, rng: Optional[np.random.Generator] = None
+               ) -> Dict[str, np.ndarray]:
         """One frame as NHWC arrays (uint8 images, float32 flow-x and
-        valid)."""
+        valid), augmented with ``rng`` where the dataset has an
+        augmentor."""
         index = index % len(self.image_list)
         img1, img2, flow, valid = self.read_raw(index)
-        if not self._source(index).sparse:
+
+        src = self._source(index)
+        if src.augmentor is not None:
+            if rng is None:
+                # keyed by the index: an ad-hoc call is reproducible too
+                rng = np.random.default_rng(np.random.Philox(key=index))
+            if src.sparse:
+                img1, img2, flow, valid = src.augmentor(img1, img2, flow,
+                                                        valid, rng)
+            else:
+                img1, img2, flow = src.augmentor(img1, img2, flow, rng)
+
+        if not src.sparse:
             valid = (np.abs(flow[..., 0]) < MAX_FLOW_VALID) & \
                     (np.abs(flow[..., 1]) < MAX_FLOW_VALID)
+
+        if src.img_pad is not None:
+            pad_h, pad_w = src.img_pad
+            pad = [(pad_h, pad_h), (pad_w, pad_w), (0, 0)]
+            img1 = np.pad(img1, pad)
+            img2 = np.pad(img2, pad)
+
         return {
             "image1": np.ascontiguousarray(img1, dtype=np.uint8),
             "image2": np.ascontiguousarray(img2, dtype=np.uint8),
@@ -282,3 +317,64 @@ class Middlebury(StereoDataset):
                 self.image_list.append([osp.join(base, "im0.png"),
                                         osp.join(base, "im1.png")])
                 self.disparity_list.append(osp.join(base, "disp0GT.pfm"))
+
+
+# ------------------------------------------------------------------ loader entry
+
+def build_train_dataset(train_datasets: Sequence[str], aug_params: dict,
+                        root: str = "datasets") -> StereoDataset:
+    """Mix datasets with the reference's oversampling ratios."""
+    combined = None
+    for name in train_datasets:
+        if name.startswith("middlebury_"):
+            ds = Middlebury(aug_params, root=osp.join(root, "Middlebury"),
+                            split=name.replace("middlebury_", ""))
+        elif name == "sceneflow":
+            clean = SceneFlow(aug_params, root=root, dstype="frames_cleanpass")
+            final = SceneFlow(aug_params, root=root, dstype="frames_finalpass")
+            ds = (clean * 4) + (final * 4)
+        elif "kitti" in name:
+            ds = KITTI(aug_params, root=osp.join(root, "KITTI"), split=name)
+        elif name == "sintel_stereo":
+            ds = SintelStereo(aug_params, root=osp.join(root, "SintelStereo")) * 140
+        elif name == "falling_things":
+            ds = FallingThings(aug_params,
+                               root=osp.join(root, "FallingThings")) * 5
+        elif name.startswith("tartan_air"):
+            ds = TartanAir(aug_params, root=root,
+                           keywords=name.split("_")[2:])
+        else:
+            raise ValueError(f"unknown training dataset {name!r}")
+        logger.info("Adding %d samples from %s", len(ds), name)
+        combined = ds if combined is None else combined + ds
+    if combined is None or len(combined) == 0:
+        raise ValueError(f"no training data found for {list(train_datasets)}")
+    logger.info("Training with %d image pairs", len(combined))
+    return combined
+
+
+def train_aug_params(cfg) -> dict:
+    """The augmentation parameters of a ``TrainConfig``."""
+    aug_params = {
+        "crop_size": tuple(cfg.image_size),
+        "min_scale": cfg.spatial_scale[0],
+        "max_scale": cfg.spatial_scale[1],
+        "do_flip": cfg.do_flip,
+        "yjitter": not cfg.noyjitter,
+    }
+    if cfg.saturation_range is not None:
+        aug_params["saturation_range"] = tuple(cfg.saturation_range)
+    if cfg.img_gamma is not None:
+        aug_params["gamma"] = tuple(cfg.img_gamma)
+    return aug_params
+
+
+def fetch_dataloader(cfg, root: Optional[str] = None):
+    """The training loader of a ``TrainConfig`` (the reference's
+    train_stereo.py surface)."""
+    from raft_stereo_tpu_torch.data.loader import Loader
+
+    dataset = build_train_dataset(cfg.train_datasets, train_aug_params(cfg),
+                                  root=root or cfg.data_root)
+    return Loader(dataset, batch_size=cfg.batch_size, seed=cfg.seed,
+                  num_workers=cfg.num_workers, drop_last=True, shuffle=True)

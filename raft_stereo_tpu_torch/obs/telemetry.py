@@ -41,7 +41,7 @@ import threading
 import time
 import traceback
 from collections import deque
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -52,8 +52,7 @@ from raft_stereo_tpu_torch.ops.kernels import _build
 logger = logging.getLogger(__name__)
 
 # Stall-deadline widening before the first heartbeat: the first step
-# builds kernels and warms cuDNN; tests override via the
-# Telemetry(first_step_grace=) knob.
+# builds kernels and warms cuDNN.
 _FIRST_STEP_GRACE = 10.0
 
 # Flight-recorder knobs: recent-record ring capacity, and the per-reason
@@ -85,11 +84,8 @@ class Telemetry:
 
     def __init__(self, run_dir: str, run_name: Optional[str] = None,
                  stall_deadline_s: Optional[float] = None,
-                 first_step_grace: float = _FIRST_STEP_GRACE,
-                 watch_interval_s: Optional[float] = None,
-                 flightrec_min_interval_s: float = _FLIGHT_MIN_INTERVAL_S,
                  host_id: Optional[str] = None, fleet: bool = True,
-                 coords: Optional[Sequence[int]] = None, device=None):
+                 device=None):
         self.run_dir = run_dir
         # the device the run computes on: None is the current card where
         # there is one; a CPU device reports the CPU and no card memory
@@ -109,7 +105,7 @@ class Telemetry:
         self._compile_s = 0.0
         # stall watchdog
         self._deadline = stall_deadline_s
-        self._grace = max(first_step_grace, 1.0)
+        self._grace = _FIRST_STEP_GRACE
         self._stalled = False
         self._stop = threading.Event()
         self._watchdog: Optional[threading.Thread] = None
@@ -117,19 +113,16 @@ class Telemetry:
         # fleet=False restores the single-process v9-shaped stream
         self.fleet = bool(fleet)
         self.host_id = resolve_host_id(host_id) if self.fleet else None
-        self.coords = list(coords) if coords is not None else None
         self._heartbeats: list = []
         # flight recorder: recent-record mirror + attached tracer
         self.tracer = None
         self._recent: "deque" = deque(maxlen=_FLIGHT_RING)
-        self._flight_min_interval = flightrec_min_interval_s
         self._flight_last: Dict[str, float] = {}
         os.makedirs(run_dir, exist_ok=True)
         _active_instances.add(self)
         _build.add_build_listener(_compile_listener)
         if stall_deadline_s and stall_deadline_s > 0:
-            interval = watch_interval_s or min(
-                max(stall_deadline_s / 4.0, 0.05), 10.0)
+            interval = min(max(stall_deadline_s / 4.0, 0.05), 10.0)
             self._watchdog = threading.Thread(
                 target=self._watch, args=(interval,),
                 name="telemetry-watchdog", daemon=True)
@@ -143,8 +136,6 @@ class Telemetry:
         if self.host_id is not None:
             rec.setdefault("host_id", self.host_id)
             rec.setdefault("pid", os.getpid())
-            if self.coords is not None:
-                rec.setdefault("coords", self.coords)
         try:
             with self._lock:
                 if self._closed:
@@ -189,7 +180,7 @@ class Telemetry:
                 return None
             last = self._flight_last.get(reason)
             if last is not None and (
-                    now - last < self._flight_min_interval):
+                    now - last < _FLIGHT_MIN_INTERVAL_S):
                 return None
             self._flight_last[reason] = now
             events = list(self._recent)

@@ -21,7 +21,7 @@ The JAX package composes this from optax transforms; here it is
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Any, Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -131,6 +131,49 @@ class Optimizer:
         self.adamw.zero_grad(set_to_none=True)
         self.count += 1
         return True
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The optimizer's state as plain tensors and numbers, with AdamW's
+        moments for every parameter (zeros before the first update) so its
+        structure does not change as training goes: the update count (the
+        schedule's position), the micro-step and, with gradient
+        accumulation, the running mean of the gradients."""
+        moments = [self.adamw.state.get(p, {}) for p in self.params]
+        out: Dict[str, Any] = {
+            "count": self.count,
+            "mini_step": self.mini_step,
+            "exp_avg": [m["exp_avg"] if m else torch.zeros_like(p)
+                        for m, p in zip(moments, self.params)],
+            "exp_avg_sq": [m["exp_avg_sq"] if m else torch.zeros_like(p)
+                           for m, p in zip(moments, self.params)],
+        }
+        if self.accum_steps > 1:
+            out["acc"] = self._acc or [torch.zeros_like(p, dtype=torch.float32)
+                                       for p in self.params]
+        return out
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore :meth:`state_dict`'s output, onto the parameters'
+        devices."""
+        if len(state["exp_avg"]) != len(self.params):
+            raise ValueError(f"optimizer state for {len(state['exp_avg'])} "
+                             f"parameters, this optimizer has "
+                             f"{len(self.params)}")
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        self.adamw.state.clear()
+        if self.count:
+            for p, m, v in zip(self.params, state["exp_avg"],
+                               state["exp_avg_sq"]):
+                self.adamw.state[p] = {
+                    "step": torch.tensor(float(self.count),
+                                         dtype=torch.float32),
+                    "exp_avg": m.to(p.device, p.dtype).clone(),
+                    "exp_avg_sq": v.to(p.device, p.dtype).clone()}
+        self._acc = []
+        if self.accum_steps > 1 and self.mini_step:
+            self._acc = [a.to(p.device).clone()
+                         for a, p in zip(state["acc"], self.params)]
 
 
 def fetch_optimizer(cfg: TrainConfig,

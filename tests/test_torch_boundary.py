@@ -1,12 +1,13 @@
 """The PyTorch port imports nothing of JAX, flax or ``raft_stereo_tpu``,
-and no port module imports PIL or cv2 at module level (the card's machine
-has neither).
+no port module imports PIL or cv2 at module level, and the training path's
+modules import neither anywhere (the card's machine has neither).
 
 Checked twice: a fresh interpreter imports every module of the port and
 inspects ``sys.modules`` (a subprocess, because this pytest process has
 already imported jax), and an AST scan of every port source backs it up.
-A third check reads a KITTI tree through the eval modules in a fresh
-interpreter where importing PIL or cv2 fails.
+A third check reads a KITTI tree through the eval modules, and a fourth
+loads an augmented SceneFlow batch, in a fresh interpreter where
+importing PIL or cv2 fails.
 """
 
 import ast
@@ -127,4 +128,65 @@ print(json.dumps([shapes, sorted(m for m in sys.modules
     assert out.returncode == 0, out.stderr
     shapes, loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert shapes == [[20, 30, 3], [20, 30, 3]]
+    assert loaded == []
+
+
+TRAINING_PATH = ("data/augment.py", "data/loader.py", "data/datasets.py",
+                 "training/resilience.py", "training/checkpoint.py",
+                 "training/logger.py", "training/trainer.py",
+                 "obs/numerics.py", "train.py", "cli.py")
+
+
+def test_training_path_imports_no_opencv_or_pil():
+    """The training path's modules import neither cv2 nor PIL anywhere,
+    not even inside a function (the augmentor computes OpenCV's resize and
+    colour conversions itself)."""
+    offenders = []
+    for rel in TRAINING_PATH:
+        path = os.path.join(REPO, PKG, rel)
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            offenders += [f"{rel}: {n}" for n in _imported_names(node)
+                          if _forbidden(n, FORBIDDEN + NOT_ON_CARD)]
+    assert not offenders, offenders
+
+
+def test_loader_augments_without_opencv_or_pil(tmp_path):
+    """A SceneFlow tree written by the port's own writers, loaded and
+    augmented at the recipe's settings in an interpreter where importing
+    PIL, cv2 or jax raises: one sample made in that interpreter, and the
+    loader's first batch (its worker processes make the same sample)."""
+    code = f"""
+import importlib.abc, json, sys
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in {NOT_ON_CARD + ("jax",)!r}:
+            raise ImportError("no " + name + " on the card")
+sys.meta_path.insert(0, Refuse())
+import numpy as np
+from chip_smoke import write_sceneflow_tree
+from raft_stereo_tpu_torch.config import sceneflow_config
+from raft_stereo_tpu_torch.data import datasets
+from raft_stereo_tpu_torch.data.loader import Loader, sample_rng
+write_sceneflow_tree({str(tmp_path)!r}, 2, 48, 96, 0, max_disp=8)
+cfg = sceneflow_config()[1]
+aug = dict(datasets.train_aug_params(cfg), crop_size=(32, 48))
+ds = datasets.build_train_dataset(("sceneflow",), aug, {str(tmp_path)!r})
+loader = Loader(ds, batch_size=2, seed=0, num_workers=1, shuffle=False)
+batch = next(iter(loader))
+loader.close()
+here = ds.sample(0, sample_rng(0, 0, 0))
+print(json.dumps([list(batch["image1"].shape), str(batch["image1"].dtype),
+                  bool(np.array_equal(here["image1"], batch["image1"][0])),
+                  sorted(m for m in sys.modules
+                         if m.split(".")[0] in {NOT_ON_CARD!r})]))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    shape, dtype, same, loaded = json.loads(
+        out.stdout.strip().splitlines()[-1])
+    assert shape == [2, 32, 48, 3] and dtype == "float32" and same
     assert loaded == []

@@ -1323,3 +1323,83 @@ def test_predict_async_batch_of_two(cuda, mixed):
         for got, want in ((pair[0], alone[0]), (pair[1], alone[1]),
                           (other[1], alone[2])):
             assert np.abs(got - want[0]).max() <= 1e-3
+
+
+def _train_tree(root):
+    from chip_smoke import write_sceneflow_tree
+    write_sceneflow_tree(str(root), 2, 96, 160, 3, max_disp=12)
+    return root
+
+
+def test_trainer_step_on_card_from_the_cpu_loader_batch(cuda, tmp_path):
+    """The loader's first batch is the same bits whatever the number of
+    its worker processes (it is made on the host, whichever device
+    trains), and one trainer step on the card, with the windowed_sample
+    kernels, is finite and launches (2, 1) an iteration."""
+    import dataclasses
+    from raft_stereo_tpu_torch.config import TrainConfig
+    from raft_stereo_tpu_torch.data.datasets import fetch_dataloader
+    from raft_stereo_tpu_torch.training.trainer import train
+    root = _train_tree(tmp_path / "data")
+    cfg = TrainConfig(name="card", batch_size=2, num_steps=1,
+                      image_size=(64, 128), train_iters=2,
+                      data_root=str(root), ckpt_dir=str(tmp_path / "ck"),
+                      run_dir=str(tmp_path / "runs"), num_workers=2,
+                      spatial_scale=(-0.2, 0.4), saturation_range=(0, 1.4),
+                      validation_frequency=1000, stall_deadline_s=None)
+    batches = []
+    for workers in (2, 1):
+        loader = fetch_dataloader(dataclasses.replace(cfg,
+                                                      num_workers=workers))
+        batches.append(next(iter(loader)))
+        loader.close()
+    for k in batches[0]:
+        assert batches[0][k].tobytes() == batches[1][k].tobytes(), k
+    before = (ws.windowed_sample.launches, ws.windowed_sample.bwd_launches)
+    final = train(RAFTStereoConfig(hidden_dims=(32, 32, 32),
+                                   corr_implementation="reg_cuda"),
+                  cfg, device="cuda")
+    after = (ws.windowed_sample.launches, ws.windowed_sample.bwd_launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (4, 2)
+    from raft_stereo_tpu_torch.obs import read_events
+    steps = [e for e in read_events(str(tmp_path / "runs" / "card" /
+                                        "events.jsonl"))
+             if e["event"] == "step"]
+    assert len(steps) == 1 and steps[0]["skipped_updates"] == 0.0
+    assert final.endswith("card")
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """Save a stepped TrainState on the card and restore it into a fresh
+    one on the card: parameters, buffers and optimizer state bitwise."""
+    from raft_stereo_tpu_torch.config import TrainConfig
+    from raft_stereo_tpu_torch.training import resilience as rz
+    from raft_stereo_tpu_torch.training.checkpoint import (
+        restore_train_state, save_train_state)
+    from raft_stereo_tpu_torch.training.optim import fetch_optimizer
+    from raft_stereo_tpu_torch.training.state import TrainState
+
+    def fresh(seed):
+        model = init_weights(RAFTStereo(RAFTStereoConfig(
+            hidden_dims=(32, 32, 32))), torch.Generator().manual_seed(seed))
+        model.to(cuda)
+        return TrainState(model, fetch_optimizer(TrainConfig(num_steps=10),
+                                                 model.parameters()))
+    state = fresh(0)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for _ in range(2):
+        state.optimizer.step([torch.randn(p.shape, generator=g, device=cuda)
+                              for p in state.model.parameters()])
+    state.step = 2
+    path = save_train_state(str(tmp_path), "card", state, step=2,
+                            config_digest="d")
+    assert rz.verify_checkpoint(path, config_digest="d",
+                                tree_hash=rz.tree_structure_hash(fresh(1)))[0]
+    restored = restore_train_state(path, fresh(1))
+    want, got = rz.state_payload(state), rz.state_payload(restored)
+    for (pa, a), (pb, b) in zip(rz._leaves(want), rz._leaves(got)):
+        assert pa == pb
+        if isinstance(a, torch.Tensor):
+            assert a.device == b.device and torch.equal(a, b), pa
+        else:
+            assert a == b, pa

@@ -8,7 +8,8 @@ and the JAX package's readers and datasets.
   damaged PNGs raise, naming the file;
 * each port reader returns the JAX reader's arrays on the same file;
 * each dataset class's ``sample(i)`` is bitwise equal to the JAX class's
-  on the same synthetic tree; ``aug_params`` raises.
+  on the same synthetic tree; with ``aug_params`` (a crop size) the
+  augmented sample is the JAX dataset's for the same generator.
 """
 
 import json
@@ -353,7 +354,33 @@ def test_dataset_sample_equals_jax(tree, name):
 
 
 def test_aug_params_raise(tree):
-    with pytest.raises(ValueError, match="A10b"):
-        tds.KITTI({"crop_size": (32, 48)}, root=f"{tree}/KITTI")
-    with pytest.raises(ValueError, match="A10b"):
-        tds.SceneFlow(aug_params={}, root=str(tree))
+    """``aug_params`` no longer raises (it did before the augmentor was
+    ported): with a crop size the sample is the JAX dataset's augmented
+    sample for the same generator (and, without one, for the index-keyed
+    Philox default), images and valid bitwise, flow within 4e-5 of its
+    largest magnitude (tests/test_torch_augment.py); without a crop size
+    the frames are unaugmented."""
+    aug = {"crop_size": (32, 48), "min_scale": -0.2, "max_scale": 0.4}
+    for cls, root in ((tds.KITTI, f"{tree}/KITTI"),
+                      (tds.SceneFlow, str(tree))):
+        jcls = getattr(jds, cls.__name__)
+        kw = {} if cls is tds.KITTI else dict(dstype="frames_finalpass",
+                                                things_test=True)
+        got_ds, want_ds = cls(aug, root=root, **kw), jcls(aug, root=root,
+                                                          **kw)
+        assert len(got_ds) == len(want_ds) > 0
+        for i in range(len(got_ds)):
+            for rng in ((np.random.default_rng(i), np.random.default_rng(i)),
+                        (None, None)):
+                got, want = got_ds.sample(i, rng[0]), want_ds.sample(i,
+                                                                     rng[1])
+                assert got["image1"].shape == (32, 48, 3)
+                for k in ("image1", "image2", "valid"):
+                    assert np.array_equal(got[k], want[k]), (cls, i, k)
+                scale = max(float(np.abs(want["flow"]).max()), 1.0)
+                assert float(np.abs(got["flow"] - want["flow"]).max()) \
+                    <= 4e-5 * scale
+    plain = tds.SceneFlow(aug_params={}, root=str(tree),
+                          dstype="frames_finalpass", things_test=True)
+    assert plain.augmentor is None
+    assert plain.sample(0)["image1"].shape == (tp.EVAL_H, tp.EVAL_W, 3)

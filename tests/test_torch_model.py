@@ -120,7 +120,10 @@ def test_cli_flags_build_config():
                          "--shared_backbone", "--n_downsample", "3",
                          "--n_gru_layers", "2", "--slow_fast_gru",
                          "--mixed_precision", "--no_remat"])
-    assert tcli.model_config(args) == tconfig.realtime_config()
+    # --no_remat sets remat_refinement=False, as the JAX package's
+    # model_config does (it steers only the training forward)
+    assert tcli.model_config(args) == dataclasses.replace(
+        tconfig.realtime_config(), remat_refinement=False)
     assert args.device == "cuda"
     args = p.parse_args(["--restore_ckpt", "x", "-l", "a", "-r", "b",
                          "--fused_lookup", "on"])

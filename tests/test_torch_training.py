@@ -54,6 +54,7 @@ import jax.numpy as jnp
 
 from raft_stereo_tpu.config import RAFTStereoConfig as JConfig
 from raft_stereo_tpu.config import TrainConfig as JTrainConfig
+from raft_stereo_tpu.config import middlebury_finetune_config as j_middlebury
 from raft_stereo_tpu.config import realtime_config as j_realtime
 from raft_stereo_tpu.config import rvc_config as j_rvc
 from raft_stereo_tpu.config import sceneflow_config as j_sceneflow
@@ -137,6 +138,23 @@ def test_train_config_and_sceneflow_preset_match_jax():
     assert port_config(JConfig(fused_lookup=True)).fused_lookup is True
     with pytest.raises(ValueError, match="grad_accum_steps"):
         tconfig.TrainConfig(grad_accum_steps=0)
+    # every field of the JAX TrainConfig, the augmentation of both presets
+    assert ({f.name for f in dataclasses.fields(tconfig.TrainConfig)}
+            == {f.name for f in dataclasses.fields(JTrainConfig)})
+    assert tt.spatial_scale == (-0.2, 0.4)
+    assert tt.saturation_range == (0.0, 1.4)
+    jm2, jt2 = j_middlebury()
+    tm2, tt2 = tconfig.middlebury_finetune_config()
+    assert tm2 == port_config(jm2)
+    for f in dataclasses.fields(tconfig.TrainConfig):
+        assert getattr(tt2, f.name) == getattr(jt2, f.name), f.name
+    # one device: 0 and 1 accepted, more refused naming the queue item
+    for ok in (0, 1):
+        tconfig.TrainConfig(data_parallel=ok)
+    with pytest.raises(ValueError, match="A10c"):
+        tconfig.TrainConfig(data_parallel=2)
+    with pytest.raises(ValueError, match="A13"):
+        tconfig.TrainConfig(seq_parallel=2)
 
 
 @pytest.mark.parametrize("preset", ["default", "realtime", "rvc"])
