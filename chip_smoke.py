@@ -105,6 +105,42 @@ Phases, each reported as one JSON line, in the order they run:
    EPE of StereoPredictor.__call__ on the same pair, ms per frame.
    eval_cpu runs validate_eth3d on 2 frames at 64x128 (fp32 reg_cuda, 4
    iterations) on the card and on the CPU: EPE within 1e-3 px.
+11c. serve, serve_realtime, serve_fused, loadtest (and serve_http, run
+   after train_trainer, whose checkpoints it serves) — the serving path
+   (raft_stereo_tpu_torch/serve) on seeded weights at 375x1242 (the
+   384x1248 bucket). serve: StereoServer on the default architecture
+   (reg_cuda, fp32, 32 iterations), max_batch 4, window 2: a batch-1
+   served flow bitwise the predictor's; four concurrent requests in one
+   dispatch, bitwise the predictor's batch of four, departing from batch
+   1 first by a rounding difference from equal inputs, within 1e-3 px of
+   batch 1 at 4 iterations (the depth of cpu_parity) and reported at 1, 4
+   and 32 (the refinement amplifies the departure); a NaN pixel in one
+   of four fails that request alone, the three others bitwise their
+   clean-batch flows; a three-frame warm-start session bitwise the model
+   driven by hand with the previous frame's low-res flow as flow_init; a
+   reload mid-traffic drops nothing and later flows are bitwise a fresh
+   server's on the new weights; drain finishes the admitted requests and
+   refuses new ones; 32 windowed_sample launches a dispatch and no other
+   kernel's, a 32-entry residual curve a request. serve_realtime:
+   realtime_config() (bf16, 7 iterations), batch 1, one client waiting
+   for each result: 7 launches a dispatch, median and p99 latency,
+   pairs/s and the card's idle share (torch.profiler). serve_fused:
+   fused_width 1248: 375x1242 rides the +fused bucket (32 fused_corr
+   launches a dispatch, no windowed_sample) within 1e-3 px of serve's
+   reg_cuda flow at 4 iterations (reported at 1, 4 and 32), 188x621
+   rides 192x640 (32 windowed_sample, no fused_corr). serve_http:
+   python3 -m raft_stereo_tpu_torch.serve in a
+   session of its own on train_trainer's final checkpoint: a POSTed
+   pair's flow bitwise the in-process server's, /healthz /slo /metrics,
+   a newer checkpoint reloaded on SIGHUP (the log names it; the next flow
+   is the new weights'), SIGTERM drains with exit 0, nothing left
+   running, a valid events.jsonl. loadtest: python3 -m
+   raft_stereo_tpu_torch.serve.loadtest on realtime_config(), 7
+   iterations, three buckets (375x1242, 352x1216, 320x1024), 8 clients
+   x 4 requests, one video stream, request 5 poisoned: exit 0, nothing
+   lost, exactly one nonfinite_output, the video frames served warm,
+   served against sequential pairs/s, p50/p99 latency, both
+   events.jsonl valid.
 12. train — the SceneFlow recipe (sceneflow_config(): bf16 compute, bf16
    volume) with reg_cuda, batch 8 at 320x720, 22 iterations, through
    make_train_step on a seeded synthetic batch: a warm-up step, then timed
@@ -1749,7 +1785,7 @@ def run_train_trainer(dev, tree, work, all_kernels, kernel, impl="reg_cuda",
         / sum(t for _, t in inner),
         peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
         checkpoint_bytes=ckpt_bytes,
-        save_s=[round(t, 3) for t, _ in saves], losses=losses,
+        save_s=[round(t, 3) for t, _ in saves], losses=losses, final=final,
         data_wait_s=[r["data_wait_s"] for r in records],
         dispatch_s=[r["dispatch_s"] for r in records],
         heartbeats=beats, validations=sum(e["event"] == "validation"
@@ -2180,7 +2216,7 @@ def run_eval_kitti(dev, work, all_kernels, ws_kernel):
 
 def first_divergence(pred, pair, iters=1):
     """The first leaf module, in call order, whose output for frame 0
-    differs between a forward of ``pair`` (two frames, one dispatch) and
+    differs between a forward of ``pair`` (its frames in one dispatch) and
     a forward of frame 0 alone: ``(name, type, inputs_equal, max_abs,
     scale)`` (``scale`` the largest magnitude of frame 0's output alone),
     or None when every output is bitwise equal."""
@@ -2211,7 +2247,7 @@ def first_divergence(pred, pair, iters=1):
                               .item(), out1.float().abs().max().item()))
         return hook
 
-    for batch, sl in ((1, slice(0, 1)), (2, slice(0, 2))):
+    for batch, sl in ((1, slice(0, 1)), (2, slice(None))):
         record.calls = 0
         handles = [m.register_forward_hook(record(n, batch))
                    for n, m in leaves]
@@ -2480,6 +2516,551 @@ def run_eval_cpu(dev, work, ws_kernel):
           f"eval_cpu: card and CPU EPE differ by {dev_px} px")
 
 
+# the serving phases: requests of KITTI size, padded to the 384x1248 bucket
+SERVE_HW = (375, 1242)
+SERVE_SMALL_HW = (188, 621)  # pads to 192x640, below SERVE_FUSED_WIDTH
+SERVE_FUSED_WIDTH = 1248
+SERVE_LINGER_S = 0.5         # long enough for four submits to group
+# depths at which serve reports batch 4 against batch 1 (besides the
+# served 32); the bar holds at 4, the card-vs-CPU parity depth
+SERVE_DEPTHS = (1, 4)
+REALTIME_REQUESTS = 30
+REALTIME_PROFILED = 10
+LOADTEST_SHAPES = ("375x1242", "352x1216", "320x1024")
+
+
+def padded_hw(hw):
+    """The /32 bucket of a raw (H, W)."""
+    return tuple(-(-n // 32) * 32 for n in hw)
+
+
+def serve_pairs(n, seed, hw=None):
+    """``n`` textured HWC pairs (stereo_pair's, shift 12 px) of
+    ``hw`` (default SERVE_HW)."""
+    return [tuple(x[0] for x in stereo_pair(*(hw or SERVE_HW), seed + i))
+            for i in range(n)]
+
+
+def served(server, all_kernels, submits):
+    """Submit ``submits`` ((left, right, kwargs) each) together and wait
+    for every result; each kernel's launches in that window."""
+    for k in all_kernels:
+        k.launches = 0
+    handles = [server.submit(left, right, **kw)
+               for left, right, kw in submits]
+    results = [h.result(timeout=600) for h in handles]
+    return results, {k.__name__: k.launches for k in all_kernels}
+
+
+def check_launches(phase, counts, kernel, per_dispatch, dispatches=1):
+    """``kernel`` launched ``per_dispatch`` times a dispatch and no other
+    kernel at all."""
+    want = {name: 0 for name in counts}
+    want[kernel.__name__] = per_dispatch * dispatches
+    check(counts == want, f"{phase}: launches {counts}, expected {want}")
+
+
+def run_serve(dev, all_kernels, ws_kernel, state):
+    """serve: StereoServer on the default architecture (reg_cuda, fp32,
+    32 iterations) at 375x1242 (bucket 384x1248), max_batch 4, window 2,
+    linger SERVE_LINGER_S: a batch-1 served flow bitwise the predictor's;
+    four concurrent requests in one dispatch, bitwise the predictor's
+    batch of four; against batch 1 their first departure a rounding
+    difference from equal inputs (first_divergence), within
+    CPU_PARITY_TOL_PX at 4 iterations and reported at 1, 4 and the
+    served 32 (max and mean per request); a NaN pixel in one of four
+    fails that request alone and leaves the three others bitwise their
+    clean-batch flows; a three-frame warm-start session bitwise
+    RAFTStereo.forward driven by hand with the previous frame's low-res
+    flow; a reload mid-traffic drops nothing and later flows are bitwise
+    a fresh server's on the new weights; drain finishes what was admitted
+    and refuses the rest. windowed_sample 32 times a dispatch, nothing
+    else; a 32-entry residual curve a request."""
+    import numpy as np
+    import torch
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.inference import StereoPredictor
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    from raft_stereo_tpu_torch.serve import (ServeConfig, ServerDraining,
+                                             StereoServer)
+    from raft_stereo_tpu_torch.serve.cache import padded_batch
+    t0 = time.perf_counter()
+    cfg = RAFTStereoConfig(corr_implementation="reg_cuda")
+    iters = EVAL_ITERS
+    bucket = padded_hw(SERVE_HW)
+    label = f"{bucket[0]}x{bucket[1]}b1i{iters}"
+    knobs = dict(max_batch=4, window=2, default_iters=iters,
+                 linger_s=SERVE_LINGER_S)
+    pairs = serve_pairs(4, SEED + 300)
+    pred = StereoPredictor(cfg, state, valid_iters=iters, device=dev)
+    server = StereoServer(cfg, state, ServeConfig(**knobs), device=dev)
+    fresh = None
+    try:
+        server.warmup([SERVE_HW], batch_sizes=(1, 4))
+        server.warmup([SERVE_HW], batch_sizes=(1,), warm=True)
+        single = [pred(left[None], right[None])[0] for left, right in pairs]
+        # batch 1 against the predictor
+        (res,), counts = served(server, all_kernels, [(*pairs[0], {})])
+        check_launches("serve b1", counts, ws_kernel, iters)
+        check(res.ok and res.batch_size == 1
+              and res.bucket == label
+              and np.array_equal(res.flow, single[0]),
+              f"serve: batch-1 flow not the predictor's ({res.bucket})")
+        check(res.residuals.shape == (iters,)
+              and np.isfinite(res.residuals).all(),
+              f"serve: residual curve {res.residuals}")
+        b1_ms = res.latency_s * 1e3
+        # four in one dispatch, then the same with one poisoned
+        clean, counts = served(server, all_kernels,
+                               [(l, r, {}) for l, r in pairs])
+        check_launches("serve b4", counts, ws_kernel, iters)
+        check(all(r.ok and r.batch_size == 4 for r in clean),
+              f"serve: batch sizes {[r.batch_size for r in clean]}")
+        # batch 4 is the predictor's batch 4 bitwise; against batch 1 the
+        # convolutions' algorithms differ by batch size: the first
+        # departure is a rounding difference from equal inputs, held to
+        # the parity bar at the card-vs-CPU parity depth (4 iterations),
+        # and reported at every depth (the refinement amplifies it)
+        stacked = tuple(np.stack(x) for x in zip(*pairs))
+        check(all(np.array_equal(r.flow, f) for r, f in
+                  zip(clean, pred(*stacked))),
+              "serve: batch 4 served is not the predictor's batch 4")
+        b4_dev = {}
+        for depth in SERVE_DEPTHS:
+            four = pred(*stacked, depth)
+            one = [pred(l[None], r[None], depth)[0] for l, r in pairs]
+            diff = [np.abs(a - b) for a, b in zip(four, one)]
+            b4_dev[depth] = dict(max_abs_px=[float(d.max()) for d in diff],
+                                 mean_abs_px=[float(d.mean())
+                                              for d in diff])
+        b4_dev[iters] = dict(
+            max_abs_px=[float(np.abs(r.flow - s).max())
+                        for r, s in zip(clean, single)],
+            mean_abs_px=[float(np.abs(r.flow - s).mean())
+                         for r, s in zip(clean, single)])
+        diverge = first_divergence(pred, stacked)
+        check(diverge is None or (diverge[2] and diverge[3]
+                                  <= DEPARTURE_REL * diverge[4]),
+              f"serve: batch 4 departs from batch 1 at {diverge}")
+        check(max(b4_dev[4]["max_abs_px"]) <= CPU_PARITY_TOL_PX,
+              f"serve: batch 4 against batch 1 at 4 iterations "
+              f"{b4_dev[4]} px")
+        bad = [(l.copy(), r) for l, r in pairs]
+        bad[2][0][0, 0, 0] = np.nan
+        poisoned, counts = served(server, all_kernels,
+                                  [(l, r, {}) for l, r in bad])
+        check_launches("serve poison", counts, ws_kernel, iters)
+        check([r.ok for r in poisoned] == [True, True, False, True]
+              and poisoned[2].error_kind == "nonfinite_output"
+              and all(poisoned[j].flow is not None and np.array_equal(
+                  poisoned[j].flow, clean[j].flow) for j in (0, 1, 3)),
+              f"serve: poison isolation {[r.error_kind for r in poisoned]}")
+        # a warm-start session against the model driven by hand
+        f = cfg.factor
+        init = np.zeros((1, bucket[0] // f, bucket[1] // f, 2), np.float32)
+        for k, (left, right) in enumerate(pairs[:3]):
+            (res,), counts = served(server, all_kernels, [
+                (left, right, dict(stream="cam", warm_start=True))])
+            check_launches("serve warm", counts, ws_kernel, iters)
+            im1, padders, _ = padded_batch([left], bucket, dev)
+            im2, _, _ = padded_batch([right], bucket, dev)
+            with torch.inference_mode():
+                lr, up = server.cache.model(
+                    im1, im2, iters=iters,
+                    flow_init=torch.from_numpy(init).to(dev))
+            check(res.ok and res.bucket == label + "w"
+                  and np.array_equal(res.flow,
+                                     padders[0].unpad(up)[0].cpu().numpy())
+                  and np.array_equal(res.flow_lowres, lr[0].cpu().numpy()),
+                  f"serve: warm frame {k} is not the forward from the "
+                  "previous frame's low-res flow")
+            init = res.flow_lowres[None]
+        # a reload mid-traffic
+        new = seeded_weights(RAFTStereo(cfg), SEED + 1)
+        handles = [server.submit(l, r) for l, r in pairs]
+        server.reload(new, note="chip_smoke")
+        handles.append(server.submit(*pairs[3]))
+        check(all(h.result(timeout=600).ok for h in handles),
+              "serve: a request around the reload failed")
+        (after,), _ = served(server, all_kernels, [(*pairs[1], {})])
+        fresh = StereoServer(cfg, new, ServeConfig(**knobs), device=dev)
+        want = fresh.submit(*pairs[1]).result(timeout=600)
+        check(after.ok and np.array_equal(after.flow, want.flow)
+              and not np.array_equal(after.flow, single[1]),
+              "serve: after the reload, not the fresh server's flow")
+        # drain
+        handles = [server.submit(l, r) for l, r in pairs[:3]]
+        server.request_drain()
+        try:
+            server.submit(*pairs[3])
+            refused = False
+        except ServerDraining:
+            refused = True
+        check(refused and all(h.result(timeout=600).ok for h in handles)
+              and server.join(timeout=600),
+              "serve: drain did not finish what it admitted")
+        stats = server.stats()
+    finally:
+        server.close(timeout=600)
+        if fresh is not None:
+            fresh.close(timeout=600)
+    result = dict(config="default, reg_cuda, fp32", shape=list(SERVE_HW),
+                  bucket=list(bucket), iters=iters, max_batch=4, window=2,
+                  linger_s=SERVE_LINGER_S,
+                  launches_per_dispatch=iters,
+                  batch4_vs_batch1_by_iterations=b4_dev,
+                  batch4_first_departure=diverge,
+                  bound_px_at_4_iterations=CPU_PARITY_TOL_PX,
+                  b1_latency_ms=b1_ms,
+                  b4_latency_ms=[r.latency_s * 1e3 for r in clean],
+                  residual_curve_len=iters, stats=stats,
+                  seconds=time.perf_counter() - t0)
+    emit("serve", **result)
+    return result, single[0]
+
+
+def run_serve_realtime(dev, all_kernels, ws_kernel):
+    """serve_realtime: the server on realtime_config() (bf16, 7
+    iterations) at 375x1242, batch 1, one client waiting for each result
+    (a camera's loop): 7 windowed_sample launches a dispatch;
+    REALTIME_REQUESTS timed requests (median and p99 latency, pairs/s);
+    REALTIME_PROFILED more under torch.profiler for the card's idle
+    share. No bound: figures."""
+    import numpy as np
+    from raft_stereo_tpu_torch.config import realtime_config
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    from raft_stereo_tpu_torch.serve import ServeConfig, StereoServer
+    cfg = realtime_config()
+    iters = 7
+    state = seeded_weights(RAFTStereo(cfg), SEED)
+    pairs = serve_pairs(4, SEED + 320)
+    server = StereoServer(cfg, state, ServeConfig(
+        max_batch=1, window=2, default_iters=iters), device=dev)
+    try:
+        server.warmup([SERVE_HW], batch_sizes=(1,))
+        (res,), counts = served(server, all_kernels, [(*pairs[0], {})])
+        check_launches("serve_realtime", counts, ws_kernel, iters)
+        check(res.ok and res.residuals.shape == (iters,),
+              "serve_realtime: a request failed")
+        lat = []
+        t0 = time.perf_counter()
+        for i in range(REALTIME_REQUESTS):
+            r = server.submit(*pairs[i % 4]).result(timeout=600)
+            check(r.ok, "serve_realtime: a request failed")
+            lat.append(r.latency_s * 1e3)
+        wall = time.perf_counter() - t0
+
+        def profiled():
+            for i in range(REALTIME_PROFILED):
+                server.submit(*pairs[i % 4]).result(timeout=600)
+        idle, n_kernels, busy_ms, span_ms = idle_share(profiled)
+    finally:
+        server.close(timeout=600)
+    result = dict(config="realtime_config(), bf16", shape=list(SERVE_HW),
+                  bucket=list(padded_hw(SERVE_HW)), iters=iters,
+                  requests=len(lat),
+                  launches_per_dispatch=iters,
+                  latency_ms_p50=float(np.percentile(lat, 50)),
+                  latency_ms_p99=float(np.percentile(lat, 99)),
+                  latency_ms=lat, pairs_per_s=len(lat) / wall,
+                  idle_share=idle, kernels_per_request=n_kernels
+                  / REALTIME_PROFILED,
+                  busy_ms_per_request=busy_ms / REALTIME_PROFILED,
+                  span_ms=span_ms)
+    emit("serve_realtime", **result)
+    return result
+
+
+def run_serve_fused(dev, all_kernels, ws_kernel, fc_kernel, state,
+                    reg_flow):
+    """serve_fused: one server (default architecture, reg_cuda, fp32, 32
+    iterations) with fused_width=SERVE_FUSED_WIDTH: a 375x1242 request
+    rides the 384x1248+fused bucket (fused_corr 32 times a dispatch, no
+    windowed_sample), a 188x621 request rides 192x640 (windowed_sample
+    32 times, no fused_corr). The +fused flow against reg_cuda's for the
+    same pair (serve's, and the predictor's at SERVE_DEPTHS): another
+    order of summation, within CPU_PARITY_TOL_PX at 4 iterations and
+    reported at 1, 4 and 32."""
+    import numpy as np
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.inference import StereoPredictor
+    from raft_stereo_tpu_torch.serve import ServeConfig, StereoServer
+    cfg = RAFTStereoConfig(corr_implementation="reg_cuda")
+    iters = EVAL_ITERS
+    big = serve_pairs(1, SEED + 300)[0]
+    small = serve_pairs(1, SEED + 330, SERVE_SMALL_HW)[0]
+    pred = StereoPredictor(cfg, state, valid_iters=iters, device=dev)
+    reg = {d: pred(big[0][None], big[1][None], d)[0] for d in SERVE_DEPTHS}
+    reg[iters] = reg_flow
+    del pred
+    server = StereoServer(cfg, state, ServeConfig(
+        max_batch=1, default_iters=iters, fused_width=SERVE_FUSED_WIDTH),
+        device=dev)
+    try:
+        server.warmup([SERVE_HW, SERVE_SMALL_HW], batch_sizes=(1,))
+        (wide,), counts = served(server, all_kernels, [(*big, {})])
+        check_launches("serve_fused +fused", counts, fc_kernel, iters)
+        (narrow,), counts_narrow = served(server, all_kernels,
+                                          [(*small, {})])
+        check_launches("serve_fused reg", counts_narrow, ws_kernel, iters)
+        fused = {d: server.submit(*big, iters=d).result(timeout=600)
+                 for d in SERVE_DEPTHS}
+        fused[iters] = wide
+    finally:
+        server.close(timeout=600)
+    (bh, bw), (sh, sw) = padded_hw(SERVE_HW), padded_hw(SERVE_SMALL_HW)
+    check(wide.ok and wide.bucket == f"{bh}x{bw}b1i{iters}+fused"
+          and narrow.ok and narrow.bucket == f"{sh}x{sw}b1i{iters}"
+          and all(r.ok and r.bucket.endswith("+fused")
+                  for r in fused.values()),
+          f"serve_fused: buckets {wide.bucket}, {narrow.bucket}")
+    dev_px = {d: dict(max_abs_px=float(np.abs(fused[d].flow - reg[d]).max()),
+                      mean_abs_px=float(np.abs(fused[d].flow
+                                               - reg[d]).mean()))
+              for d in fused}
+    result = dict(fused_width=SERVE_FUSED_WIDTH,
+                  buckets=[wide.bucket, narrow.bucket], iters=iters,
+                  launches_per_dispatch={"+fused": counts,
+                                         "reg": counts_narrow},
+                  fused_vs_reg_by_iterations=dev_px,
+                  bound_px_at_4_iterations=CPU_PARITY_TOL_PX,
+                  latency_ms=[wide.latency_s * 1e3, narrow.latency_s * 1e3])
+    emit("serve_fused", **result)
+    check(dev_px[4]["max_abs_px"] <= CPU_PARITY_TOL_PX,
+          f"serve_fused: +fused and reg_cuda flows {dev_px} px apart")
+    return result
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_for_line(path, text, proc, timeout):
+    """Wait until the file ``path`` holds ``text`` (False if ``proc``
+    exits first or the time runs out)."""
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        with open(path, errors="replace") as f:
+            if text in f.read():
+                return True
+        if proc.poll() is not None:
+            return False
+        time.sleep(0.1)
+    return False
+
+
+def http_predict(base, left, right):
+    """POST one pair to /v1/predict: (status, headers, flow or None)."""
+    import io
+    import urllib.error
+    import urllib.request
+    import numpy as np
+    buf = io.BytesIO()
+    np.savez(buf, left=left, right=right)
+    req = urllib.request.Request(f"{base}/v1/predict", data=buf.getvalue(),
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            with np.load(io.BytesIO(resp.read())) as npz:
+                return resp.status, dict(resp.headers), npz["flow"]
+    except urllib.error.HTTPError as err:
+        return err.code, dict(err.headers), None
+
+
+def run_serve_http(dev, work, final):
+    """serve_http: python3 -m raft_stereo_tpu_torch.serve in a session of
+    its own on the card (default architecture, reg_cuda, 32 iterations,
+    PyTorch's TF32 defaults as the entry point leaves them), its weights
+    train_trainer's final checkpoint (--restore_ckpt) and --ckpt_dir its
+    directory: a POSTed pair's flow bitwise the in-process server's on the
+    same weights; /healthz, /slo and /metrics answer; a newer checkpoint
+    written into the directory, SIGHUP reloads it (the log names it) and
+    the next flow is the in-process server's on those weights; SIGTERM
+    drains, exit 0, nothing left running; an events.jsonl the port's
+    validate_events passes."""
+    import signal
+    import urllib.request
+    import numpy as np
+    import torch
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    from raft_stereo_tpu_torch.obs import read_events, validate_events
+    from raft_stereo_tpu_torch.serve import ServeConfig, StereoServer
+    from raft_stereo_tpu_torch.training.checkpoint import (load_payload,
+                                                           save_train_state)
+    from raft_stereo_tpu_torch.utils.weights import load_weights
+    t0 = time.perf_counter()
+    cfg = RAFTStereoConfig(corr_implementation="reg_cuda")
+    ckpt_dir, name = os.path.split(final)
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    run_dir = os.path.join(work, "serve_http")
+    log_path = os.path.join(work, "serve_http.log")
+    cmd = [sys.executable, "-m", "raft_stereo_tpu_torch.serve",
+           "--restore_ckpt", final, "--ckpt_dir", ckpt_dir,
+           "--ckpt_name", name, "--corr_implementation", "reg_cuda",
+           "--iters", str(EVAL_ITERS), "--port", str(port),
+           "--max_batch", "1", "--warm_shapes",
+           f"{SERVE_HW[0]}x{SERVE_HW[1]}", "--run_dir", run_dir,
+           "--heartbeat_every", "2"]
+    left, right = serve_pairs(1, SEED + 340)[0]
+    # the entry point leaves PyTorch's TF32 defaults (cuDNN's on): the
+    # in-process server runs under the same
+    torch.backends.cudnn.allow_tf32 = True
+    local = None
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+    try:
+        check(wait_for_line(log_path, "listening on", proc, 600),
+              "serve_http: the server did not start:\n"
+              + open(log_path).read()[-3000:])
+        started = time.perf_counter() - t0
+        local = StereoServer(cfg, load_weights(final, cfg),
+                             ServeConfig(max_batch=1,
+                                         default_iters=EVAL_ITERS),
+                             device=dev)
+        status, headers, flow = http_predict(base, left, right)
+        want = local.submit(left, right).result(timeout=600)
+        check(status == 200 and np.array_equal(flow, want.flow),
+              f"serve_http: POST {status}, not the in-process flow")
+        answers = {}
+        for path in ("/healthz", "/slo", "/metrics"):
+            with urllib.request.urlopen(base + path, timeout=60) as resp:
+                answers[path] = (resp.status, resp.read().decode())
+        check(all(s == 200 for s, _ in answers.values())
+              and json.loads(answers["/slo"][1])["completed"] == 1
+              and "raft_serve_requests_completed_total"
+              in answers["/metrics"][1],
+              f"serve_http: endpoints {answers}")
+        # a newer checkpoint of the same run, then SIGHUP
+        new = seeded_weights(RAFTStereo(cfg), SEED + 2)
+        payload = load_payload(final)
+        payload["model"] = new
+        newer = save_train_state(ckpt_dir, name, payload,
+                                 step=TRAINER_STEPS + 1)
+        os.kill(proc.pid, signal.SIGHUP)
+        check(wait_for_line(log_path, f"hot-reloaded model weights "
+                                      f"({newer})", proc, 120),
+              "serve_http: SIGHUP did not reload " + newer + ":\n"
+              + open(log_path).read()[-3000:])
+        status2, headers2, flow2 = http_predict(base, left, right)
+        local.reload(new)
+        want2 = local.submit(left, right).result(timeout=600)
+        check(status2 == 200 and np.array_equal(flow2, want2.flow)
+              and not np.array_equal(flow2, flow),
+              "serve_http: after SIGHUP, not the new weights' flow")
+        os.kill(proc.pid, signal.SIGTERM)
+        rc = proc.wait(timeout=600)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        if local is not None:
+            local.close(timeout=600)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        stop_leftovers({pid: c for pid, (_, sid, c)
+                        in live_processes().items() if sid == proc.pid},
+                       "serve_http")
+    text = open(log_path).read()
+    check(rc == 0 and "drain complete" in text,
+          f"serve_http: exit {rc}:\n{text[-3000:]}")
+    events = read_events(os.path.join(run_dir, "events.jsonl"))
+    errors = validate_events(events)
+    requests = [e for e in events if e["event"] == "request"]
+    check(not errors and len(requests) == 2
+          and all(e["status"] == "ok" for e in requests),
+          f"serve_http: events {errors[:5]}, {len(requests)} requests")
+    result = dict(command=" ".join(cmd[1:]), exit_code=rc,
+                  startup_s=started, reloaded=newer,
+                  headers=[headers, headers2],
+                  requests=len(requests), seconds=time.perf_counter() - t0)
+    emit("serve_http", **result)
+    return result
+
+
+def run_loadtest(work):
+    """loadtest: python3 -m raft_stereo_tpu_torch.serve.loadtest on
+    realtime_config() (seeded weights in a .pth), 7 iterations, shapes
+    LOADTEST_SHAPES (three buckets), 8 clients x 4 requests, one video
+    stream, request 5 poisoned, in a session of its own: exit 0, nothing
+    lost, exactly one nonfinite_output (the poisoned one), the video
+    session's frames served warm; served pairs/s beside the sequential
+    baseline's, p50/p99 latency; both runs' events.jsonl pass the port's
+    validate_events."""
+    import torch
+    from raft_stereo_tpu_torch.config import realtime_config
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    from raft_stereo_tpu_torch.obs import read_events, validate_events
+    t0 = time.perf_counter()
+    ckpt = os.path.join(work, "realtime_seeded.pth")
+    torch.save(seeded_weights(RAFTStereo(realtime_config()), SEED), ckpt)
+    run_dir = os.path.join(work, "loadtest")
+    log_path = os.path.join(work, "loadtest.log")
+    cmd = [sys.executable, "-m", "raft_stereo_tpu_torch.serve.loadtest",
+           "--restore_ckpt", ckpt, "--shared_backbone", "--n_downsample",
+           "3", "--n_gru_layers", "2", "--slow_fast_gru",
+           "--corr_implementation", "reg_cuda", "--mixed_precision",
+           "--iters", "7", "--shapes", *LOADTEST_SHAPES, "--clients", "8",
+           "--requests_per_client", "4", "--video_streams", "1",
+           "--poison_at", "5", "--run_dir", run_dir, "--no_progress",
+           "--heartbeat_every", "2"]
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        stop_leftovers({pid: c for pid, (_, sid, c)
+                        in live_processes().items() if sid == proc.pid},
+                       "loadtest")
+    text = open(log_path).read()
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith("LOADTEST summary ")]
+    check(rc == 0 and lines, f"loadtest: exit {rc}:\n{text[-3000:]}")
+    summary = json.loads(lines[-1][len("LOADTEST summary "):])
+    served_ = summary["served"]
+    kinds = {}
+    for phase in ("seq", "serve"):
+        events = read_events(os.path.join(run_dir, phase, "events.jsonl"))
+        errors = validate_events(events)
+        check(not errors, f"loadtest {phase}: events {errors[:5]}")
+        kinds[phase] = events
+    requests = [e for e in kinds["serve"] if e["event"] == "request"]
+    nonfinite = [e for e in requests if e["status"] == "error"]
+    warm = [e for e in requests if e.get("stream") == "video0"]
+    buckets = sorted({e["bucket"].split("b")[0] for e in requests})
+    check(served_["lost"] == 0 and served_["failed"] == 1
+          and served_["poisoned_failed"] == 1 and len(nonfinite) == 1
+          and "non-finite" in nonfinite[0].get("error", "")
+          and len(warm) == 4 and all(e["status"] == "ok"
+                                     and e["bucket"].endswith("w")
+                                     for e in warm)
+          and len(buckets) == 3,
+          f"loadtest: {served_}, {len(nonfinite)} errors, warm {warm}")
+    result = dict(command=" ".join(cmd[1:]), exit_code=rc,
+                  buckets=buckets, requests=served_["submitted"],
+                  ok=served_["ok"], failed=served_["failed"],
+                  lost=served_["lost"], warm_frames=len(warm),
+                  served_pairs_per_s=served_["pairs_per_sec"],
+                  sequential_pairs_per_s=summary["sequential"][
+                      "pairs_per_sec"],
+                  latency_ms_p50=served_["slo"]["p50_ms"],
+                  latency_ms_p99=served_["slo"]["p99_ms"],
+                  batch_sizes=sorted({e["batch_size"] for e in requests}),
+                  seconds=time.perf_counter() - t0)
+    emit("loadtest", **result)
+    return result
+
+
 def main():
     import numpy as np
     import torch
@@ -2726,6 +3307,16 @@ def main():
         eval_mb = run_eval_middlebury(dev, work, all_kernels, fused_corr)
         run_eval_cpu(dev, work, windowed_sample)
 
+    # the serving path: the scheduler on the default architecture, the
+    # realtime preset, the +fused flavour, and the load-test entry point
+    serve, reg_flow = run_serve(dev, all_kernels, windowed_sample,
+                                default_state)
+    serve_rt = run_serve_realtime(dev, all_kernels, windowed_sample)
+    serve_fused = run_serve_fused(dev, all_kernels, windowed_sample,
+                                  fused_corr, default_state, reg_flow)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as work:
+        run_loadtest(work)
+
     # 8-9. training steps at the SceneFlow recipe's shape, a NaN step;
     # then the same recipe with alt_cuda, with alt_pallas and with the
     # fused lookup
@@ -2777,6 +3368,8 @@ def main():
         train_loader = run_train_loader(tree)
         trainer = run_train_trainer(dev, tree, work, all_kernels,
                                     windowed_sample)
+        # the HTTP entry point on the trainer's own checkpoints
+        run_serve_http(dev, work, trainer["final"])
         run_train_trainer(dev, tree, work, all_kernels, windowed_sample,
                           phase="train_trainer_steady", steps=STEADY_STEPS,
                           skip=STEADY_SKIP)
@@ -3001,6 +3594,9 @@ def main():
         "launches_trainer_per_step": trainer["launches_per_step"][0][0],
         "launches_eval_kitti_per_frame": eval_kitti["launches_per_frame"],
         "launches_eval_microbatch_per_dispatch": eval_ub,
+        "launches_serve_per_dispatch": serve["launches_per_dispatch"],
+        "launches_serve_realtime_per_dispatch":
+        serve_rt["launches_per_dispatch"],
         "max_abs_err": max(max_err, ws_err["fwd"]),
         "ms": ws_fwd["ms"], "plain_ms": ws_fwd["plain_ms"],
         "bound_ms": ws_fwd["bound_ms"], "bound_by": ws_fwd["bound_by"],
@@ -3061,6 +3657,8 @@ def main():
           trainer_fused["launches_per_step"][0][0],
           "launches_eval_middlebury": eval_mb["launches"][
               fused_corr.__name__],
+          "launches_serve_per_dispatch": serve_fused[
+              "launches_per_dispatch"]["+fused"][fused_corr.__name__],
           "ms_train": rnd(fused_rows["fwd_train"])[0]["ms"],
           "ms_levels_one_each": [r["ms"] for r in rnd(
               fused_rows["fwd_level"])]},

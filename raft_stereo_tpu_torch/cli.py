@@ -2,9 +2,11 @@
 
 The flag surface is the JAX package's (``raft_stereo_tpu/cli.py``
 ``add_model_args``, ``add_train_args``, ``build_train_parser``,
-``build_eval_parser`` and ``build_demo_parser``) plus ``--device``. Flags that only steer training memory or the JAX package's
-TPU kernels (such as ``--fused_block_w``) are accepted so that the same
-command lines parse; test-mode inference does not read them.
+``build_eval_parser``, ``build_demo_parser``, ``add_serve_args``,
+``build_serve_parser`` and ``build_loadtest_parser``) plus ``--device``.
+Flags that only steer training memory or the JAX package's TPU kernels
+(such as ``--fused_block_w``) are accepted so that the same command lines
+parse; test-mode inference does not read them.
 ``--corr_implementation alt_cuda`` runs the memoryless ``fused_corr``
 kernels, ``alt_pallas`` the ``alt_corr`` kernels, and ``--fused_lookup on``
 the ``fused_lookup`` kernel.
@@ -15,6 +17,11 @@ from __future__ import annotations
 import argparse
 
 from raft_stereo_tpu_torch.config import RAFTStereoConfig, TrainConfig
+
+
+RESTORE_HELP = ("reference .pth checkpoint or a checkpoint directory "
+                "written by the port's trainer (default: seeded random "
+                "weights)")
 
 
 def add_model_args(parser: argparse.ArgumentParser) -> None:
@@ -247,7 +254,8 @@ def build_demo_parser() -> argparse.ArgumentParser:
     """The demo flag surface (reference demo.py) plus ``--device``."""
     parser = argparse.ArgumentParser(description="RAFT-Stereo PyTorch demo")
     parser.add_argument("--restore_ckpt", required=True,
-                        help="reference .pth checkpoint")
+                        help="reference .pth checkpoint or a checkpoint "
+                             "directory written by the port's trainer")
     parser.add_argument("-l", "--left_imgs", required=True,
                         help="glob for left images")
     parser.add_argument("-r", "--right_imgs", required=True,
@@ -268,8 +276,7 @@ def build_eval_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="RAFT-Stereo PyTorch "
                                                  "evaluation")
     parser.add_argument("--restore_ckpt", default=None,
-                        help="reference .pth checkpoint (default: seeded "
-                             "random weights)")
+                        help=RESTORE_HELP)
     parser.add_argument("--run_dir", default=None,
                         help="write events.jsonl telemetry (per-frame timing "
                              "+ results) under this run directory")
@@ -308,5 +315,158 @@ def build_eval_parser() -> argparse.ArgumentParser:
     c.add_argument("--iter_epe", action="store_true")
     c.add_argument("--iter_policy", default=None, metavar="PATH")
     c.add_argument("--no_numerics", action="store_true")
+    add_model_args(parser)
+    return parser
+
+
+def add_serve_args(parser: argparse.ArgumentParser) -> None:
+    """Scheduler and queue knobs shared by serve and loadtest."""
+    g = parser.add_argument_group(
+        "serving", "continuous-batching scheduler (raft_stereo_tpu_torch/"
+        "serve)")
+    g.add_argument("--max_batch", type=int, default=4,
+                   help="max requests stacked through one dispatch")
+    g.add_argument("--queue_depth", type=int, default=64,
+                   help="bounded request-queue depth (admission "
+                        "backpressure past this)")
+    g.add_argument("--window", type=int, default=2,
+                   help="max device dispatches in flight")
+    g.add_argument("--iters", type=int, default=32,
+                   help="refinement iterations per request (the request "
+                        "may override)")
+    g.add_argument("--bucket", type=int, default=0,
+                   help="pad request shapes up to multiples of this to "
+                        "bound the buckets (0 = exact /32 padding)")
+    g.add_argument("--linger_ms", type=float, default=0.0,
+                   help="wait up to this long for same-bucket stragglers "
+                        "while a batch is below max_batch")
+    g.add_argument("--no_aot", action="store_true",
+                   help="no warm-up forward per bucket before traffic; a "
+                        "bucket's first request pays for it")
+    g.add_argument("--slo_every", type=int, default=16,
+                   help="emit one `slo` rollup event every N retirements")
+    g.add_argument("--no_converge", action="store_true",
+                   help="serve without the per-request convergence curve: "
+                        "no converge events, no per-bucket slo quality "
+                        "gauges")
+    g.add_argument("--numerics", action="store_true",
+                   help="the JAX package's numerics flavour; not ported "
+                        "yet (ROADMAP A11): raises")
+    g.add_argument("--iter_policy", default=None, metavar="PATH",
+                   help="the JAX package's early-exit iteration policy; "
+                        "not ported yet (ROADMAP A11): raises")
+    g.add_argument("--adaptive", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="early-exit mode; 'on' is not ported yet (ROADMAP "
+                        "A11) and raises")
+    g.add_argument("--fused_width", type=int, default=0,
+                   help="serve buckets padded to at least this width with "
+                        "the memoryless 'fused' correlation (the fused_corr "
+                        "kernels; 0 = off)")
+
+
+def serve_config(args: argparse.Namespace):
+    """The parsed serve flags as a ServeConfig; the flags of flavours not
+    ported (--numerics, --iter_policy, --adaptive on) raise ValueError."""
+    from raft_stereo_tpu_torch.serve.server import ServeConfig
+    return ServeConfig(
+        max_batch=args.max_batch, queue_depth=args.queue_depth,
+        window=args.window, default_iters=args.iters, bucket=args.bucket,
+        linger_s=args.linger_ms / 1e3, aot=not args.no_aot,
+        slo_every=args.slo_every, converge=not args.no_converge,
+        numerics=args.numerics, iter_policy=args.iter_policy,
+        adaptive={"auto": None, "on": True, "off": False}[args.adaptive],
+        fused_width=args.fused_width)
+
+
+def _parse_shapes(specs) -> list:
+    """['48x96', ...] -> [(48, 96), ...] (the --shapes/--warm_shapes
+    format)."""
+    out = []
+    for spec in specs:
+        h, w = spec.lower().split("x")
+        out.append((int(h), int(w)))
+    return out
+
+
+def _add_fleet_args(parser: argparse.ArgumentParser, role: str) -> None:
+    parser.add_argument("--no_fleet", action="store_true",
+                        help="no host_id/pid stamps, clock_anchor or "
+                             "heartbeat records on the telemetry stream")
+    parser.add_argument("--host_id", default=None,
+                        help="host identity stamped on every record "
+                             "(default: RAFT_HOST_ID, else <hostname>-<pid>)")
+    parser.add_argument("--heartbeat_every", type=float, default=10.0,
+                        help=f"{role} heartbeat cadence in seconds (0 "
+                             "disables the beats)")
+
+
+def build_serve_parser() -> argparse.ArgumentParser:
+    """The serving flag surface (the JAX package's ``cli serve``): HTTP
+    front and scheduler, plus ``--device``."""
+    parser = argparse.ArgumentParser(
+        description="RAFT-Stereo PyTorch serving (continuous batching)")
+    parser.add_argument("--restore_ckpt", default=None, help=RESTORE_HELP)
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8600)
+    parser.add_argument("--run_dir", default=None,
+                        help="write request/queue/slo telemetry under this "
+                             "run directory")
+    parser.add_argument("--warm_shapes", nargs="+", default=[],
+                        help="warm these HxW raw shapes up before admitting "
+                             "traffic (e.g. 384x512 540x960)")
+    parser.add_argument("--ckpt_dir", default=None,
+                        help="watch this checkpoint dir: SIGHUP hot-reloads "
+                             "the newest manifest-valid checkpoint without "
+                             "dropping queued work")
+    parser.add_argument("--ckpt_name", default="raft-stereo",
+                        help="checkpoint name inside --ckpt_dir (the "
+                             "trainer's --name)")
+    parser.add_argument("--drain_timeout_s", type=float, default=300.0,
+                        help="max seconds to finish admitted work after "
+                             "SIGTERM/SIGINT before giving up (exit 1)")
+    parser.add_argument("--no_metrics", action="store_true",
+                        help="disable the Prometheus GET /metrics endpoint")
+    _add_fleet_args(parser, "serve")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to serve on ('cuda' or 'cpu')")
+    add_serve_args(parser)
+    add_model_args(parser)
+    return parser
+
+
+def build_loadtest_parser() -> argparse.ArgumentParser:
+    """The load-drill flag surface (the JAX package's ``cli loadtest``):
+    a synthetic many-client trace against a sequential-predict baseline,
+    plus ``--device``."""
+    parser = argparse.ArgumentParser(
+        description="RAFT-Stereo PyTorch serving load test")
+    parser.add_argument("--restore_ckpt", default=None, help=RESTORE_HELP)
+    parser.add_argument("--run_dir", default="runs/loadtest",
+                        help="telemetry root: the sequential baseline "
+                             "lands in <run_dir>/seq, the served run in "
+                             "<run_dir>/serve")
+    parser.add_argument("--shapes", nargs="+",
+                        default=["48x96", "64x128", "96x64"],
+                        help="raw HxW request shapes (>= 3 distinct buckets "
+                             "for the drill)")
+    parser.add_argument("--clients", type=int, default=8,
+                        help="concurrent client threads")
+    parser.add_argument("--requests_per_client", type=int, default=4)
+    parser.add_argument("--video_streams", type=int, default=1,
+                        help="how many clients are video sessions riding "
+                             "flow_init warm starts")
+    parser.add_argument("--poison_at", type=int, default=None,
+                        help="global request ordinal to corrupt with a NaN "
+                             "pixel (per-request isolation drill)")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--no_baseline", action="store_true",
+                        help="skip the sequential-predict baseline phase")
+    parser.add_argument("--no_progress", action="store_true",
+                        help="suppress LOADTEST progress lines")
+    _add_fleet_args(parser, "loadtest")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to serve on ('cuda' or 'cpu')")
+    add_serve_args(parser)
     add_model_args(parser)
     return parser

@@ -1,6 +1,8 @@
 """Inference demo: ``python -m raft_stereo_tpu_torch.demo``.
 
-Globs left/right image pairs, runs the test-mode forward and writes
+Globs left/right image pairs, runs the test-mode forward on the weights of
+``--restore_ckpt`` (a reference ``.pth`` or a checkpoint directory of the
+port's trainer, ``utils/weights.load_weights``) and writes
 ``<name>-disparity.png`` (jet colormap) and, with ``--save_numpy``, the
 raw ``<name>.npy`` disparity. PIL and matplotlib are imported only when an
 image is read or written.
@@ -15,7 +17,7 @@ import numpy as np
 
 from raft_stereo_tpu_torch import cli
 from raft_stereo_tpu_torch.inference import StereoPredictor
-from raft_stereo_tpu_torch.utils.weights import load_reference_checkpoint
+from raft_stereo_tpu_torch.utils.weights import load_weights
 
 
 def load_image(path: str) -> np.ndarray:
@@ -34,7 +36,7 @@ def save_colormapped(path: str, disparity: np.ndarray) -> None:
 def main(argv=None) -> None:
     args = cli.build_demo_parser().parse_args(argv)
     cfg = cli.model_config(args)
-    state = load_reference_checkpoint(args.restore_ckpt, cfg)
+    state = load_weights(args.restore_ckpt, cfg)
     predictor = StereoPredictor(cfg, state, valid_iters=args.valid_iters,
                                 device=args.device)
 

@@ -4,42 +4,24 @@ The JAX package's ``evaluate_stereo.py`` surface (``cli.build_eval_parser``)
 on the port: one validator over a dataset tree, sequential or streamed,
 with ``events.jsonl`` telemetry under ``--run_dir``; the results dict is
 printed last. As in the reference, the kernel correlations run in mixed
-precision. Weights come from a reference ``.pth`` (``--restore_ckpt``) or,
-without one, from seed 0. Like every entry point of the port it leaves
+precision. Weights come from ``--restore_ckpt``, a reference ``.pth`` or a
+checkpoint directory of the port's trainer (``utils/weights.load_weights``),
+or, without one, from seed 0. Like every entry point of the port it leaves
 PyTorch's TF32 settings as they are.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict, Optional
-
-import torch
 
 from raft_stereo_tpu_torch import cli
-from raft_stereo_tpu_torch.config import RAFTStereoConfig
 from raft_stereo_tpu_torch.eval.stream import StreamConfig
 from raft_stereo_tpu_torch.eval.validate import VALIDATORS, validate_middlebury
 from raft_stereo_tpu_torch.inference import StereoPredictor
-from raft_stereo_tpu_torch.models import RAFTStereo, init_weights
 from raft_stereo_tpu_torch.obs import Telemetry
-from raft_stereo_tpu_torch.utils.weights import load_reference_checkpoint
+from raft_stereo_tpu_torch.utils.weights import load_weights
 
 logger = logging.getLogger(__name__)
-
-
-def load_weights(restore_ckpt: Optional[str],
-                 cfg: RAFTStereoConfig) -> Dict[str, torch.Tensor]:
-    """A reference ``.pth`` as the port's state dict, or seeded random
-    weights (seed 0) when ``restore_ckpt`` is None."""
-    if restore_ckpt is None:
-        model = init_weights(RAFTStereo(cfg), torch.Generator().manual_seed(0))
-        return model.state_dict()
-    if restore_ckpt.endswith(".pth"):
-        return load_reference_checkpoint(restore_ckpt, cfg)
-    raise ValueError(f"{restore_ckpt}: the port reads reference .pth "
-                     "checkpoints only; training-state directories wait for "
-                     "the port's trainer (ROADMAP A10b)")
 
 
 def main(argv=None) -> None:

@@ -106,6 +106,19 @@ class PendingPrediction:
         return None
 
 
+def stage(array, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(float32 tensor on device, host tensor it came from)``. The host
+    copy has standard strides whatever the array's (a strided view can
+    steer the CPU's convolutions to other kernels); on the card it is
+    pinned and the copy to the card asynchronous, so the host tensor must
+    live until that copy has run."""
+    src = torch.from_numpy(np.ascontiguousarray(array))
+    host = torch.empty(src.shape, dtype=src.dtype,
+                       pin_memory=device.type == "cuda")
+    host.copy_(src)
+    return host.to(device, non_blocking=True).float(), host
+
+
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``: CUDA when None; a CUDA request
     without a CUDA device raises instead of falling back to the CPU."""
@@ -136,20 +149,9 @@ class StereoPredictor:
         self.valid_iters = valid_iters
         self.bucket = bucket
 
-    def _staged(self, array) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(float32 tensor on the device, host tensor it came from)``.
-        The host copy has standard strides whatever the array's (a strided
-        view can steer the CPU's convolutions to other kernels); on the card
-        it is pinned and the copy to the card asynchronous."""
-        src = torch.from_numpy(np.ascontiguousarray(array))
-        host = torch.empty(src.shape, dtype=src.dtype,
-                           pin_memory=self.device.type == "cuda")
-        host.copy_(src)
-        return host.to(self.device, non_blocking=True).float(), host
-
     def _prepared(self, image1, image2):
-        (image1, staged1), (image2, staged2) = (self._staged(image1),
-                                                self._staged(image2))
+        (image1, staged1), (image2, staged2) = (stage(image1, self.device),
+                                                stage(image2, self.device))
         _, h, w, _ = image1.shape
         padder = InputPadder(
             image1.shape, divis_by=PAD_DIVIS,

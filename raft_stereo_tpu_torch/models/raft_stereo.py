@@ -46,8 +46,17 @@ class RAFTStereo(nn.Module):
     takes uint8-range images ``(B, H, W, 3)`` and returns, in test mode,
     ``(flow_lowres (B, H/f, W/f, 2), flow_up (B, H, W, 1))``; in train mode
     the ``(iters, B, H, W, 1)`` stack of every iteration's upsampled
-    x-flow (negative disparity). ``dtype`` overrides the compute dtype
-    that ``cfg.mixed_precision`` selects (bf16 when set, fp32 otherwise).
+    x-flow (negative disparity).
+
+    ``iter_metrics`` (test mode only) adds the per-iteration mean
+    |Δ disparity|, how far each iteration still moves the low-res field
+    (the convergence curve the serving path records): ``True`` gives the
+    batch-mean curve ``(iters,)``, ``"per_sample"`` the ``(iters, B)``
+    means over H and W; the return becomes ``(flow_lowres, flow_up,
+    delta_norms)``. With ``iter_metrics=False`` nothing else changes.
+
+    ``dtype`` overrides the compute dtype that ``cfg.mixed_precision``
+    selects (bf16 when set, fp32 otherwise).
     """
 
     def __init__(self, cfg: RAFTStereoConfig,
@@ -98,9 +107,14 @@ class RAFTStereo(nn.Module):
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
                 iters: int = 12, flow_init: Optional[torch.Tensor] = None,
-                test_mode: bool = True):
+                test_mode: bool = True, iter_metrics=False):
         if iters < 1:
             raise ValueError(f"iters must be >= 1, got {iters}")
+        if iter_metrics not in (False, True, "per_sample"):
+            raise ValueError(f"iter_metrics must be False, True or "
+                             f"'per_sample', got {iter_metrics!r}")
+        if iter_metrics and not test_mode:
+            raise ValueError("iter_metrics is a test-mode output")
         cfg = self.cfg
 
         image1 = 2.0 * (image1.float() / 255.0) - 1.0
@@ -138,13 +152,22 @@ class RAFTStereo(nn.Module):
             return self._train_refine(net_list, inp_list, corr_state,
                                       coords0, coords1, iters, fused)
         mask = None
+        residuals = []
         for itr in range(iters):
+            previous = coords1
             net_list, coords1, mask = self._iteration(
                 net_list, inp_list, corr_state, coords0, coords1,
                 compute_mask=itr == iters - 1, fused=fused)
+            if iter_metrics:
+                d = (coords1 - previous)[..., 0].abs()
+                residuals.append(d.mean(dim=(1, 2))
+                                 if iter_metrics == "per_sample"
+                                 else d.mean())
         flow_lowres = coords1 - coords0
         flow_up = upsample_disparity_convex(flow_lowres, mask.float(),
                                             cfg.factor)
+        if iter_metrics:
+            return flow_lowres, flow_up, torch.stack(residuals)
         return flow_lowres, flow_up
 
     def _iteration(self, net_list, inp_list, corr_state, coords0, coords1,

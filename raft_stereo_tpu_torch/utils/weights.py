@@ -23,6 +23,10 @@ strict=True)`` accepts:
 * :func:`load_reference_checkpoint` reads a released RAFT-Stereo ``.pth``
   and strips the ``module.`` prefix its DataParallel wrapper added.
 
+:func:`load_weights` is what the entry points read (``--restore_ckpt``): a
+reference ``.pth``, a checkpoint directory of the port's trainer, or,
+given neither, seeded random weights.
+
 :func:`jax_leaf_names` runs the map the other way: it lists a model's
 parameters in the order of the JAX package's parameter leaves, the order
 of its per-leaf gradient norms.
@@ -30,6 +34,7 @@ of its per-leaf gradient norms.
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
@@ -129,6 +134,36 @@ def load_reference_checkpoint(path: str,
         dead = _unbuilt_prefixes(cfg)
         state = {k: v for k, v in state.items() if not k.startswith(dead)}
     return state
+
+
+def load_weights(restore_ckpt: Optional[str],
+                 cfg: RAFTStereoConfig) -> Dict[str, torch.Tensor]:
+    """The weights an entry point serves, as a state dict of ``cfg``'s
+    model: a reference ``.pth`` (:func:`load_reference_checkpoint`); a
+    checkpoint directory written by ``training/checkpoint.py::
+    save_train_state`` (the trainer's step, preempt and final checkpoints:
+    its model half, loaded into ``cfg``'s model with ``strict=True`` and
+    returned bitwise); or seeded random weights (seed 0) when
+    ``restore_ckpt`` is None. The JAX package's ``load_variables`` takes
+    the same two forms."""
+    from raft_stereo_tpu_torch.models.raft_stereo import (RAFTStereo,
+                                                          init_weights)
+    from raft_stereo_tpu_torch.training.checkpoint import load_payload
+    from raft_stereo_tpu_torch.training.resilience import \
+        checkpoint_state_file
+    model = RAFTStereo(cfg)
+    if restore_ckpt is None:
+        init_weights(model, torch.Generator().manual_seed(0))
+        return model.state_dict()
+    if restore_ckpt.endswith(".pth"):
+        return load_reference_checkpoint(restore_ckpt, cfg)
+    state_file = checkpoint_state_file(restore_ckpt)
+    if not os.path.isfile(state_file):
+        raise ValueError(
+            f"{restore_ckpt}: neither a reference .pth nor a checkpoint "
+            f"directory of the port's trainer (no {state_file})")
+    model.load_state_dict(load_payload(restore_ckpt)["model"], strict=True)
+    return model.state_dict()
 
 
 def _flax_module_path(parts: List[str]) -> Tuple[str, ...]:

@@ -1403,3 +1403,96 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
             assert a.device == b.device and torch.equal(a, b), pa
         else:
             assert a == b, pa
+
+
+# ------------------------------------------------- the serving path
+
+def _pairs(n, h=64, w=160, seed=0):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 255, (h, w, 3)).astype(np.float32),
+             rng.integers(0, 255, (h, w, 3)).astype(np.float32))
+            for _ in range(n)]
+
+
+def _served(cuda, pred, **knobs):
+    from raft_stereo_tpu_torch.serve import ServeConfig, StereoServer
+    knobs = dict(dict(max_batch=4, window=2, default_iters=4,
+                      linger_s=0.3), **knobs)
+    return StereoServer(pred.cfg, pred.model.state_dict(),
+                        ServeConfig(**knobs), device=cuda)
+
+
+def test_served_batch_of_one_equals_predictor_on_card(cuda):
+    """A served batch-1 flow is the predictor's on the card bitwise, B1
+    launched once an iteration, the dispatch's outputs in pinned host
+    buffers."""
+    import numpy as np
+    pred = _eval_predictor(cuda)
+    server = _served(cuda, pred)
+    try:
+        server.warmup([(64, 160)], batch_sizes=(1,), iters=4)
+        for left, right in _pairs(2, seed=1):
+            ws.windowed_sample.launches = 0
+            res = server.submit(left, right).result(timeout=120)
+            assert res.ok and res.batch_size == 1
+            assert ws.windowed_sample.launches == 4
+            assert res.residuals.shape == (4,)
+            assert np.array_equal(res.flow,
+                                  pred(left[None], right[None])[0])
+    finally:
+        assert server.close(timeout=120)
+
+
+def test_served_poison_isolation_bitwise_on_card(cuda):
+    """A NaN request in a batch of four fails alone; its three batchmates
+    are bitwise their results in the clean batch."""
+    import numpy as np
+    pred = _eval_predictor(cuda)
+    server = _served(cuda, pred)
+    try:
+        server.warmup([(64, 160)], batch_sizes=(4,), iters=4)
+        pairs = _pairs(4, seed=2)
+        bad = [(p[0].copy(), p[1]) for p in pairs]
+        bad[1][0][3, 5, 0] = np.nan
+        runs = []
+        for batch in (pairs, bad):
+            handles = [server.submit(l, r) for l, r in batch]
+            runs.append([h.result(timeout=120) for h in handles])
+        clean, poisoned = runs
+        assert all(r.ok and r.batch_size == 4 for r in clean)
+        assert [r.ok for r in poisoned] == [True, False, True, True]
+        assert poisoned[1].error_kind == "nonfinite_output"
+        for j in (0, 2, 3):
+            assert np.array_equal(poisoned[j].flow, clean[j].flow)
+    finally:
+        assert server.close(timeout=120)
+
+
+def test_served_reload_at_batch_boundary_on_card(cuda):
+    """Requests queued around a reload all complete; dispatches after it
+    are bitwise a fresh server's on the new weights."""
+    import numpy as np
+    pred = _eval_predictor(cuda)
+    server = _served(cuda, pred, max_batch=1, linger_s=0.0)
+    new = {k: (v * 0.9 if v.is_floating_point() else v)
+           for k, v in pred.model.state_dict().items()}
+    pairs = _pairs(4, seed=3)
+    try:
+        handles = [server.submit(l, r) for l, r in pairs[:3]]
+        server.reload(new, note="card")
+        after = server.submit(*pairs[3])
+        assert all(h.result(timeout=120).ok for h in handles)
+        got = after.result(timeout=120)
+        assert got.ok
+    finally:
+        assert server.close(timeout=120)
+    from raft_stereo_tpu_torch.serve import ServeConfig, StereoServer
+    fresh = StereoServer(pred.cfg, new, ServeConfig(max_batch=1,
+                                                    default_iters=4),
+                         device=cuda)
+    try:
+        want = fresh.submit(*pairs[3]).result(timeout=120)
+        assert np.array_equal(got.flow, want.flow)
+    finally:
+        assert fresh.close(timeout=120)

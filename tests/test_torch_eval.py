@@ -583,5 +583,7 @@ def test_iter_epe_and_iter_policy_raise(tree):
     for extra in (["--iter_epe"], ["--iter_policy", "p.json"]):
         with pytest.raises(ValueError, match="A11"):
             evaluate.main(base + extra)
-    with pytest.raises(ValueError, match="A10b"):
+    # a directory that is no trainer checkpoint is refused by name
+    with pytest.raises(ValueError, match="neither a reference .pth nor a "
+                                         "checkpoint directory"):
         evaluate.load_weights(str(tree), tp.port_config(CFG))

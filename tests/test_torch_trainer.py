@@ -340,6 +340,7 @@ def parity(tmp_path_factory, drill):
     """One JAX train() and one port train() from the same .pth, and the
     NULL_RUNS JAX null runs through the JAX trainer's step function."""
     import raft_stereo_tpu.training.logger as jlogger
+    from raft_stereo_tpu.data import native
     from raft_stereo_tpu.training import trainer as jtrainer
     from raft_stereo_tpu.training.state import TrainState as JState
     from raft_stereo_tpu.utils.checkpoint_convert import (
@@ -384,6 +385,11 @@ def parity(tmp_path_factory, drill):
     make_pjit_train_step = jtrainer.make_pjit_train_step
     mp = pytest.MonkeyPatch()
     try:
+        # the JAX readers on their numpy path, as jax_readers_without_native
+        # sets them for each test: this module-scoped fixture runs before
+        # that function-scoped one, and another worker may rewrite the
+        # native library in place while the JAX loader decodes
+        mp.setattr(native, "_load", lambda: None)
         # no TensorBoard writers (importing one can import TensorFlow)
         mp.setattr(jlogger, "_make_writer", lambda log_dir: None)
         mp.setattr(jtrainer, "_compile_step_introspected", capture)
@@ -425,7 +431,7 @@ def parity(tmp_path_factory, drill):
     return dict(
         jax_params=jax.tree_util.tree_map(np.asarray,
                                           captured["state"].params),
-        nulls=nulls, port=load_payload(final)["model"],
+        nulls=nulls, port=load_payload(final)["model"], final_path=final,
         jax_losses=_losses(root / "jruns" / "par"),
         port_losses=_losses(root / "truns" / "par"))
 
@@ -444,6 +450,47 @@ def test_trainer_matches_jax(parity, record_property):
         record_property(key, value)
     assert loss_dev <= LOSS_REL, (jl, tl)
     assert ok, readings
+
+
+def test_entry_points_read_trainer_checkpoint(parity, tmp_path, capsys):
+    """The port's train() ends in a checkpoint directory that the entry
+    points read: load_weights gives the trained weights bitwise, the eval
+    entry point evaluates them (the results of the validator run on those
+    weights in process), and the demo's loader takes the path."""
+    from raft_stereo_tpu_torch import demo, evaluate
+    from raft_stereo_tpu_torch.eval.validate import validate_eth3d
+    from raft_stereo_tpu_torch.inference import StereoPredictor
+    from torch_parity import write_eth3d
+    cfg = port_config(JConfig(hidden_dims=SMALL))
+    final = parity["final_path"]
+    state = evaluate.load_weights(final, cfg)
+    assert state.keys() == parity["port"].keys()
+    assert all(torch.equal(state[k], parity["port"][k]) for k in state)
+    write_eth3d(tmp_path / "datasets", np.random.default_rng(4))
+    ds = str(tmp_path / "datasets")
+    evaluate.main(["--device", "cpu", "--dataset", "eth3d", "--data_root",
+                   ds, "--valid_iters", "1", "--hidden_dims", "32", "32",
+                   "32", "--restore_ckpt", final, "--stream", "off"])
+    printed = capsys.readouterr().out.strip().splitlines()[-1]
+    want = validate_eth3d(StereoPredictor(cfg, parity["port"],
+                                          valid_iters=1, device="cpu"),
+                          ds, 1, stream=False)
+    assert printed == str(want)
+    seen = []
+
+    def stop_at_predictor(cfg, state, **kw):
+        seen.append(state)
+        raise SystemExit("loaded")
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(demo, "StereoPredictor", stop_at_predictor)
+    try:
+        with pytest.raises(SystemExit, match="loaded"):
+            demo.main(["--restore_ckpt", final, "-l", "none", "-r", "none",
+                       "--device", "cpu", "--hidden_dims", "32", "32", "32"])
+    finally:
+        mp.undo()
+    assert all(torch.equal(seen[0][k], parity["port"][k]) for k in state)
 
 
 # --- the drill ---------------------------------------------------------------
