@@ -194,6 +194,29 @@ Phases, each reported as one JSON line, in the order they run:
    run's parameters bitwise A's where A and B are bitwise equal; no
    process left in any run's session; the distances between the three
    runs' final parameters and their per-step loss gaps reported.
+15c. dp_parity, dp_train, dp_trainer — data parallelism
+   (raft_stereo_tpu_torch/parallel) with two ranks sharing the one card,
+   each a process this script spawns and joins to a process group
+   (gloo: the backend rule takes NCCL only where every rank has a card
+   of its own). dp_parity: the default architecture (fp32, reg_cuda) at
+   64x160, 2 iterations, global batch 4 split 2 + 2: the 2-rank loss
+   within 1e-5 relative of the one-process step's on the concatenated
+   batch, the reduced gradients within the null floor of NULL_RUNS card
+   null runs (check_grad_parity), (4, 2) windowed_sample launches a rank
+   and no other kernel's, both ranks' gradients and, after two steps,
+   their parameters and AdamW moments bitwise equal. dp_train: the
+   SceneFlow recipe (reg_cuda, bf16, 22 iterations) at global batch 8 at
+   320x720 split 4 + 4: (44, 22) windowed_sample launches a rank a step
+   and no other kernel's, equal finite losses, the replicas bitwise
+   equal; a rank's ms/step (median of TRAIN_STEPS after a warm-up), the
+   gradients' all-reduce ms alone, peak memory a rank. Two ranks share
+   one card: no scaling figure is drawn from it. dp_trainer: train() in
+   two ranks on the training tree at the recipe, 4 steps with a
+   checkpoint every 2, then a run restored from the step-2 checkpoint
+   for one step: one checkpoint set, written by rank 0; each rank's
+   events.jsonl valid with its mesh coordinates and the backend on
+   run_start; the restored step's loss the uninterrupted run's bitwise;
+   (44, 22) launches a rank a step; no process left.
 16. timings, bwd_timings — windowed_sample's forward at the default,
    realtime and train pyramids and its backward at the train pyramid: per
    level, the one-level launch's time, its bound (bound_ms: bytes over
@@ -1701,14 +1724,15 @@ def run_train_trainer(dev, tree, work, all_kernels, kernel, impl="reg_cuda",
                                    checkpoint_frequency=None,
                                    validation_frequency=10 ** 6)
     per_step, saves = [], []
-    make_step, save = trainer_mod.make_train_step, trainer_mod.save_train_state
+    make_step = trainer_mod.make_pjit_train_step
+    save = trainer_mod.save_train_state
 
     def counted_make_step(*args, **kwargs):
         step_fn = make_step(*args, **kwargs)
 
-        def step(state, batch):
+        def step(state, batch, **kw):
             before = [(k.launches, k.bwd_launches) for k in all_kernels]
-            out = step_fn(state, batch)
+            out = step_fn(state, batch, **kw)
             per_step.append([(k.launches - b[0], k.bwd_launches - b[1])
                              for k, b in zip(all_kernels, before)])
             return out
@@ -1719,7 +1743,7 @@ def run_train_trainer(dev, tree, work, all_kernels, kernel, impl="reg_cuda",
         path = save(*args, **kwargs)
         saves.append((time.perf_counter() - t0, path))
         return path
-    trainer_mod.make_train_step = counted_make_step
+    trainer_mod.make_pjit_train_step = counted_make_step
     trainer_mod.save_train_state = timed_save
     torch.cuda.reset_peak_memory_stats(dev)
     for k in all_kernels:
@@ -1729,7 +1753,7 @@ def run_train_trainer(dev, tree, work, all_kernels, kernel, impl="reg_cuda",
         final = trainer_mod.train(mcfg, tcfg, device=dev)
         wall = time.perf_counter() - t0
     finally:
-        trainer_mod.make_train_step = make_step
+        trainer_mod.make_pjit_train_step = make_step
         trainer_mod.save_train_state = save
     iters = tcfg.train_iters
     want = (per_iter[0] * iters, per_iter[1] * iters)
@@ -2025,6 +2049,374 @@ def run_train_resume(tree, work):
                   losses_b=[lb[s] for s in sorted(lb)],
                   losses_resumed=[lr[s] for s in sorted(lr)])
     emit("train_resume", **result)
+    return result
+
+
+# ------------------------------------------------------ data-parallel path
+
+DP_RANKS = ("cuda:0", "cuda:0")  # two ranks sharing the one card: gloo
+DP_PARITY_HW = (64, 160)
+DP_PARITY_BATCH = 4             # 2 + 2
+DP_PARITY_ITERS = 2
+DP_ALLREDUCE_RUNS = 5
+DP_TRAINER_STEPS = 4
+DP_TRAINER_CKPT_EVERY = 2
+DP_TRAINER_WORKERS = 3          # loader processes a rank (8 host cores)
+
+
+def _digest(tensors):
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rank_kernels():
+    from raft_stereo_tpu_torch.ops.kernels import (alt_corr, fused_corr,
+                                                   fused_lookup,
+                                                   windowed_sample)
+    return (windowed_sample.windowed_sample, fused_corr.fused_corr,
+            alt_corr.alt_corr, fused_lookup.fused_lookup_c1)
+
+
+def _zero_counts(kernels):
+    for k in kernels:
+        k.launches = k.bwd_launches = 0
+
+
+def dp_parity_rank(dev, cfg, state, batch, iters):
+    """One rank of dp_parity (a process chip_smoke.py spawns and joins to
+    the group): its slice of ``batch`` through the data-parallel loss and
+    gradients (B1 launches counted), then two data-parallel steps from
+    rank 0's broadcast state."""
+    import torch
+    import torch.distributed as dist
+    from raft_stereo_tpu_torch.config import TrainConfig
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    from raft_stereo_tpu_torch.parallel.data_parallel import \
+        make_shardmap_train_step
+    from raft_stereo_tpu_torch.parallel.distributed import (
+        global_mesh, process_batch_slice)
+    from raft_stereo_tpu_torch.training.optim import fetch_optimizer
+    from raft_stereo_tpu_torch.training.state import (TrainState,
+                                                      all_reduce_grads,
+                                                      loss_and_grads)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = _rank_kernels()
+    mesh = global_mesh(device=dev)
+    model = RAFTStereo(cfg)
+    model.load_state_dict(state, strict=True)
+    model.to(dev)
+    sl = process_batch_slice(len(batch["image1"]))
+    local = {k: v[sl] for k, v in batch.items()}
+    _zero_counts(kernels)
+    loss, _, grads = loss_and_grads(model, local, iters, group=mesh.group)
+    grads, _ = all_reduce_grads(grads, mesh.group)
+    torch.cuda.synchronize()
+    counts = [(k.launches, k.bwd_launches) for k in kernels]
+    opt = fetch_optimizer(TrainConfig(num_steps=100, lr=1e-4,
+                                      batch_size=len(batch["image1"])),
+                          model.parameters())
+    state_ = TrainState(model, opt)
+    step = make_shardmap_train_step(model, opt, iters, mesh, state=state_)
+    losses = []
+    for _ in range(2):
+        state_, m = step(state_, local)
+        losses.append(float(m["loss"]))
+    return dict(rank=mesh.rank, backend=dist.get_backend(), device=str(dev),
+                loss=float(loss), counts=counts, grads_digest=_digest(grads),
+                grads=[g.cpu() for g in grads] if mesh.rank == 0 else None,
+                step_losses=losses,
+                params_digest=_digest(model.parameters()),
+                moments_digest=_digest([t for p in model.parameters() for t in
+                                        (opt.adamw.state[p]["exp_avg"],
+                                         opt.adamw.state[p]["exp_avg_sq"])]))
+
+
+def run_dp_parity(dev, default_state):
+    """dp_parity: the default architecture (fp32, reg_cuda) at 64x160, 2
+    iterations, global batch 4 split 2 + 2 over two ranks sharing the
+    card (gloo by the backend rule): the reduced gradients against the
+    one-process gradients of the concatenated batch on the card (the loss
+    within TRAIN_LOSS_TOL relative, the gradients under check_grad_parity
+    over NULL_RUNS card null runs), (4, 2) B1 launches a rank and none of
+    the other kernels', the two ranks' gradients and, after two steps,
+    their parameters and AdamW moments bitwise equal."""
+    import torch
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    from raft_stereo_tpu_torch.parallel.distributed import launch
+    from raft_stereo_tpu_torch.training.state import loss_and_grads
+    cfg = RAFTStereoConfig(corr_implementation="reg_cuda")
+    batch = train_batch(DP_PARITY_BATCH, *DP_PARITY_HW, SEED + 5, "cpu",
+                        max_disp=16.0)
+    t0 = time.perf_counter()
+    ranks = launch(dp_parity_rank, DP_RANKS, cfg, default_state, batch,
+                   DP_PARITY_ITERS)
+    ranks_s = time.perf_counter() - t0
+    model = RAFTStereo(cfg)
+    model.load_state_dict(default_state, strict=True)
+    names = [n for n, _ in model.named_parameters()]
+    one_loss, _, one = loss_and_grads(model.to(dev), batch, DP_PARITY_ITERS)
+    one = [g.cpu() for g in one]
+    nulls = []
+    for i in range(NULL_RUNS):
+        other = perturbed_copy(model.cpu(), NULL_PERTURBATION, SEED + 40 + i)
+        nulls.append([g.cpu() for g in loss_and_grads(
+            other.to(dev), batch, DP_PARITY_ITERS)[2]])
+        del other
+    gate = check_grad_parity(names, ranks[0]["grads"], one, nulls)
+    loss_dev = abs(ranks[0]["loss"] - float(one_loss)) / abs(float(one_loss))
+    want = (2 * DP_PARITY_ITERS, DP_PARITY_ITERS)
+    result = dict(
+        config="default + reg_cuda, fp32", ranks=list(DP_RANKS),
+        backends=[r["backend"] for r in ranks], image_size=list(DP_PARITY_HW),
+        batch=[DP_PARITY_BATCH // 2] * 2, iters=DP_PARITY_ITERS,
+        loss_dp=ranks[0]["loss"], loss_one_process=float(one_loss),
+        loss_rel_dev=loss_dev, loss_bound=TRAIN_LOSS_TOL,
+        launches_per_rank=[r["counts"][0] for r in ranks],
+        others_per_rank=[r["counts"][1:] for r in ranks],
+        grads_bitwise_across_ranks=ranks[0]["grads_digest"]
+        == ranks[1]["grads_digest"],
+        params_bitwise_after_2_steps=ranks[0]["params_digest"]
+        == ranks[1]["params_digest"],
+        moments_bitwise_after_2_steps=ranks[0]["moments_digest"]
+        == ranks[1]["moments_digest"],
+        step_losses=[r["step_losses"] for r in ranks], ranks_wall_s=ranks_s,
+        null_runs=NULL_RUNS, **{k: v for k, v in gate.items() if k != "ok"},
+        grads_ok=gate["ok"])
+    emit("dp_parity", **result)
+    check(result["backends"] == ["gloo", "gloo"],
+          f"dp_parity: two ranks on one card took {result['backends']}")
+    check(all(tuple(c) == want for c in result["launches_per_rank"])
+          and not any(c != (0, 0) for o in result["others_per_rank"]
+                      for c in o),
+          f"dp_parity: launches {result['launches_per_rank']}, others "
+          f"{result['others_per_rank']}, expected {want} of B1 a rank")
+    check(loss_dev <= TRAIN_LOSS_TOL,
+          f"dp_parity: 2-rank loss {ranks[0]['loss']} vs one process "
+          f"{float(one_loss)}: {loss_dev} relative")
+    check(gate["ok"], f"dp_parity: 2-rank gradients beyond the null floor: "
+                      f"{gate}")
+    check(result["grads_bitwise_across_ranks"]
+          and result["params_bitwise_after_2_steps"]
+          and result["moments_bitwise_after_2_steps"]
+          and ranks[0]["step_losses"] == ranks[1]["step_losses"],
+          "dp_parity: the replicas differ")
+    return result
+
+
+def dp_train_rank(dev, seed, steps):
+    """One rank of dp_train: the SceneFlow recipe (reg_cuda, bf16, 22
+    iterations) on this rank's slice of a seeded global batch of 8 at
+    320x720, a warm-up step, then ``steps`` timed steps (B1 launches
+    counted each), the gradients' all-reduce timed alone (none alone),
+    peak memory. A world of one rank runs the one-process step."""
+    import torch
+    from raft_stereo_tpu_torch.config import sceneflow_config
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    from raft_stereo_tpu_torch.parallel.data_parallel import \
+        make_shardmap_train_step
+    from raft_stereo_tpu_torch.parallel.distributed import (
+        global_mesh, process_batch_slice)
+    from raft_stereo_tpu_torch.parallel.mesh import barrier
+    from raft_stereo_tpu_torch.training.optim import fetch_optimizer
+    from raft_stereo_tpu_torch.training.state import (TrainState,
+                                                      all_reduce_grads)
+    kernels = _rank_kernels()
+    mcfg, tcfg = sceneflow_config()
+    mcfg = dataclasses.replace(mcfg, corr_implementation="reg_cuda")
+    mesh = global_mesh(device=dev)
+    model = RAFTStereo(mcfg)
+    seeded_weights(model, seed)
+    model.to(dev)
+    opt = fetch_optimizer(tcfg, model.parameters())
+    state = TrainState(model, opt)
+    step = make_shardmap_train_step(model, opt, tcfg.train_iters, mesh,
+                                    state=state)
+    b, (h, w) = tcfg.batch_size, tcfg.image_size
+    full = train_batch(b, h, w, SEED + 3, dev)
+    sl = process_batch_slice(b)
+    local = {k: v[sl].contiguous() for k, v in full.items()}
+    del full
+    state, m = step(state, local)  # warm-up: allocator, cuDNN plans
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs, counts, losses = [], [], []
+    for _ in range(steps):
+        _zero_counts(kernels)
+        barrier(mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, local)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts.append([(k.launches, k.bwd_launches) for k in kernels])
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    grads = [torch.randn(p.shape, device=dev) for p in model.parameters()]
+    ar = []
+    for _ in range(DP_ALLREDUCE_RUNS if mesh.group is not None else 0):
+        barrier(mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_grads(grads, mesh.group)
+        torch.cuda.synchronize()
+        ar.append(time.perf_counter() - t0)
+    n_params = sum(p.numel() for p in model.parameters())
+    return dict(rank=mesh.rank, backend=mesh.backend(), device=str(dev),
+                local_batch=sl.stop - sl.start, ms_per_step=[x * 1e3
+                                                             for x in secs],
+                counts=counts, losses=losses, peak_mem_bytes=peak,
+                allreduce_ms=[x * 1e3 for x in ar], n_params=n_params,
+                allreduce_bytes=4 * n_params,
+                params_digest=_digest(model.parameters()),
+                skipped=float(m["skipped_updates"]))
+
+
+def run_dp_train(train):
+    """dp_train: the SceneFlow recipe at full width as two ranks sharing
+    the card (gloo), global batch 8 split 4 + 4: per rank ms/step (median
+    of TRAIN_STEPS after a warm-up), the gradients' all-reduce ms (alone,
+    median of DP_ALLREDUCE_RUNS), peak memory; (44, 22) B1 launches a
+    rank a step and no other kernel's; finite equal losses and the
+    replicas bitwise equal. Two ranks share one card here: no scaling
+    figure is drawn from it."""
+    from raft_stereo_tpu_torch.parallel.distributed import launch
+    ranks = launch(dp_train_rank, DP_RANKS, SEED, TRAIN_STEPS)
+    want = (44, 22)
+    ms = [statistics.median(r["ms_per_step"]) for r in ranks]
+    result = dict(
+        config="sceneflow_config() + reg_cuda, bf16", ranks=list(DP_RANKS),
+        shared_card=True, backends=[r["backend"] for r in ranks],
+        note="two ranks share one card: no scaling figure is drawn",
+        batch=[r["local_batch"] for r in ranks], image_size=[320, 720],
+        iters=22, ms_per_step_median=ms,
+        ms_per_step=[r["ms_per_step"] for r in ranks],
+        one_process_batch8_ms_per_step=train["ms_per_step_median"],
+        allreduce_ms_median=[statistics.median(r["allreduce_ms"])
+                             for r in ranks],
+        allreduce_ms=[r["allreduce_ms"] for r in ranks],
+        allreduce_bytes=ranks[0]["allreduce_bytes"],
+        n_params=ranks[0]["n_params"],
+        peak_mem_bytes=[r["peak_mem_bytes"] for r in ranks],
+        launches_per_rank_step=sorted({tuple(c[0]) for r in ranks
+                                       for c in r["counts"]}),
+        losses=[r["losses"] for r in ranks],
+        replicas_bitwise=ranks[0]["params_digest"]
+        == ranks[1]["params_digest"])
+    emit("dp_train", **result)
+    print("dp_train: two ranks share one card (gloo); no scaling figure is "
+          "drawn from it", flush=True)
+    check(all(c[0] == want and all(x == (0, 0) for x in c[1:])
+              for r in ranks for c in r["counts"]),
+          f"dp_train: launches {[r['counts'] for r in ranks]}, expected "
+          f"{want} of B1 a rank a step and no other kernel's")
+    check(ranks[0]["losses"] == ranks[1]["losses"]
+          and all(map(math.isfinite, ranks[0]["losses"]))
+          and not any(r["skipped"] for r in ranks),
+          f"dp_train: losses {[r['losses'] for r in ranks]}")
+    check(result["replicas_bitwise"], "dp_train: the replicas differ")
+    return result
+
+
+def dp_trainer_rank(dev, mcfg, tcfg):
+    """One rank of dp_trainer: train() as one rank of the group, then the
+    loader's fork server stopped; the rank's B1 launches over the run and
+    the processes it left."""
+    from raft_stereo_tpu_torch.data.loader import stop_worker_server
+    from raft_stereo_tpu_torch.training.trainer import train
+    kernels = _rank_kernels()
+    _zero_counts(kernels)
+    final = train(mcfg, tcfg, device=dev)
+    counts = [(k.launches, k.bwd_launches) for k in kernels]
+    stop_worker_server()
+    me = os.getpid()
+    left = [pid for pid, (ppid, _, _) in live_processes().items()
+            if ppid == me]
+    return dict(final=final, counts=counts, left=left)
+
+
+def run_dp_trainer(tree, work):
+    """dp_trainer: train() in two processes sharing the card on the
+    synthetic FlyingThings tree at the recipe, DP_TRAINER_STEPS steps with
+    a checkpoint every DP_TRAINER_CKPT_EVERY; then a run restored from its
+    step-2 checkpoint for one step. Holds: one checkpoint set, written by
+    rank 0 (its records; none of rank 1's); each rank's events.jsonl
+    valid with its coords and the gloo backend on run_start; equal losses
+    on both ranks; the restored step's loss the uninterrupted run's
+    bitwise; (44, 22) B1 launches a step a rank; no process left."""
+    from raft_stereo_tpu_torch.parallel.distributed import launch
+    root = os.path.join(work, "dp_trainer")
+    mcfg, tcfg = recipe_config(tree, root, "dp", heartbeat_every_s=0)
+    tcfg = dataclasses.replace(tcfg, num_steps=DP_TRAINER_STEPS,
+                               checkpoint_frequency=DP_TRAINER_CKPT_EVERY,
+                               validation_frequency=10 ** 6,
+                               num_workers=DP_TRAINER_WORKERS)
+    restored = dataclasses.replace(
+        tcfg, num_steps=DP_TRAINER_CKPT_EVERY + 1,
+        restore_ckpt=os.path.join(tcfg.ckpt_dir,
+                                  f"{DP_TRAINER_CKPT_EVERY}_dp"),
+        ckpt_dir=os.path.join(root, "ckpts_restored"),
+        run_dir=os.path.join(root, "runs_restored"))
+    runs, walls = [], []
+    for cfg in (tcfg, restored):
+        t0 = time.perf_counter()
+        runs.append(launch(dp_trainer_rank, DP_RANKS, mcfg, cfg,
+                           timeout_s=900.0))
+        walls.append(time.perf_counter() - t0)
+
+    def rank_events(cfg, r):
+        events = step_records(os.path.join(cfg.run_dir, cfg.name,
+                                           f"rank{r}"))
+        check(all(e.get("coords") == [r, 0] for e in events),
+              f"dp_trainer: rank {r}'s records lack coords [{r}, 0]")
+        start = next(e for e in events if e["event"] == "run_start")
+        check(start["config"]["parallel"]["backend"] == "gloo",
+              f"dp_trainer: run_start {start['config'].get('parallel')}")
+        return events
+
+    def losses(events):
+        return {e["step"]: e["loss"] for e in events if e["event"] == "step"}
+    first = [rank_events(tcfg, r) for r in (0, 1)]
+    second = [rank_events(restored, r) for r in (0, 1)]
+    la = losses(first[0])
+    ckpts = sorted(os.listdir(tcfg.ckpt_dir))
+    want_ckpts = sorted([f"{s}_dp" for s in range(
+        DP_TRAINER_CKPT_EVERY, DP_TRAINER_STEPS + 1,
+        DP_TRAINER_CKPT_EVERY)] + ["dp"])
+    writers = [sum(e["event"] == "checkpoint" for e in ev) for ev in first]
+    per_step = [(c[0][0] / steps, c[0][1] / steps) for run, steps in
+                ((runs[0], DP_TRAINER_STEPS), (runs[1], 1)) for c in
+                [r["counts"] for r in run]]
+    result = dict(
+        config="sceneflow_config() + reg_cuda through train()",
+        ranks=list(DP_RANKS), steps=DP_TRAINER_STEPS,
+        checkpoints=ckpts, checkpoint_records_per_rank=writers,
+        losses=[la[s] for s in sorted(la)],
+        restored_step_loss=losses(second[0]).get(DP_TRAINER_CKPT_EVERY + 1),
+        uninterrupted_step_loss=la.get(DP_TRAINER_CKPT_EVERY + 1),
+        launches_per_step_per_rank=sorted(set(per_step)),
+        others=[r["counts"][1:] for run in runs for r in run],
+        left=[r["left"] for run in runs for r in run], wall_s=walls)
+    emit("dp_trainer", **result)
+    check(ckpts == want_ckpts and writers[0] > 0 and writers[1] == 0,
+          f"dp_trainer: checkpoints {ckpts}, records by rank {writers}")
+    check(losses(first[1]) == la and sorted(la) == list(
+        range(1, DP_TRAINER_STEPS + 1)), "dp_trainer: the ranks' losses "
+                                         "differ or steps are missing")
+    check(result["restored_step_loss"] == result["uninterrupted_step_loss"]
+          == losses(second[1]).get(DP_TRAINER_CKPT_EVERY + 1),
+          f"dp_trainer: the restored step's loss "
+          f"{result['restored_step_loss']} is not the uninterrupted "
+          f"run's {result['uninterrupted_step_loss']}")
+    check(result["launches_per_step_per_rank"] == [(44.0, 22.0)]
+          and not any(c != (0, 0) for o in result["others"] for c in o),
+          f"dp_trainer: launches {result['launches_per_step_per_rank']}, "
+          f"others {result['others']}")
+    check(not any(result["left"]), f"dp_trainer: left {result['left']}")
     return result
 
 
@@ -3358,6 +3750,12 @@ def main():
             check(run["ok"], f"card ({impl}, {label}) vs CPU gradients "
                              f"beyond the null floor: {run}")
 
+    # 10a. data parallel: two ranks sharing the card (gloo), the step against
+    # the one-process step, then the recipe at full width
+    torch.cuda.empty_cache()
+    dp_parity = run_dp_parity(dev, default_state)
+    dp_train = run_dp_train(train)
+
     # 10b. the training path: the loader, train() in this process (B1
     # through the trainer, then B2 for two steps), and python -m
     # raft_stereo_tpu_torch.train interrupted and resumed
@@ -3378,6 +3776,7 @@ def main():
             phase="train_trainer_fused", steps=2, per_iter=(2, 4))
         torch.cuda.empty_cache()
         train_resume = run_train_resume(tree, work)
+        dp_trainer = run_dp_trainer(tree, work)
     del train_loader, train_resume
 
     # 11. timings at the main-path pyramids: each level alone (its
@@ -3592,6 +3991,11 @@ def main():
         "launches_realtime": main["realtime"]["launches"],
         "launches_train_step": train["launches_fwd"],
         "launches_trainer_per_step": trainer["launches_per_step"][0][0],
+        "launches_dp_train_per_rank_step":
+        dp_train["launches_per_rank_step"][0][0],
+        "launches_dp_parity_per_rank": dp_parity["launches_per_rank"][0][0],
+        "launches_dp_trainer_per_rank_step":
+        dp_trainer["launches_per_step_per_rank"][0][0],
         "launches_eval_kitti_per_frame": eval_kitti["launches_per_frame"],
         "launches_eval_microbatch_per_dispatch": eval_ub,
         "launches_serve_per_dispatch": serve["launches_per_dispatch"],
@@ -3621,6 +4025,11 @@ def main():
         "source": ws_mod.SOURCE, "replaces": ws_mod.REPLACES_BWD,
         "launches": train["launches_bwd"],
         "launches_trainer_per_step": trainer["launches_per_step"][0][1],
+        "launches_dp_train_per_rank_step":
+        dp_train["launches_per_rank_step"][0][1],
+        "launches_dp_parity_per_rank": dp_parity["launches_per_rank"][0][1],
+        "launches_dp_trainer_per_rank_step":
+        dp_trainer["launches_per_step_per_rank"][0][1],
         "max_abs_err": max(bwd_err, ws_err["dvol"], ws_err["dcoords"]),
         "ms": ws_bwd["ms"], "plain_ms": ws_bwd["plain_ms"],
         "bound_ms": ws_bwd["bound_ms"], "bound_by": ws_bwd["bound_by"],

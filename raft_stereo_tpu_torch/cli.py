@@ -140,8 +140,8 @@ def add_train_args(parser: argparse.ArgumentParser) -> None:
                    help="loader worker processes")
     o.add_argument("--seed", type=int, default=1234)
     o.add_argument("--data_parallel", type=int, default=0,
-                   help="data-parallel shards; the port trains on one "
-                        "device (0 or 1; more raises)")
+                   help="data-parallel ranks, one process and one card each "
+                        "(0: every visible card; one on the CPU)")
     o.add_argument("--seq_parallel", type=int, default=1,
                    help="width (sequence) parallel shards; 1 only")
     o.add_argument("--grad_accum_steps", type=int, default=1,

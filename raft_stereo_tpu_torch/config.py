@@ -5,8 +5,8 @@ fields inference and training read) and ``TrainConfig`` (every field of
 the JAX package's), and the presets. Defaults, validation and the
 ``CORR_ALIASES`` folding are the same, so a reference command line selects
 the same implementation in both packages. What the port does not have yet
-is refused with a ``ValueError`` (corr ``ring``, data and sequence
-parallelism): the port never substitutes another implementation. The JAX
+is refused with a ``ValueError`` (corr ``ring``, sequence parallelism):
+the port never substitutes another implementation. The JAX
 package's other architecture knobs (remat modes, save policies, fused
 loss) are not fields here at all; ROADMAP.md queues them.
 """
@@ -115,9 +115,12 @@ class TrainConfig:
     """Training loop config (the reference's "Training parameters"), the
     JAX package's fields with its defaults. ``restore_ckpt`` takes a
     checkpoint directory, a reference ``.pth`` (weights only) or ``"auto"``
-    (resume from the newest checkpoint of this run that verifies). The
-    port trains on one device: ``data_parallel`` and ``seq_parallel``
-    above 1 raise (ROADMAP A10c and A13); 0 and 1 mean one device."""
+    (resume from the newest checkpoint of this run that verifies).
+    ``data_parallel`` is the number of data-parallel ranks, one process
+    and one card each (``parallel/``); 0 (or less) means every visible
+    card, as JAX's "all devices", and one on the CPU (the entry point
+    resolves it: ``parallel.mesh.resolve_data_parallel``).
+    ``seq_parallel`` above 1 raises (ROADMAP A13)."""
 
     name: str = "raft-stereo"
     restore_ckpt: Optional[str] = None
@@ -185,11 +188,6 @@ class TrainConfig:
                              f"{self.grad_accum_steps}")
         if self.train_iters < 1 or self.num_steps < 1:
             raise ValueError("train_iters and num_steps must be >= 1")
-        if self.data_parallel > 1:
-            raise ValueError(
-                f"data_parallel={self.data_parallel}: data-parallel training "
-                "is not ported yet (ROADMAP A10c); the port trains on one "
-                "device (data_parallel 0 or 1)")
         if self.seq_parallel > 1:
             raise ValueError(
                 f"seq_parallel={self.seq_parallel}: sequence-parallel "

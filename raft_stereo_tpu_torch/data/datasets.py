@@ -369,12 +369,15 @@ def train_aug_params(cfg) -> dict:
     return aug_params
 
 
-def fetch_dataloader(cfg, root: Optional[str] = None):
+def fetch_dataloader(cfg, root: Optional[str] = None,
+                     process_slice: Optional[slice] = None):
     """The training loader of a ``TrainConfig`` (the reference's
-    train_stereo.py surface)."""
+    train_stereo.py surface); ``process_slice``: the range of each global
+    batch this process loads (data parallelism)."""
     from raft_stereo_tpu_torch.data.loader import Loader
 
     dataset = build_train_dataset(cfg.train_datasets, train_aug_params(cfg),
                                   root=root or cfg.data_root)
     return Loader(dataset, batch_size=cfg.batch_size, seed=cfg.seed,
-                  num_workers=cfg.num_workers, drop_last=True, shuffle=True)
+                  num_workers=cfg.num_workers, drop_last=True, shuffle=True,
+                  process_slice=process_slice)

@@ -20,6 +20,13 @@ handler finishes the step and closes the loader, which shuts the workers
 down, and a stop at exit (:func:`stop_worker_server`) waits for the fork
 server too.
 
+Data parallelism: a rank loads only its slice of each global batch
+(``process_slice``, from ``parallel.distributed.process_batch_slice``):
+batch ``b`` of an epoch is ``perm[b*B:(b+1)*B]`` for the global batch
+size ``B``, and a rank decodes entries ``[lo, hi)`` of it. The keys, the
+permutation and ``start_batch`` are the global stream's, so the ranks'
+batches concatenate to the one-process batches bit for bit.
+
 I/O resilience: a decode failure is retried ``decode_retries`` times with
 exponential backoff, then the sample is QUARANTINED: substituted by the
 next decodable dataset index, decoded with the original slot's Philox
@@ -144,9 +151,12 @@ def stop_worker_server() -> None:
     resource tracker, and wait for both (left alone they outlive this
     process by the time their interpreters take to exit). Registered at
     interpreter exit once a process pool was made; call it only when no
-    loader is iterating."""
+    loader is iterating. A resource tracker this process inherited (a
+    spawned process uses its parent's) is its parent's to stop."""
     multiprocessing.forkserver._forkserver._stop()
-    multiprocessing.resource_tracker._resource_tracker._stop()
+    tracker = multiprocessing.resource_tracker._resource_tracker
+    if getattr(tracker, "_pid", None) is not None:
+        tracker._stop()
 
 
 def _worker_pool(source: SampleSource, workers: int):
@@ -169,15 +179,18 @@ class Loader:
 
     Each ``__iter__`` starts a fresh epoch: a seeded permutation of the
     dataset, ``num_workers`` worker processes, and a bounded prefetch
-    queue.
+    queue. ``batch_size`` is the global batch; ``process_slice`` (None:
+    all of it) the range of each batch this process loads.
     """
 
     def __init__(self, dataset, batch_size: int, seed: int = 0,
                  num_workers: int = 4, shuffle: bool = True,
                  drop_last: bool = True, prefetch: int = 4,
-                 decode_retries: int = 2, retry_backoff_s: float = 0.05):
+                 decode_retries: int = 2, retry_backoff_s: float = 0.05,
+                 process_slice: Optional[slice] = None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.process_slice = process_slice or slice(0, batch_size)
         self.seed = seed
         self.num_workers = max(1, num_workers)
         self.shuffle = shuffle
@@ -251,6 +264,11 @@ class Loader:
             # first k*B entries resumes mid-epoch exactly
             order = order[skip * self.batch_size:]
             n_batches = max(n_batches - skip, 0)
+        # this process's entries of each batch, in stream order
+        slots = [order[b * self.batch_size:(b + 1) * self.batch_size][
+            self.process_slice] for b in range(n_batches)]
+        sizes = [len(s) for s in slots]
+        order = np.concatenate(slots) if slots else order[:0]
         out: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         if self._pool is None:
@@ -266,13 +284,13 @@ class Loader:
             futures = []
             try:
                 # sample futures run one batch ahead of consumption
-                ahead = max(2 * self.batch_size, self.num_workers)
+                ahead = max(2 * max(sizes, default=0), self.num_workers)
                 futures = [submit(epoch, int(i))
                            for i in order[:min(len(order), ahead)]]
                 submitted = len(futures)
                 for b in range(n_batches):
-                    batch_futs = futures[:self.batch_size]
-                    futures = futures[self.batch_size:]
+                    batch_futs = futures[:sizes[b]]
+                    futures = futures[sizes[b]:]
                     while submitted < len(order) and len(futures) < ahead:
                         futures.append(submit(epoch, int(order[submitted])))
                         submitted += 1

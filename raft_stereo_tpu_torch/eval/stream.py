@@ -38,8 +38,6 @@ from __future__ import annotations
 import atexit
 import collections
 import multiprocessing
-import multiprocessing.forkserver
-import multiprocessing.resource_tracker
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from dataclasses import dataclass
@@ -48,6 +46,7 @@ from typing import Any, Callable, Dict, Optional, Union
 import numpy as np
 
 from raft_stereo_tpu_torch.data.datasets import StereoDataset
+from raft_stereo_tpu_torch.data.loader import stop_worker_server
 from raft_stereo_tpu_torch.obs.trace import NULL_TRACER
 from raft_stereo_tpu_torch.serve.batching import collect_group, stack_pairs
 
@@ -138,8 +137,7 @@ def stop_decode_server() -> None:
     imported). Runs when the interpreter exits once a process pool was
     made; any later pool starts a new server. Call it only when no decode
     pool is open."""
-    multiprocessing.forkserver._forkserver._stop()
-    multiprocessing.resource_tracker._resource_tracker._stop()
+    stop_worker_server()
 
 
 def _decode_pool(dataset, workers: int):

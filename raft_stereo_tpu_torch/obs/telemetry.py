@@ -41,7 +41,7 @@ import threading
 import time
 import traceback
 from collections import deque
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -85,7 +85,7 @@ class Telemetry:
     def __init__(self, run_dir: str, run_name: Optional[str] = None,
                  stall_deadline_s: Optional[float] = None,
                  host_id: Optional[str] = None, fleet: bool = True,
-                 device=None):
+                 device=None, coords: Optional[Sequence[int]] = None):
         self.run_dir = run_dir
         # the device the run computes on: None is the current card where
         # there is one; a CPU device reports the CPU and no card memory
@@ -113,6 +113,9 @@ class Telemetry:
         # fleet=False restores the single-process v9-shaped stream
         self.fleet = bool(fleet)
         self.host_id = resolve_host_id(host_id) if self.fleet else None
+        # a data-parallel rank's (data, seq) mesh coordinates, stamped
+        # beside the host identity
+        self.coords = list(coords) if coords is not None else None
         self._heartbeats: list = []
         # flight recorder: recent-record mirror + attached tracer
         self.tracer = None
@@ -136,6 +139,8 @@ class Telemetry:
         if self.host_id is not None:
             rec.setdefault("host_id", self.host_id)
             rec.setdefault("pid", os.getpid())
+            if self.coords is not None:
+                rec.setdefault("coords", self.coords)
         try:
             with self._lock:
                 if self._closed:

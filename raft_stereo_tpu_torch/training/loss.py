@@ -8,13 +8,26 @@ iteration ``i`` weighted ``gamma_adj ** (n - 1 - i)``. Pixels count when
 valid and when ``|gt| < max_flow``; the sum is normalised by the number of
 such pixels. The final iteration's metrics are ``epe`` and the ``1px``,
 ``3px`` and ``5px`` inlier shares.
+
+Data parallelism (the counterpart of JAX's ``axis_name``): with a
+``torch.distributed`` ``group`` the per-iteration error sums, the
+valid-pixel count and the metric sums are summed over the group, so the
+loss and the metrics are those of the global batch. The gradient counts
+each rank's own pixels once: the global sums are constants of the
+forward (their backward passes the cotangent to this rank's terms
+unchanged), so a rank's gradient is its own numerator over the global
+denominator, and the one SUM all-reduce of the gradients after backward
+(``training/state.py``) makes the global batch's gradient. A
+differentiable all-reduce here would count every cotangent again there:
+N times the gradient.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 def loss_mask(flow_gt: torch.Tensor, valid: torch.Tensor,
@@ -27,15 +40,33 @@ def loss_mask(flow_gt: torch.Tensor, valid: torch.Tensor,
     return ((valid >= 0.5) & (mag < max_flow)).float()
 
 
+class _GroupSum(torch.autograd.Function):
+    """The sum over ``group`` of each rank's ``x``; the backward hands the
+    cotangent to this rank's ``x`` as it is (the gradients' all-reduce sums
+    the ranks' terms)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.detach().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor,
                   valid: torch.Tensor, loss_gamma: float = 0.9,
-                  max_flow: float = 700.0
+                  max_flow: float = 700.0, group: Optional[Any] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``flow_preds (iters, B, H, W, 1)``, ``flow_gt (B, H, W, 1)`` ->
     ``(loss, {"epe", "1px", "3px", "5px"})``, all fp32 scalars.
 
     Masked-out pixels are zeroed with ``where`` before the sum, so a
     non-finite ground truth there (an inf disparity) cannot poison it.
+    ``group``: sum over the ranks of a process group (module docstring);
+    every rank gets the same loss and metrics.
     """
     mask = loss_mask(flow_gt, valid, max_flow)
     gt = flow_gt.float()
@@ -47,16 +78,18 @@ def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor,
     gamma = loss_gamma ** (15.0 / (n - 1)) if n > 1 else 1.0
     weights = gamma ** torch.arange(n - 1, -1, -1, dtype=torch.float32,
                                     device=gt.device)
-    denom = torch.clamp(mask.sum(), min=1.0)
-    loss = torch.sum(weights * per_iter) / denom
 
     epe = torch.sqrt(torch.sum((flow_preds[-1].float() - gt) ** 2, dim=-1))
     m = mask[..., 0]
-    epe = torch.where(m > 0, epe, zero)
-    metrics = {
-        "epe": epe.sum() / denom,
-        "1px": ((epe < 1.0) * m).sum() / denom,
-        "3px": ((epe < 3.0) * m).sum() / denom,
-        "5px": ((epe < 5.0) * m).sum() / denom,
-    }
+    epe = torch.where(m > 0, epe, zero).detach()
+    sums = torch.stack([mask.sum(), epe.sum(), ((epe < 1.0) * m).sum(),
+                        ((epe < 3.0) * m).sum(), ((epe < 5.0) * m).sum()])
+    if group is not None:
+        # one all-reduce for the iterations' error sums and the counts
+        both = _GroupSum.apply(torch.cat([per_iter, sums]), group)
+        per_iter, sums = both[:n], both[n:]
+    denom = torch.clamp(sums[0], min=1.0)
+    loss = torch.sum(weights * per_iter) / denom
+    metrics = {k: sums[i] / denom
+               for i, k in enumerate(("epe", "1px", "3px", "5px"), 1)}
     return loss, metrics

@@ -7,14 +7,23 @@ optimizer micro-step (global-norm clip, AdamW at the OneCycle LR, gradient
 accumulation) behind the anomaly guard. It updates the model and the
 optimizer in place and returns the state for the JAX package's calling
 convention.
+
+Data parallelism (JAX's ``axis_name``): with a ``torch.distributed``
+``group`` each rank computes the loss and gradients of its slice of the
+global batch (the loss normalised over the global batch,
+``training/loss.py``), then one SUM all-reduce of one flat buffer holding
+every gradient makes the global batch's gradients on every rank. The
+guard's norm and decision and the per-leaf norms read the reduced
+gradients, so every rank takes the same branch with no other collective.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from raft_stereo_tpu_torch.training.loss import sequence_loss
 from raft_stereo_tpu_torch.training.optim import Optimizer, global_norm
@@ -22,11 +31,14 @@ from raft_stereo_tpu_torch.utils.weights import jax_leaf_names
 
 
 def loss_and_grads(model: torch.nn.Module, batch: Mapping[str, Any],
-                   train_iters: int):
+                   train_iters: int, group: Optional[Any] = None):
     """Train-mode forward, sequence loss and backward on ``batch``:
     ``(loss, metrics, grads)`` with ``metrics`` holding ``loss`` too, all
     detached, and ``grads`` in ``model.parameters()`` order (zeros for a
-    parameter the loss does not reach). Leaves every ``.grad`` None."""
+    parameter the loss does not reach). Leaves every ``.grad`` None.
+    ``group``: ``batch`` is this rank's slice of the global batch; loss
+    and metrics are the global batch's, ``grads`` this rank's share of its
+    gradients (:func:`all_reduce_grads` sums the shares)."""
     params = list(model.parameters())
     dev = params[0].device
     b = {k: torch.as_tensor(batch[k]).to(dev)
@@ -35,7 +47,7 @@ def loss_and_grads(model: torch.nn.Module, batch: Mapping[str, Any],
         p.grad = None
     preds = model(b["image1"], b["image2"], iters=train_iters,
                   test_mode=False)
-    loss, metrics = sequence_loss(preds, b["flow"], b["valid"])
+    loss, metrics = sequence_loss(preds, b["flow"], b["valid"], group=group)
     loss.backward()
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
@@ -43,6 +55,24 @@ def loss_and_grads(model: torch.nn.Module, batch: Mapping[str, Any],
         p.grad = None
     metrics = {k: v.detach() for k, v in dict(metrics, loss=loss).items()}
     return metrics["loss"], metrics, grads
+
+
+def all_reduce_grads(grads: Sequence[torch.Tensor], group: Any,
+                     flags: Sequence[float] = ()
+                     ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Sum ``grads`` (one rank's shares) over ``group`` with one all-reduce
+    of one flat fp32 buffer; ``flags`` (host numbers, e.g. a stop request)
+    ride at its end and come back summed over the ranks, on the device.
+    Returns ``(grads, flags)``."""
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [torch.tensor(list(flags), dtype=torch.float32,
+                                     device=grads[0].device)])
+    dist.all_reduce(flat, group=group)
+    out, offset = [], 0
+    for g in grads:
+        out.append(flat[offset:offset + g.numel()].view_as(g).to(g.dtype))
+        offset += g.numel()
+    return out, flat[offset:]
 
 
 @dataclasses.dataclass
@@ -56,10 +86,10 @@ class TrainState:
 
 
 def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
-                    train_iters: int, axis_name: Any = None,
+                    train_iters: int, group: Optional[Any] = None,
                     fused_loss: bool = False, anomaly_guard: bool = True,
                     numerics: bool = False):
-    """Build ``train_step(state, batch) -> (state, metrics)``.
+    """Build ``train_step(state, batch, stop=False) -> (state, metrics)``.
 
     ``batch`` holds ``image1``/``image2`` ``(B, H, W, 3)`` uint8-range
     floats, ``flow`` ``(B, H, W, 1)`` and ``valid`` ``(B, H, W)``, as
@@ -79,12 +109,14 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
     boolean back from the device each step (a host sync, where the JAX
     package branches on the device with ``lax.cond``).
 
-    ``axis_name`` (data parallelism, ROADMAP A10) and ``fused_loss`` (the
-    in-loop reduced loss, queued under A9) are not ported and raise.
+    ``group`` (JAX's ``axis_name``): a ``torch.distributed`` process group
+    over which the step is data parallel (module docstring); ``batch`` is
+    this rank's slice. ``stop`` (a host bool, e.g. this rank's preemption
+    signal) rides the gradients' all-reduce: ``metrics["stop"]`` (a host
+    bool, with a group only) is True on every rank when any rank asked,
+    so all stop after the same step. ``fused_loss`` (the in-loop reduced
+    loss, queued under A9b) is not ported and raises.
     """
-    if axis_name is not None:
-        raise NotImplementedError("data-parallel training (axis_name) is not "
-                                  "ported yet (ROADMAP.md A10)")
     if fused_loss:
         raise NotImplementedError("fused_loss is not ported yet (ROADMAP.md "
                                   "A9)")
@@ -97,22 +129,32 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
                  enumerate(model.named_parameters())}
         leaf_order = [index[name] for name, _ in jax_leaf_names(model)]
 
-    def train_step(state: TrainState, batch: Mapping[str, Any]
+    def train_step(state: TrainState, batch: Mapping[str, Any],
+                   stop: bool = False
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         loss, metrics, grads = loss_and_grads(state.model, batch,
-                                              train_iters)
+                                              train_iters, group=group)
+        # the agreed stop request, read with the guard's decision
+        stops = []
+        if group is not None:
+            grads, flags = all_reduce_grads(grads, group, [float(stop)])
+            stops = [flags]
         if numerics:
             metrics["leaf_grad_norms"] = torch.sqrt(torch.stack(
                 [torch.sum(grads[i].float() ** 2) for i in leaf_order]))
         if anomaly_guard:
             grad_norm = global_norm(grads)
             finite = torch.isfinite(grad_norm) & torch.isfinite(loss)
-            if bool(finite):  # the host sync
+            host = torch.cat([finite.float().reshape(1)] + stops).tolist()
+            if host[0]:  # the host sync
                 state.optimizer.step(grads)
             metrics.update(grad_norm=grad_norm,
                            skipped_updates=1.0 - finite.float())
         else:
+            host = [None] + (stops[0].tolist() if stops else [])
             state.optimizer.step(grads)
+        if stops:
+            metrics["stop"] = host[1] > 0
         state.step += 1
         return state, metrics
 

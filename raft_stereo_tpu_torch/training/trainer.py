@@ -8,6 +8,18 @@ logging, full-state checkpoints and the validate-on-Things hook every
 ``validation_frequency`` steps. It runs on one device, the card unless
 ``device="cpu"``.
 
+Data parallelism (JAX's mesh wiring, ``parallel/``): with a process group
+initialized (``parallel.distributed.initialize``), ``train()`` runs as one
+rank of it. Rank 0's state is broadcast after init and after a restore;
+each rank loads its slice of every global batch and the step all-reduces
+the gradients. Rank 0 alone writes checkpoints and runs validation while
+the others wait at a barrier; every rank restores. A SIGTERM to any rank
+rides the next step's gradient all-reduce, so every rank stops after the
+same step with one preempt checkpoint; anomaly halts come at the same
+step everywhere (the guard reads the reduced gradients). Each rank writes
+its own events.jsonl under ``<run_dir>/<name>/rank<r>``, stamped with its
+host id and mesh coordinates.
+
 * Checkpoints are full state (exact resume, schedule position included)
   and atomic (``training/resilience.py``); ``restore_ckpt`` also takes a
   reference ``.pth`` (weights only) and ``"auto"`` (the newest checkpoint
@@ -45,14 +57,18 @@ from raft_stereo_tpu_torch.data.datasets import fetch_dataloader
 from raft_stereo_tpu_torch.data.loader import infinite_batches
 from raft_stereo_tpu_torch.inference import resolve_device
 from raft_stereo_tpu_torch.models import RAFTStereo, init_weights
-from raft_stereo_tpu_torch.obs import Telemetry, tracer_for
+from raft_stereo_tpu_torch.obs import Telemetry, resolve_host_id, tracer_for
 from raft_stereo_tpu_torch.obs import numerics as obs_numerics
+from raft_stereo_tpu_torch.parallel.data_parallel import make_pjit_train_step
+from raft_stereo_tpu_torch.parallel.distributed import global_mesh
+from raft_stereo_tpu_torch.parallel.mesh import (barrier, batch_sharding,
+                                                 from_rank0, replicated)
 from raft_stereo_tpu_torch.training import resilience
 from raft_stereo_tpu_torch.training.checkpoint import (restore_train_state,
                                                        save_train_state)
 from raft_stereo_tpu_torch.training.logger import Logger
 from raft_stereo_tpu_torch.training.optim import fetch_optimizer
-from raft_stereo_tpu_torch.training.state import TrainState, make_train_step
+from raft_stereo_tpu_torch.training.state import TrainState
 from raft_stereo_tpu_torch.utils.weights import load_reference_checkpoint
 
 logger = logging.getLogger(__name__)
@@ -104,10 +120,17 @@ def _emergency_checkpoint(exc: BaseException, state, cfg: TrainConfig,
 def train(model_cfg: RAFTStereoConfig, cfg: TrainConfig,
           validate_every: Optional[int] = None, device="cuda") -> str:
     """Run training to ``cfg.num_steps`` on ``device``; returns the final
-    checkpoint's path (on preemption: the preempt checkpoint's)."""
+    checkpoint's path (on preemption: the preempt checkpoint's). With a
+    process group initialized, as one rank of it (module docstring)."""
     dev = resolve_device(device)
     validation_frequency = validate_every or cfg.validation_frequency
     ckpt_frequency = cfg.checkpoint_frequency or validation_frequency
+    mesh = global_mesh(cfg.data_parallel, cfg.seq_parallel, device=dev)
+    # this rank's slice of every global batch (raises when B % data != 0)
+    rank_slice = batch_sharding(mesh, cfg.batch_size)
+    lead = mesh.rank == 0
+    logger.info("mesh: %s, rank %d at %s on %s (%s)", mesh.shape, mesh.rank,
+                list(mesh.coords), dev, mesh.backend() or "one process")
     os.makedirs(cfg.ckpt_dir, exist_ok=True)
 
     model = init_weights(RAFTStereo(model_cfg),
@@ -133,8 +156,10 @@ def train(model_cfg: RAFTStereoConfig, cfg: TrainConfig,
     elif cfg.restore_ckpt:
         state = _restore(cfg.restore_ckpt, state, model_cfg)
         resume_from = cfg.restore_ckpt
+    # every rank from rank 0's state, after init and after a restore
+    replicated(mesh, state)
 
-    loader = fetch_dataloader(cfg)
+    loader = fetch_dataloader(cfg, process_slice=rank_slice)
     if state.step:
         # reposition the stream at the restored step exactly: the epoch by
         # division, the batch within it by start_batch
@@ -144,13 +169,22 @@ def train(model_cfg: RAFTStereoConfig, cfg: TrainConfig,
     accum_k = max(cfg.grad_accum_steps, 1)
 
     run_dir = os.path.join(cfg.run_dir, cfg.name)
+    host_id, coords, parallel = cfg.host_id, None, {}
+    if mesh.group is not None:
+        run_dir = os.path.join(run_dir, f"rank{mesh.rank}")
+        if cfg.fleet:
+            host_id = f"{resolve_host_id(cfg.host_id)}-r{mesh.rank}"
+        coords = list(mesh.coords)
+        parallel = {"parallel": {"data": mesh.data, "seq": mesh.seq,
+                                 "rank": mesh.rank, "coords": coords,
+                                 "backend": mesh.backend()}}
     tel = Telemetry(run_dir, run_name=cfg.name,
                     stall_deadline_s=cfg.stall_deadline_s,
-                    host_id=cfg.host_id, fleet=cfg.fleet,
-                    device=None if dev.type == "cuda" else dev)
+                    host_id=host_id, fleet=cfg.fleet,
+                    device=dev if dev.type == "cpu" else None, coords=coords)
     tel.run_start(config={"model": dataclasses.asdict(model_cfg),
                           "train": dataclasses.asdict(cfg),
-                          "device": str(dev)},
+                          "device": str(dev), **parallel},
                   n_params=int(n_params), resumed_step=int(state.step),
                   config_digest=run_digest)
     for report in integrity_reports:
@@ -170,9 +204,9 @@ def train(model_cfg: RAFTStereoConfig, cfg: TrainConfig,
     tel.start_heartbeat("trainer", cfg.heartbeat_every_s)
     leaf_names = obs_numerics.grad_leaf_names(model) if cfg.numerics \
         else None
-    step_fn = make_train_step(model, optimizer, cfg.train_iters,
-                              anomaly_guard=cfg.anomaly_guard,
-                              numerics=cfg.numerics)
+    step_fn = make_pjit_train_step(model, optimizer, cfg.train_iters, mesh,
+                                   anomaly_guard=cfg.anomaly_guard,
+                                   numerics=cfg.numerics)
 
     log = Logger(log_dir=run_dir, total_steps=int(state.step), telemetry=tel)
     validation_predictor = None  # made once, its weights refreshed after
@@ -213,7 +247,9 @@ def train(model_cfg: RAFTStereoConfig, cfg: TrainConfig,
     with resilience.SignalGuard() as guard:
         try:
             while global_step < cfg.num_steps:
-                if guard.requested:
+                # alone, a signal stops the run at once; a rank waits for
+                # the step's all-reduce to agree with the others
+                if mesh.group is None and guard.requested:
                     preempted = True
                     break
                 t0 = time.perf_counter()
@@ -226,7 +262,10 @@ def train(model_cfg: RAFTStereoConfig, cfg: TrainConfig,
                                    nan_step)
                     batch = dict(batch, image1=np.full_like(
                         batch["image1"], np.nan))
-                state, metrics = step_fn(state, batch)
+                state, metrics = step_fn(state, batch, stop=guard.requested)
+                # any rank's stop request, agreed in the gradients'
+                # all-reduce (alone: this process's)
+                stop = metrics.pop("stop", guard.requested)
                 t2 = time.perf_counter()
                 flush_pending()  # the previous step's record
                 t3 = time.perf_counter()
@@ -246,14 +285,14 @@ def train(model_cfg: RAFTStereoConfig, cfg: TrainConfig,
 
                 do_ckpt = global_step % ckpt_frequency == 0
                 do_val = global_step % validation_frequency == 0
-                if do_ckpt or do_val or guard.requested:
+                if do_ckpt or do_val or stop:
                     # validation scalars and the checkpoint agree on the
                     # step axis with the records
                     flush_pending()
-                if guard.requested:
+                if stop:
                     preempted = True
                     break
-                if do_ckpt:
+                if do_ckpt and lead:
                     ckpt = save_train_state(
                         cfg.ckpt_dir, cfg.name, state, step=global_step,
                         config_digest=run_digest,
@@ -261,7 +300,7 @@ def train(model_cfg: RAFTStereoConfig, cfg: TrainConfig,
                         keep_every=cfg.ckpt_keep_every)
                     logger.info("saved %s", ckpt)
                     tel.checkpoint(global_step, ckpt)
-                if do_val:
+                if do_val and lead:
                     if validation_predictor is None:
                         from raft_stereo_tpu_torch.inference import (
                             StereoPredictor)
@@ -279,31 +318,42 @@ def train(model_cfg: RAFTStereoConfig, cfg: TrainConfig,
                     if pps is not None:
                         logger.info("throughput: %.2f pairs/sec over last "
                                     "window", pps)
+                if do_ckpt or do_val:
+                    barrier(mesh)  # the others wait for rank 0's writes
 
             flush_pending()
             batches.close()
             loader.close()
+            final = None
             if preempted:
-                final = save_train_state(
-                    cfg.ckpt_dir, cfg.name, state, step=global_step,
-                    config_digest=run_digest, keep_last=cfg.ckpt_keep_last,
-                    keep_every=cfg.ckpt_keep_every, reason="preempt")
+                if lead:
+                    final = save_train_state(
+                        cfg.ckpt_dir, cfg.name, state, step=global_step,
+                        config_digest=run_digest,
+                        keep_last=cfg.ckpt_keep_last,
+                        keep_every=cfg.ckpt_keep_every, reason="preempt")
+                final = from_rank0(mesh, final)
+                signame = guard.signame or "a peer rank's signal"
                 logger.warning(
                     "preempted by %s at step %d: saved %s — resume with "
-                    "--restore_ckpt auto", guard.signame, global_step, final)
-                tel.emit("preempt", signal=guard.signame, step=global_step)
-                tel.checkpoint(global_step, final, reason="preempt")
+                    "--restore_ckpt auto", signame, global_step, final)
+                tel.emit("preempt", signal=signame, step=global_step)
+                if lead:
+                    tel.checkpoint(global_step, final, reason="preempt")
             else:
-                final = save_train_state(
-                    cfg.ckpt_dir, cfg.name, state,
-                    config_digest=run_digest, reason="final")
-                tel.checkpoint(global_step, final, reason="final")
+                if lead:
+                    final = save_train_state(
+                        cfg.ckpt_dir, cfg.name, state,
+                        config_digest=run_digest, reason="final")
+                    tel.checkpoint(global_step, final, reason="final")
+                final = from_rank0(mesh, final)
         except BaseException as e:
             batches.close()
             loader.close()
             tel.error(e)  # also fires the flight recorder ("crash")
-            _emergency_checkpoint(e, state, cfg, tel, global_step,
-                                  run_digest)
+            if lead:  # the ranks hold one state: rank 0 saves it
+                _emergency_checkpoint(e, state, cfg, tel, global_step,
+                                      run_digest)
             tracer.close()  # spans land before run_end
             tel.emit("run_end", steps=global_step - start_step, ok=False,
                      step=global_step)

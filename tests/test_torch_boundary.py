@@ -134,7 +134,9 @@ print(json.dumps([shapes, sorted(m for m in sys.modules
 TRAINING_PATH = ("data/augment.py", "data/loader.py", "data/datasets.py",
                  "training/resilience.py", "training/checkpoint.py",
                  "training/logger.py", "training/trainer.py",
-                 "obs/numerics.py", "train.py", "cli.py")
+                 "obs/numerics.py", "train.py", "cli.py",
+                 "parallel/mesh.py", "parallel/distributed.py",
+                 "parallel/data_parallel.py")
 
 
 def test_training_path_imports_no_opencv_or_pil():

@@ -1496,3 +1496,78 @@ def test_served_reload_at_batch_boundary_on_card(cuda):
         assert np.array_equal(got.flow, want.flow)
     finally:
         assert fresh.close(timeout=120)
+
+
+# --- data parallelism on the card --------------------------------------------
+
+def _dp_batch(b, h, w, seed):
+    g = torch.Generator().manual_seed(seed)
+    left = torch.rand((b, h, w, 3), generator=g) * 255
+    right = torch.roll(left, -3, dims=2)
+    flow = -torch.rand((b, h, w, 1), generator=g) * 8
+    valid = (torch.rand((b, h, w), generator=g) < 0.7).float()
+    return {"image1": left.numpy(), "image2": right.numpy(),
+            "flow": flow.numpy(), "valid": valid.numpy()}
+
+
+def test_dp_backend_rule_on_the_card(cuda):
+    """Two ranks on one card take gloo (NCCL refuses two ranks a device);
+    ranks on cards of their own take NCCL, where the machine has two."""
+    from dp_workers import card_step_rank
+    from raft_stereo_tpu_torch.parallel import distributed as pd
+    assert pd.backend_for(["cuda:0", "cuda:0"]) == "gloo"
+    assert pd.backend_for(["cuda:0", "cuda:1"]) == "nccl"
+    cfg = RAFTStereoConfig(hidden_dims=(32, 32, 32),
+                           corr_implementation="reg_cuda")
+    state = init_weights(RAFTStereo(cfg),
+                         torch.Generator().manual_seed(0)).state_dict()
+    batch = _dp_batch(2, 32, 64, 1)
+    shared = pd.launch(card_step_rank, ["cuda:0", "cuda:0"], cfg, state,
+                       batch, 1)
+    assert [r["backend"] for r in shared] == ["gloo", "gloo"]
+    if torch.cuda.device_count() >= 2:
+        own = pd.launch(card_step_rank, ["cuda:0", "cuda:1"], cfg, state,
+                        batch, 1)
+        assert [r["backend"] for r in own] == ["nccl", "nccl"]
+        assert [r["device"] for r in own] == ["cuda:0", "cuda:1"]
+
+
+def test_dp_step_on_the_card_matches_one_process(cuda):
+    """The 2-rank gradients (two ranks sharing the card, gloo) against the
+    one-process gradients of the concatenated batch on the card: the loss
+    within 1e-5 relative, all gradients together within the largest of 4
+    one-process null runs (weights x (1 + 1e-6 N(0, 1))), and bitwise
+    equal on both ranks."""
+    from dp_workers import card_step_rank
+    from raft_stereo_tpu_torch.parallel import distributed as pd
+    from raft_stereo_tpu_torch.training.state import loss_and_grads
+    cfg = RAFTStereoConfig(hidden_dims=(32, 32, 32),
+                           corr_implementation="reg_cuda")
+    model = init_weights(RAFTStereo(cfg), torch.Generator().manual_seed(3))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _dp_batch(4, 64, 160, 5)
+    ranks = pd.launch(card_step_rank, ["cuda:0", "cuda:0"], cfg, state,
+                      batch, 2)
+    model.to(cuda)
+    one_loss, _, one = loss_and_grads(model, batch, 2)
+    want = torch.cat([g.flatten().cpu() for g in one]).double()
+
+    def dev(grads):
+        got = torch.cat([g.flatten().cpu() for g in grads]).double()
+        return float((got - want).norm() / want.norm())
+    nulls = []
+    for i in range(4):
+        other = RAFTStereo(cfg)
+        g = torch.Generator().manual_seed(10 + i)
+        with torch.no_grad():
+            other.load_state_dict(state)
+            for p in other.parameters():
+                p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=g))
+        nulls.append(dev(loss_and_grads(other.to(cuda), batch, 2)[2]))
+    assert abs(ranks[0]["loss"] - float(one_loss)) <= 1e-5 * abs(
+        float(one_loss))
+    assert ranks[0]["loss"] == ranks[1]["loss"]
+    assert all(torch.equal(a, b) for a, b in zip(ranks[0]["grads"],
+                                                 ranks[1]["grads"]))
+    assert dev(ranks[0]["grads"]) <= max(nulls), (dev(ranks[0]["grads"]),
+                                                  nulls)
