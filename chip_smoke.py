@@ -76,6 +76,19 @@ Phases, each reported as one JSON line, in the order they run:
    reg_cuda, alt_cuda and alt_pallas at 64x160 and with reg_cuda +
    fused_lookup at 64x352 (the narrowest pair whose pyramid the fused
    kernel takes). Bound: 1e-3 px on flow_up.
+11a. adaptive_parity, numerics_cpu — the early exit and the numerics
+   taps. adaptive_parity: the default architecture (reg_cuda, fp32) at
+   384x1248, batch 2 (a textured pair and a noise pair), 32 iterations:
+   τ=0 bitwise the fixed loop (32 iterations taken a sample); at a τ
+   between recorded residuals where the two samples freeze apart,
+   iters_taken equal to the freeze rule on the fixed curves, frozen rows
+   0.0, while_loop bitwise masked_scan; windowed_sample 32 launches a
+   forward under masked_scan, the trips run plus one under while_loop;
+   each mode timed, and at τ=0 the while loop's host syncs (31 a forward)
+   priced per iteration. numerics_cpu: the taps of one fp32 pair at
+   64x160 (4 iterations) on the card and on the CPU: labels and counters
+   equal, min/max/absmean within 1e-3 of max(1, |CPU|); then one alt_cuda
+   1988x2880 frame with the taps: 32 fused_corr launches, 8 finite taps.
 11b. eval_kitti, eval_cli, eval_microbatch, eval_middlebury, eval_cpu —
    the evaluation path on synthetic trees written by the port's png.py
    (Paeth rows, as photographs are written) in a temporary directory,
@@ -105,6 +118,18 @@ Phases, each reported as one JSON line, in the order they run:
    EPE of StereoPredictor.__call__ on the same pair, ms per frame.
    eval_cpu runs validate_eth3d on 2 frames at 64x128 (fp32 reg_cuda, 4
    iterations) on the card and on the CPU: EPE within 1e-3 px.
+   numerics_eval runs the entry point sequentially on eval_kitti's tree
+   with its defaults (converge and numerics on) and with --no_converge
+   --no_numerics: kitti-fps of each (device forward, frames 2 on), the
+   same EPE and D1, a converge record a frame and a numerics record a
+   dispatch (8 taps, finite) that pass the schema, none without; then
+   both predictors profiled in this process for kernels a frame and idle
+   share. adaptive_eval builds a policy from those converge records
+   (build_policy at the smallest decile τ whose budget is at most 16),
+   runs the entry point with --iter_policy: kitti-fps and mean
+   iters_taken against the fixed run, no numerics records; in this
+   process windowed_sample, and with fused_lookup=True fused_lookup,
+   launch the budget's times a frame.
 11c. serve, serve_realtime, serve_fused, loadtest (and serve_http, run
    after train_trainer, whose checkpoints it serves) — the serving path
    (raft_stereo_tpu_torch/serve) on seeded weights at 375x1242 (the
@@ -140,7 +165,13 @@ Phases, each reported as one JSON line, in the order they run:
    x 4 requests, one video stream, request 5 poisoned: exit 0, nothing
    lost, exactly one nonfinite_output, the video frames served warm,
    served against sequential pairs/s, p50/p99 latency, both
-   events.jsonl valid.
+   events.jsonl valid. serve_adaptive: one server (default, fp32, 32
+   iterations) with a policy covering the 384x1248 bucket only (budget
+   16): its requests ride the @digest flavour with the predictor's flow
+   and iters_taken and 16 windowed_sample launches a dispatch, a 188x621
+   request stays on the fixed forward (32 launches, no iters_taken), the
+   slo iters rollup and its /metrics gauges; a --numerics server: one
+   numerics record a dispatch and the output_range gauges on /metrics.
 12. train — the SceneFlow recipe (sceneflow_config(): bf16 compute, bf16
    volume) with reg_cuda, batch 8 at 320x720, 22 iterations, through
    make_train_step on a seeded synthetic batch: a warm-up step, then timed
@@ -3453,6 +3484,572 @@ def run_loadtest(work):
     return result
 
 
+# --- convergence, early exit and numerics ------------------------------------
+
+ADAPTIVE_TIMED = 3           # timed forwards a mode in adaptive_parity
+POLICY_MAX_BUDGET = 16       # adaptive_eval picks the smallest τ (of the
+                             # recorded curves' quantiles) whose policy
+                             # budget is at most this
+TAP_CPU_TOL = 1e-3           # numerics_eval: card vs CPU tap statistics,
+                             # |diff| <= this x max(1, |CPU value|)
+NUMERICS_PROFILED = 4        # frames profiled a predictor in numerics_eval
+
+
+def oracle_taken(res, tau, min_iters=1):
+    """The freeze rule on recorded fixed-loop curves ``(iters, B)``: a
+    sample freezes after update i iff its residual row i-1 < tau and
+    i >= min_iters; else it takes the budget."""
+    n = res.shape[0]
+    return [next((i for i in range(min_iters, n + 1) if res[i - 1, j] < tau),
+                 n) for j in range(res.shape[1])]
+
+
+def midway_tau(res):
+    """A τ midway between two adjacent recorded residuals (every sample,
+    every iteration but the last) at which the samples freeze at
+    different iterations, one before the budget; preferably all before
+    it (the while loop then stops early), and then as far from any
+    recorded value as such a τ can be. Returns ``(tau, gap)``."""
+    import numpy as np
+    vals = np.sort(np.unique(res[:-1].ravel()))
+    best = None
+    for a, b in zip(vals[:-1], vals[1:]):
+        tau = float((a + b) / 2)
+        taken = oracle_taken(res, tau)
+        if min(taken) < res.shape[0] and len(set(taken)) > 1:
+            key = (max(taken) < res.shape[0],
+                   float(np.min(np.abs(res - tau))))
+            if best is None or key > best[0]:
+                best = (key, tau)
+    check(best is not None, "adaptive_parity: no τ freezes one sample only")
+    return best[1], best[0][1]
+
+
+def run_adaptive_parity(dev, all_kernels, ws_kernel, state):
+    """adaptive_parity: the default architecture (reg_cuda, fp32, TF32
+    off) at 384x1248, batch 2 (an easy textured pair and a noise pair),
+    32 iterations. τ=0 adaptive is bitwise the fixed loop with 32
+    iterations taken a sample; at a τ between recorded residuals that
+    freezes one sample early, iters_taken equals the oracle on the fixed
+    curves and the while loop gives the masked scan's flows, rows and
+    iters_taken bitwise. B1 launches: 32 a forward under masked_scan, the
+    trips run plus the final iteration under while_loop. Times each
+    mode; at τ=0 the two modes run the same 32 iterations, so their
+    difference is the while loop's 31 host syncs."""
+    import numpy as np
+    import torch
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    iters, (h, w) = EVAL_ITERS, padded_hw(SERVE_HW)
+    easy = stereo_pair(h, w, SEED + 400)
+    noise = np.random.default_rng(SEED + 401).uniform(
+        0, 255, (2, 1, h, w, 3)).astype(np.float32)
+    left = torch.from_numpy(np.concatenate([easy[0], noise[0]])).to(dev)
+    right = torch.from_numpy(np.concatenate([easy[1], noise[1]])).to(dev)
+    models = {}
+    for mode in ("masked_scan", "while_loop"):
+        cfg = RAFTStereoConfig(corr_implementation="reg_cuda",
+                               adaptive_mode=mode)
+        models[mode] = RAFTStereo(cfg).to(dev).eval()
+        models[mode].load_state_dict(state, strict=True)
+
+    def run(mode, **kw):
+        for k in all_kernels:
+            k.launches = 0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = models[mode](left, right, iters=iters,
+                               iter_metrics="per_sample", **kw)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k.__name__: k.launches for k in all_kernels}
+        return [o.cpu().numpy() for o in out], counts, ms
+
+    run("masked_scan")  # warm-up: cuDNN's algorithm choice, allocator
+    fixed, counts, _ = run("masked_scan")
+    check_launches("adaptive_parity fixed", counts, ws_kernel, iters)
+    res = fixed[2]
+    zero, counts, _ = run("masked_scan", adaptive_tau=0.0)
+    check_launches("adaptive_parity tau=0", counts, ws_kernel, iters)
+    check(np.array_equal(zero[1], fixed[1])
+          and np.array_equal(zero[2], fixed[2])
+          and list(zero[3]) == [iters, iters],
+          f"adaptive_parity: τ=0 is not the fixed loop (iters_taken "
+          f"{list(zero[3])})")
+    tau, gap = midway_tau(res)
+    oracle = oracle_taken(res, tau)
+    outs, launches = {}, {}
+    for mode in ("masked_scan", "while_loop"):
+        outs[mode], counts, _ = run(mode, adaptive_tau=tau)
+        trips = min(max(oracle), iters - 1) if mode == "while_loop" \
+            else iters - 1
+        check_launches(f"adaptive_parity {mode}", counts, ws_kernel,
+                       trips + 1)
+        launches[mode] = counts[ws_kernel.__name__]
+        check(list(outs[mode][3]) == oracle,
+              f"adaptive_parity {mode}: iters_taken {list(outs[mode][3])}, "
+              f"oracle {oracle}")
+        check(all(np.isfinite(o).all() for o in outs[mode][:3]),
+              f"adaptive_parity {mode}: non-finite output")
+    ms_, wl = outs["masked_scan"], outs["while_loop"]
+    check(all(np.array_equal(ms_[i], wl[i]) for i in (0, 1, 2, 3)),
+          "adaptive_parity: while_loop differs from masked_scan")
+    for j, t in enumerate(oracle):
+        check(np.array_equal(ms_[2][:t, j], res[:t, j])
+              and np.all(ms_[2][t:, j] == 0.0),
+              f"adaptive_parity: sample {j}'s residual rows")
+    timed = {}
+    for label, mode, tau_ in (("fixed", "masked_scan", None),
+                              ("masked_scan_tau0", "masked_scan", 0.0),
+                              ("while_loop_tau0", "while_loop", 0.0),
+                              ("masked_scan", "masked_scan", tau),
+                              ("while_loop", "while_loop", tau)):
+        kw = {} if tau_ is None else {"adaptive_tau": tau_}
+        timed[label] = [run(mode, **kw)[2] for _ in range(ADAPTIVE_TIMED)]
+    med = {k: statistics.median(v) for k, v in timed.items()}
+    result = dict(size=[h, w], batch=2, iters=iters, dtype="float32",
+                  tau=tau, tau_gap_to_recorded=gap, iters_taken=oracle,
+                  launches=launches, launches_fixed=iters,
+                  ms_median=med, ms_runs=timed,
+                  while_loop_sync_ms_per_iteration=(
+                      med["while_loop_tau0"] - med["masked_scan_tau0"])
+                  / (iters - 1))
+    emit("adaptive_parity", **result)
+    print(f"adaptive_parity: τ {tau:.5g} iters_taken {oracle}; ms fixed "
+          f"{med['fixed']:.1f}, masked_scan {med['masked_scan']:.1f}, "
+          f"while_loop {med['while_loop']:.1f}; while_loop's sync "
+          f"{result['while_loop_sync_ms_per_iteration']:.4f} ms an "
+          f"iteration", flush=True)
+    return result
+
+
+def run_entry_eval(work, tree, ckpt, name, *flags):
+    """``python3 -m raft_stereo_tpu_torch.evaluate`` on eval_kitti's tree
+    and weights, sequential, EVAL_ITERS iterations, with ``flags``, in a
+    session of its own: its results dict, with ``kitti-fps`` (the device
+    forward) and ``kitti-fps-e2e`` (the predict call) over frames 2 on
+    from its step records (the entry point's validator warms up over 50
+    frames, more than the tree has), and its records."""
+    import ast
+    from raft_stereo_tpu_torch.obs import read_events
+    run_dir = os.path.join(work, name)
+    cmd = [sys.executable, "-m", "raft_stereo_tpu_torch.evaluate",
+           "--dataset", "kitti", "--data_root", tree,
+           "--corr_implementation", "reg_cuda", "--stream", "off",
+           "--valid_iters", str(EVAL_ITERS), "--run_dir", run_dir,
+           "--restore_ckpt", ckpt, *flags]
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        stop_leftovers({pid: cmd_ for pid, (_, sid, cmd_)
+                        in live_processes().items() if sid == proc.pid},
+                       name)
+    check(proc.returncode == 0, f"{name} exited {proc.returncode}:\n"
+                                f"{stderr[-3000:]}")
+    check_events(run_dir, EVAL_FRAMES)
+    events = read_events(os.path.join(run_dir, "events.jsonl"))
+    steps = [e for e in events if e["event"] == "step"][2:]
+    results = ast.literal_eval(stdout.strip().splitlines()[-1])
+    results["kitti-fps"] = len(steps) / sum(e["dispatch_s"] for e in steps)
+    results["kitti-fps-e2e"] = len(steps) / sum(
+        e["dispatch_s"] + e["fetch_s"] for e in steps)
+    return results, events
+
+
+def check_converge_numerics(name, events, frames, numerics):
+    """A run's ``converge`` records (one a frame, curves of EVAL_ITERS
+    points, finite) and ``numerics`` records (one a dispatch when on, 8
+    taps of finite statistics and no non-finite, saturated value; none
+    when off); both pass the port's schema (check_events did)."""
+    import math
+    conv = [e for e in events if e["event"] == "converge"]
+    nums = [e for e in events if e["event"] == "numerics"]
+    check(len(conv) == frames and all(
+        e["iters"] == EVAL_ITERS and len(e["residual"]) == len(e["idx"])
+        and all(math.isfinite(v) for v in e["residual"]) for e in conv),
+        f"{name}: {len(conv)} converge records for {frames} frames")
+    check(len(nums) == (frames if numerics else 0),
+          f"{name}: {len(nums)} numerics records")
+    for e in nums:
+        check(e["kind"] == "taps" and len(e["taps"]) == 8
+              and e["first_nonfinite"] is None and e["sat_total"] == 0,
+              f"{name}: numerics record {e.get('frame')}: "
+              f"{e['first_nonfinite']}, sat {e['sat_total']}")
+        for label, series in e["taps"].items():
+            check(all(v is not None for f in ("min", "max", "absmean")
+                      for v in series[f]),
+                  f"{name}: tap {label} has a non-finite statistic")
+    return conv, nums
+
+
+def run_numerics_eval(dev, work, tree, ckpt, all_kernels, ws_kernel):
+    """numerics_eval, the entry point: the default eval (converge and
+    numerics on, as the JAX package's) against --no_converge
+    --no_numerics on eval_kitti's tree and weights, both sequential in
+    one call: kitti-fps each, the records checked; then in this process,
+    the same two predictors and one with the converge output alone
+    profiled over NUMERICS_PROFILED frames for kernels a frame, the card's
+    busy time and idle share, and their B1 launches.
+    Returns the phase's fields and the default run's converge records."""
+    import numpy as np
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.data import KITTI
+    from raft_stereo_tpu_torch.inference import StereoPredictor
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    off, off_events = run_entry_eval(work, tree, ckpt, "numerics_off",
+                                     "--no_converge", "--no_numerics")
+    on, on_events = run_entry_eval(work, tree, ckpt, "numerics_on")
+    check(not any(e["event"] in ("converge", "numerics")
+                  for e in off_events),
+          "numerics_eval: --no_converge --no_numerics wrote records")
+    conv, nums = check_converge_numerics("numerics_eval", on_events,
+                                         EVAL_FRAMES, True)
+    start = next(e for e in on_events if e["event"] == "run_start")
+    check(start["config"]["converge"] and start["config"]["numerics"],
+          f"numerics_eval: run_start config {start['config']}")
+    for key in ("kitti-epe", "kitti-d1"):
+        check(on[key] == off[key], f"numerics_eval: {key} {on[key]} with "
+                                   f"the taps, {off[key]} without")
+    cfg = RAFTStereoConfig(corr_implementation="reg_cuda",
+                           mixed_precision=True)
+    state = seeded_weights(RAFTStereo(cfg), SEED)
+    ds = KITTI(root=os.path.join(tree, "KITTI"))
+    frames = [ds.sample(i) for i in range(NUMERICS_PROFILED)]
+    prof = {}
+    for name, kw in (("off", {}), ("converge", dict(converge=True)),
+                     ("on", dict(converge=True, numerics=True))):
+        pred = StereoPredictor(cfg, state, valid_iters=EVAL_ITERS,
+                               device=dev, **kw)
+
+        def frames_fn():
+            for s in frames:
+                pred(s["image1"][None], s["image2"][None])
+                pred.take_aux()
+        frames_fn()  # warm-up
+        for k in all_kernels:
+            k.launches = 0
+        frames_fn()
+        counts = {k.__name__: k.launches for k in all_kernels}
+        check_launches(f"numerics_eval {name}", counts, ws_kernel,
+                       EVAL_ITERS, NUMERICS_PROFILED)
+        idle, n_kernels, busy_ms, span_ms = idle_share(frames_fn)
+        prof[name] = dict(idle_share=idle,
+                          kernels_per_frame=n_kernels / NUMERICS_PROFILED,
+                          busy_ms_per_frame=busy_ms / NUMERICS_PROFILED,
+                          span_ms_per_frame=span_ms / NUMERICS_PROFILED,
+                          launches_per_frame=counts[ws_kernel.__name__]
+                          / NUMERICS_PROFILED)
+        del pred
+    fps = {"off": off["kitti-fps"], "on": on["kitti-fps"]}
+    result = dict(frames=EVAL_FRAMES, iters=EVAL_ITERS,
+                  dtype="bfloat16 (mixed precision)", kitti_fps=fps,
+                  kitti_fps_e2e={"off": off["kitti-fps-e2e"],
+                                 "on": on["kitti-fps-e2e"]},
+                  slowdown_with_taps=fps["off"] / fps["on"] - 1.0,
+                  profiled=prof,
+                  tap_kernels_per_frame=prof["on"]["kernels_per_frame"]
+                  - prof["converge"]["kernels_per_frame"],
+                  converge_kernels_per_frame=prof["converge"][
+                      "kernels_per_frame"] - prof["off"]["kernels_per_frame"],
+                  records={"converge": len(conv), "numerics": len(nums)},
+                  tap_labels=list(nums[0]["taps"]))
+    emit("numerics_eval", **result)
+    print(f"numerics_eval: kitti-fps {fps['on']:.3f} with converge and "
+          f"numerics, {fps['off']:.3f} without; kernels a frame "
+          f"{prof['on']['kernels_per_frame']:.0f} / "
+          f"{prof['off']['kernels_per_frame']:.0f}; idle share "
+          f"{prof['on']['idle_share']:.3f} / {prof['off']['idle_share']:.3f}",
+          flush=True)
+    return result, conv
+
+
+def choose_policy(conv):
+    """The policy the port's build_policy makes of eval records at the
+    smallest τ among the recorded residuals' deciles whose default budget
+    is at most POLICY_MAX_BUDGET (the largest decile otherwise)."""
+    import numpy as np
+    from raft_stereo_tpu_torch.obs import converge as cv
+    vals = np.concatenate([np.asarray(e["residual"]) for e in conv])
+    policy = None
+    for q in range(10, 100, 10):
+        tau = float(np.percentile(vals, q))
+        policy = cv.build_policy(conv, tau=tau, source_run="numerics_on")
+        if policy["default"]["budget"] <= POLICY_MAX_BUDGET:
+            break
+    return policy
+
+
+def run_adaptive_eval(dev, work, tree, ckpt, all_kernels, ws_kernel,
+                      fl_kernel, conv, fixed_fps):
+    """adaptive_eval: a policy built by the port's build_policy from
+    numerics_eval's converge records, written and linted, then python3
+    -m raft_stereo_tpu_torch.evaluate --iter_policy on the same tree
+    (sequential): kitti-fps and the mean iters_taken against the fixed
+    run of numerics_eval; in this process the adaptive predictor's B1
+    launches (the budget a frame) and with fused_lookup=True B4's (the
+    budget a frame, no B1), over NUMERICS_PROFILED frames."""
+    import numpy as np
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.data import KITTI
+    from raft_stereo_tpu_torch.inference import StereoPredictor
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    from raft_stereo_tpu_torch.obs import converge as cv
+    policy = choose_policy(conv)
+    path = os.path.join(work, "iter_policy.json")
+    with open(path, "w") as f:
+        json.dump(policy, f, indent=2, sort_keys=True)
+    cv.load_policy(path)  # lints
+    budget = policy["default"]["budget"]
+    res, events = run_entry_eval(work, tree, ckpt, "adaptive_eval",
+                                 "--iter_policy", path)
+    taken = [e["iters_taken"] for e in events if e["event"] == "converge"]
+    check(len(taken) == EVAL_FRAMES and all(1 <= t <= budget
+                                            for t in taken),
+          f"adaptive_eval: iters_taken {taken[:8]}... budget {budget}")
+    check(not any(e["event"] == "numerics" for e in events),
+          "adaptive_eval: the early exit wrote numerics records")
+    start = next(e for e in events if e["event"] == "run_start")["config"]
+    check(start["iter_policy_digest"] == cv.policy_digest(policy),
+          f"adaptive_eval: run_start digest {start['iter_policy_digest']}")
+    ds = KITTI(root=os.path.join(tree, "KITTI"))
+    frames = [ds.sample(i) for i in range(NUMERICS_PROFILED)]
+    launches = {}
+    for name, kernel, extra in (("reg_cuda", ws_kernel, {}),
+                                ("fused_lookup", fl_kernel,
+                                 {"fused_lookup": True})):
+        cfg = RAFTStereoConfig(corr_implementation="reg_cuda",
+                               mixed_precision=True, **extra)
+        pred = StereoPredictor(cfg, seeded_weights(RAFTStereo(cfg), SEED),
+                               valid_iters=EVAL_ITERS, device=dev,
+                               iter_policy=policy)
+        pred(frames[0]["image1"][None], frames[0]["image2"][None])
+        for k in all_kernels:
+            k.launches = 0
+        for s in frames:
+            flow = pred(s["image1"][None], s["image2"][None])
+            aux = pred.take_aux()
+            check(np.isfinite(flow).all() and aux["residual"].shape ==
+                  (budget, 1), f"adaptive_eval {name}: output")
+        counts = {k.__name__: k.launches for k in all_kernels}
+        check_launches(f"adaptive_eval {name}", counts, kernel, budget,
+                       NUMERICS_PROFILED)
+        launches[name] = counts[kernel.__name__] / NUMERICS_PROFILED
+        del pred
+    result = dict(frames=EVAL_FRAMES, policy_tau=policy["default"]["tau"],
+                  policy_budget=budget, digest=cv.policy_digest(policy),
+                  kitti_fps={"adaptive": res["kitti-fps"],
+                             "fixed": fixed_fps},
+                  kitti_fps_e2e_adaptive=res["kitti-fps-e2e"],
+                  iters_taken_mean=float(np.mean(taken)),
+                  iters_taken_max=int(max(taken)), results=res,
+                  launches_per_frame={
+                      ws_kernel.__name__: launches["reg_cuda"],
+                      fl_kernel.__name__: launches["fused_lookup"]},
+                  launches_per_frame_fixed=EVAL_ITERS)
+    emit("adaptive_eval", **result)
+    print(f"adaptive_eval: kitti-fps {res['kitti-fps']:.3f} with the "
+          f"policy (τ {policy['default']['tau']:.4g}, budget {budget}, "
+          f"mean iters_taken {result['iters_taken_mean']:.2f}) against "
+          f"{fixed_fps:.3f} fixed at {EVAL_ITERS}; B1 {launches['reg_cuda']:.0f}"
+          f" and B4 {launches['fused_lookup']:.0f} launches a frame",
+          flush=True)
+    return result
+
+
+def run_numerics_card_cpu(dev, all_kernels, ws_kernel, fc_kernel, state):
+    """numerics_cpu: one fp32 pair at 64x160 (the default architecture,
+    reg_cuda, TF32 off, 4 iterations) with numerics on, on the card and
+    on the CPU, same weights: the tap labels equal, the counters equal,
+    min/max/absmean within TAP_CPU_TOL x max(1, |CPU value|); then one
+    alt_cuda Middlebury-size frame (1988x2880, bf16, 32 iterations) with
+    numerics on: 32 fused_corr launches and no other kernel's, 8 taps of
+    finite statistics, corr_feats among them."""
+    import numpy as np
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.inference import StereoPredictor
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    left, right = stereo_pair(64, 160, SEED + 1, shift=6)
+    cfg = RAFTStereoConfig(corr_implementation="reg_cuda")
+    taps = {}
+    for where in (dev, "cpu"):
+        pred = StereoPredictor(cfg, state, valid_iters=4, device=where,
+                               numerics=True)
+        ws_kernel.launches = 0
+        pred(left, right)
+        check(ws_kernel.launches == (4 if where == dev else 0),
+              f"numerics_cpu on {where}: {ws_kernel.launches} launches")
+        taps[str(where)] = pred.take_aux()["numerics"]
+    card, cpu = taps[str(dev)], taps["cpu"]
+    check(list(card) == list(cpu), f"numerics_cpu: labels {list(card)} / "
+                                   f"{list(cpu)}")
+    worst = 0.0
+    for k in cpu:
+        check(np.array_equal(card[k][:, 3:5], cpu[k][:, 3:5]),
+              f"numerics_cpu: {k} counters {card[k][:, 3:]} / "
+              f"{cpu[k][:, 3:]}")
+        dev_ = np.abs(card[k][:, :3] - cpu[k][:, :3]) / np.maximum(
+            1.0, np.abs(cpu[k][:, :3]))
+        worst = max(worst, float(dev_.max()))
+    check(worst <= TAP_CPU_TOL, f"numerics_cpu: tap statistics differ by "
+                                f"{worst} of max(1, |CPU|)")
+    underflow = {k: [float(card[k][:, 5].sum()), float(cpu[k][:, 5].sum())]
+                 for k in cpu}
+    # the memoryless fused correlation at Middlebury size with the taps
+    mcfg = RAFTStereoConfig(corr_implementation="alt_cuda",
+                            mixed_precision=True)
+    pred = StereoPredictor(mcfg, seeded_weights(RAFTStereo(mcfg), SEED),
+                           valid_iters=EVAL_ITERS, device=dev, numerics=True,
+                           converge=True)
+    mleft, mright = stereo_pair(HIRES_H, HIRES_W, SEED + 210, shift=24)
+    pred(mleft, mright)  # warm-up
+    for k in all_kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    flow = pred(mleft, mright)
+    secs = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in all_kernels}
+    check_launches("numerics_middlebury", counts, fc_kernel, EVAL_ITERS)
+    aux = pred.take_aux()
+    labels = [k.partition(":")[2] for k in aux["numerics"]]
+    check(np.isfinite(flow).all() and len(labels) == 8
+          and labels[0] == "corr_feats"
+          and all(np.isfinite(v[:, :3]).all() and not v[:, 3].any()
+                  for v in aux["numerics"].values()),
+          f"numerics_middlebury: taps {labels}")
+    del pred
+    result = dict(size=[64, 160], iters=4, dtype="float32",
+                  max_rel_dev=worst, bound=TAP_CPU_TOL,
+                  underflow_card_cpu=underflow,
+                  middlebury=dict(size=[HIRES_H, HIRES_W], iters=EVAL_ITERS,
+                                  dtype="bfloat16 (mixed precision)",
+                                  launches=counts, seconds=secs,
+                                  labels=labels))
+    emit("numerics_cpu", **result)
+    return result
+
+
+def run_serve_adaptive(dev, all_kernels, ws_kernel, state):
+    """serve_adaptive: one StereoServer (default architecture, reg_cuda,
+    fp32, 32 iterations) with an iteration policy covering the 384x1248
+    bucket only (τ from a request's fixed curve, between its 6th and 7th
+    residuals): its requests ride the @digest flavour, return
+    iters_taken (the predictor's with the same policy) and launch B1 the
+    budget's times a dispatch; a 188x621 request (bucket 192x640) stays
+    fixed (32 launches, no iters_taken); the slo "iters" rollup and its
+    /metrics gauges. Then serve --numerics: one numerics record a
+    dispatch and the output_range gauges on /metrics."""
+    import numpy as np
+    from raft_stereo_tpu_torch.config import RAFTStereoConfig
+    from raft_stereo_tpu_torch.inference import StereoPredictor
+    from raft_stereo_tpu_torch.obs import Telemetry, read_events
+    from raft_stereo_tpu_torch.obs import converge as cv
+    from raft_stereo_tpu_torch.serve import ServeConfig, StereoServer
+    from raft_stereo_tpu_torch.serve.http import prometheus_metrics
+    cfg = RAFTStereoConfig(corr_implementation="reg_cuda")
+    iters = EVAL_ITERS
+    bh, bw = padded_hw(SERVE_HW)
+    pairs = serve_pairs(2, SEED + 500)
+    small = serve_pairs(1, SEED + 510, SERVE_SMALL_HW)[0]
+    fixed = StereoPredictor(cfg, state, valid_iters=iters, device=dev,
+                            converge=True)
+    fixed(pairs[0][0][None], pairs[0][1][None])
+    res = fixed.take_aux()["residual"][:, 0]
+    tau = float((res[5] + res[6]) / 2)
+    budget = iters // 2
+    policy = {"kind": "iter_policy", "version": 1,
+              "source_run": "chip_smoke serve_adaptive",
+              "buckets": {f"{bh}x{bw}": {
+                  "tau": tau, "budget": budget, "min_iters": 1,
+                  "provenance": {"source": "serve:chip_smoke",
+                                 "row": {"tau": tau, "budget": iters}}}}}
+    digest = cv.policy_digest(policy)
+    pred = StereoPredictor(cfg, state, valid_iters=iters, device=dev,
+                           iter_policy=policy)
+    want, want_taken = [], []
+    for l, r in pairs:
+        want.append(pred(l[None], r[None]))
+        want_taken.append(int(pred.take_aux()["iters_taken"][0]))
+    server = StereoServer(cfg, state, ServeConfig(
+        max_batch=1, default_iters=iters, slo_every=1, iter_policy=policy),
+        device=dev)
+    try:
+        server.warmup([SERVE_HW, SERVE_SMALL_HW])
+        got, counts = [], []
+        for l, r in pairs + [small]:
+            (res_,), c = served(server, all_kernels, [(l, r, {})])
+            got.append(res_)
+            counts.append(c)
+        stats = server.stats()
+    finally:
+        server.close(timeout=120)
+    label = f"{bh}x{bw}b1i{budget}@{digest}"
+    for j in range(2):
+        check(got[j].ok and got[j].bucket == label
+              and got[j].iters_taken is not None
+              and np.array_equal(got[j].flow, want[j][0]),
+              f"serve_adaptive: covered request {j}: {got[j].bucket}, "
+              f"iters_taken {got[j].iters_taken}")
+        check_launches(f"serve_adaptive covered {j}", counts[j], ws_kernel,
+                       budget)
+    check([r.iters_taken for r in got[:2]] == want_taken,
+          f"serve_adaptive: iters_taken {[r.iters_taken for r in got[:2]]},"
+          f" predictor {want_taken}")
+    sh, sw = padded_hw(SERVE_SMALL_HW)
+    check(got[2].ok and got[2].bucket == f"{sh}x{sw}b1i{iters}"
+          and got[2].iters_taken is None,
+          f"serve_adaptive: uncovered request {got[2].bucket}")
+    check_launches("serve_adaptive uncovered", counts[2], ws_kernel, iters)
+    text = prometheus_metrics(stats)
+    check(set(stats.get("iters", {})) == {label}
+          and f'raft_serve_iters_taken_p50{{bucket="{label}"}}' in text,
+          f"serve_adaptive: iters rollup {stats.get('iters')}")
+    # the numerics flavour
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_num_") as run:
+        tel = Telemetry(run, stall_deadline_s=None, device=dev)
+        tel.run_start(config={"mode": "serve"})
+        server = StereoServer(cfg, state, ServeConfig(
+            max_batch=1, default_iters=iters, slo_every=1, numerics=True),
+            device=dev, telemetry=tel)
+        try:
+            server.warmup([SERVE_HW])
+            n_results, c = served(server, all_kernels,
+                                  [(l, r, {}) for l, r in pairs])
+            check_launches("serve_adaptive numerics", c, ws_kernel, iters, 2)
+            nstats = server.stats()
+        finally:
+            server.close(timeout=120)
+        tel.emit("run_end", steps=2, ok=True)
+        tel.close()
+        recs = [e for e in read_events(os.path.join(run, "events.jsonl"))
+                if e["event"] == "numerics"]
+    ntext = prometheus_metrics(nstats)
+    check(len(recs) == 2 and all(len(e["taps"]) == 8 for e in recs)
+          and all(r.ok and r.output_min is not None for r in n_results)
+          and "raft_serve_output_min_p05" in ntext
+          and "raft_serve_output_max_p95" in ntext,
+          f"serve_adaptive numerics: {len(recs)} records, "
+          f"{nstats.get('output_range')}")
+    result = dict(size=list(SERVE_HW), iters=iters, tau=tau, budget=budget,
+                  digest=digest, labels=[r.bucket for r in got],
+                  iters_taken=[r.iters_taken for r in got],
+                  launches_per_dispatch=[c[ws_kernel.__name__]
+                                         for c in counts],
+                  latency_ms=[r.latency_s * 1e3 for r in got],
+                  iters_rollup=stats["iters"],
+                  numerics_records=len(recs),
+                  output_range=nstats["output_range"],
+                  numerics_latency_ms=[r.latency_s * 1e3 for r in n_results])
+    emit("serve_adaptive", **result)
+    return result
+
+
 def main():
     import numpy as np
     import torch
@@ -3684,6 +4281,13 @@ def main():
         check(dev_px <= CPU_PARITY_TOL_PX,
               f"card vs CPU forward ({impl}) differ by {dev_px} px")
 
+    # 11a. the early exit at full width (fp32), both modes, and the taps
+    # on the card against the CPU, the Middlebury-size frame with the taps
+    adaptive = run_adaptive_parity(dev, all_kernels, windowed_sample,
+                                   default_state)
+    numerics_cpu = run_numerics_card_cpu(dev, all_kernels, windowed_sample,
+                                         fused_corr, default_state)
+
     # the evaluation path (validators, stream driver, predict_async, the
     # entry point) on synthetic trees written by the port's own png.py
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as work:
@@ -3695,6 +4299,13 @@ def main():
         run_eval_cli(work, tree, ckpt, eval_kitti["streamed"])
         eval_ub = run_eval_microbatch(dev, tree, all_kernels,
                                       windowed_sample)
+        # the default eval's taps against none, then a policy built from
+        # its curves through evaluate --iter_policy
+        numerics_eval, conv = run_numerics_eval(dev, work, tree, ckpt,
+                                                all_kernels, windowed_sample)
+        adaptive_eval = run_adaptive_eval(
+            dev, work, tree, ckpt, all_kernels, windowed_sample,
+            fused_lookup_c1, conv, numerics_eval["kitti_fps"]["off"])
         torch.backends.cudnn.allow_tf32 = False
         eval_mb = run_eval_middlebury(dev, work, all_kernels, fused_corr)
         run_eval_cpu(dev, work, windowed_sample)
@@ -3706,6 +4317,8 @@ def main():
     serve_rt = run_serve_realtime(dev, all_kernels, windowed_sample)
     serve_fused = run_serve_fused(dev, all_kernels, windowed_sample,
                                   fused_corr, default_state, reg_flow)
+    serve_adaptive = run_serve_adaptive(dev, all_kernels, windowed_sample,
+                                        default_state)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as work:
         run_loadtest(work)
 
@@ -4001,6 +4614,15 @@ def main():
         "launches_serve_per_dispatch": serve["launches_per_dispatch"],
         "launches_serve_realtime_per_dispatch":
         serve_rt["launches_per_dispatch"],
+        "launches_adaptive_parity_fixed": adaptive["launches_fixed"],
+        "launches_adaptive_parity": adaptive["launches"],
+        "launches_numerics_eval_per_frame":
+        numerics_eval["profiled"]["on"]["launches_per_frame"],
+        "launches_adaptive_eval_per_frame":
+        adaptive_eval["launches_per_frame"][windowed_sample.__name__],
+        "adaptive_eval_policy_budget": adaptive_eval["policy_budget"],
+        "launches_serve_adaptive_per_dispatch":
+        serve_adaptive["launches_per_dispatch"],
         "max_abs_err": max(max_err, ws_err["fwd"]),
         "ms": ws_fwd["ms"], "plain_ms": ws_fwd["plain_ms"],
         "bound_ms": ws_fwd["bound_ms"], "bound_by": ws_fwd["bound_by"],
@@ -4068,6 +4690,8 @@ def main():
               fused_corr.__name__],
           "launches_serve_per_dispatch": serve_fused[
               "launches_per_dispatch"]["+fused"][fused_corr.__name__],
+          "launches_numerics_middlebury": numerics_cpu["middlebury"][
+              "launches"][fused_corr.__name__],
           "ms_train": rnd(fused_rows["fwd_train"])[0]["ms"],
           "ms_levels_one_each": [r["ms"] for r in rnd(
               fused_rows["fwd_level"])]},
@@ -4127,6 +4751,8 @@ def main():
     } for suffix, replaces, launches, extra, err, row, timed_at in (
         ("", fl.REPLACES, main["default_fused_lookup"]["launches"],
          {"launches_realtime": main["realtime_fused_lookup"]["launches"],
+          "launches_adaptive_eval_per_frame":
+          adaptive_eval["launches_per_frame"][fused_lookup_c1.__name__],
           "launches_train_step": train_lookup["launches_fwd"],
           "ms_realtime": lookup_rows["fwd"][1]["ms"],
           "bound_ms_realtime": lookup_rows["fwd"][1]["bound_ms"],

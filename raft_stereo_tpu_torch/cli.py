@@ -307,14 +307,32 @@ def build_eval_parser() -> argparse.ArgumentParser:
                    help="background frame decoders (worker processes "
                         "for the port's datasets, eval/stream.py)")
     c = parser.add_argument_group(
-        "convergence and numerics",
-        "the JAX package's per-iteration outputs; the port's model has none "
-        "yet (ROADMAP A11), so a port run is a JAX run with --no_converge "
-        "--no_numerics, and --iter_epe / --iter_policy raise")
-    c.add_argument("--no_converge", action="store_true")
-    c.add_argument("--iter_epe", action="store_true")
-    c.add_argument("--iter_policy", default=None, metavar="PATH")
-    c.add_argument("--no_numerics", action="store_true")
+        "convergence", "iteration-resolved quality telemetry "
+        "(obs/converge.py): per-frame |delta disparity| curves on the "
+        "event bus, replayable offline by `python -m "
+        "raft_stereo_tpu_torch.obs.converge <run_dir>`")
+    c.add_argument("--no_converge", action="store_true",
+                   help="disable the convergence outputs: the forward "
+                        "runs without them and no converge events are "
+                        "written")
+    c.add_argument("--iter_epe", action="store_true",
+                   help="additionally compute the per-iteration EPE "
+                        "against GT (needs datasets with flow; implies the "
+                        "convergence outputs)")
+    c.add_argument("--iter_policy", default=None, metavar="PATH",
+                   help="iteration-policy JSON (`python -m "
+                        "raft_stereo_tpu_torch.obs.converge <run_dir> "
+                        "--emit-policy`): run the early-exit forward with "
+                        "each bucket's recorded (tau, budget, min_iters) "
+                        "instead of the fixed valid_iters; per-frame "
+                        "iters_taken rides the converge events")
+    n = parser.add_argument_group(
+        "numerics", "per-iteration activation-tap range statistics "
+        "(obs/numerics.py): min/max/absmean, bf16 saturation/underflow "
+        "counters and first-nonfinite NaN provenance as `numerics` events")
+    n.add_argument("--no_numerics", action="store_true",
+                   help="disable the numerics taps: the forward runs "
+                        "without them and no numerics events are written")
     add_model_args(parser)
     return parser
 
@@ -350,15 +368,23 @@ def add_serve_args(parser: argparse.ArgumentParser) -> None:
                         "no converge events, no per-bucket slo quality "
                         "gauges")
     g.add_argument("--numerics", action="store_true",
-                   help="the JAX package's numerics flavour; not ported "
-                        "yet (ROADMAP A11): raises")
+                   help="serve the numerics flavour (obs/numerics.py): "
+                        "per-dispatch activation-tap `numerics` events and "
+                        "per-bucket output-range gauges on /metrics; off by "
+                        "default, and then the served forward has no taps")
     g.add_argument("--iter_policy", default=None, metavar="PATH",
-                   help="the JAX package's early-exit iteration policy; "
-                        "not ported yet (ROADMAP A11): raises")
+                   help="iteration-policy JSON (`python -m "
+                        "raft_stereo_tpu_torch.obs.converge <run_dir> "
+                        "--emit-policy`): buckets the policy covers are "
+                        "served by the early-exit forward, their (tau, "
+                        "budget, min_iters) in place of --iters; "
+                        "per-request iters_taken rides the request/slo "
+                        "telemetry and /metrics")
     g.add_argument("--adaptive", choices=["auto", "on", "off"],
                    default="auto",
-                   help="early-exit mode; 'on' is not ported yet (ROADMAP "
-                        "A11) and raises")
+                   help="early-exit mode (auto: on iff --iter_policy is "
+                        "given; off ignores a loaded policy and serves the "
+                        "fixed-trip forwards)")
     g.add_argument("--fused_width", type=int, default=0,
                    help="serve buckets padded to at least this width with "
                         "the memoryless 'fused' correlation (the fused_corr "
@@ -366,8 +392,8 @@ def add_serve_args(parser: argparse.ArgumentParser) -> None:
 
 
 def serve_config(args: argparse.Namespace):
-    """The parsed serve flags as a ServeConfig; the flags of flavours not
-    ported (--numerics, --iter_policy, --adaptive on) raise ValueError."""
+    """The parsed serve flags as a ServeConfig (the cache checks the
+    policy and the flavour guards when the server is made)."""
     from raft_stereo_tpu_torch.serve.server import ServeConfig
     return ServeConfig(
         max_batch=args.max_batch, queue_depth=args.queue_depth,
@@ -399,6 +425,51 @@ def _add_fleet_args(parser: argparse.ArgumentParser, role: str) -> None:
     parser.add_argument("--heartbeat_every", type=float, default=10.0,
                         help=f"{role} heartbeat cadence in seconds (0 "
                              "disables the beats)")
+
+
+def build_converge_parser() -> argparse.ArgumentParser:
+    """The flag surface of ``python -m raft_stereo_tpu_torch.obs.converge``
+    (the JAX package's ``cli converge``)."""
+    parser = argparse.ArgumentParser(
+        prog="python -m raft_stereo_tpu_torch.obs.converge",
+        description="Early-exit what-if simulator: replay a run's recorded "
+                    "convergence curves against a grid of exit thresholds "
+                    "and print the decision table (iterations saved vs "
+                    "predicted EPE delta), without running the model")
+    parser.add_argument("run_dir",
+                        help="run directory (or events.jsonl path) holding "
+                             "converge events")
+    parser.add_argument("--taus", type=float, nargs="+", default=None,
+                        help="exit thresholds on the per-iteration mean "
+                             "|delta disparity| (px); default "
+                             "0.5 0.2 0.1 0.05 0.02 0.01")
+    parser.add_argument("--bucket_by", choices=["bucket", "all", "both"],
+                        default="both",
+                        help="row granularity: per shape bucket, pooled "
+                             "across buckets, or both")
+    parser.add_argument("--json", default=None, metavar="PATH",
+                        help="write the decision-table JSON to this path; "
+                             "'-' prints the JSON to stdout instead of the "
+                             "text table")
+    parser.add_argument("--out", default=None,
+                        help="also write the JSON table to this path")
+    p = parser.add_argument_group(
+        "policy emission", "freeze one simulated operating point into an "
+        "iter_policy.json: per-bucket (tau, budget, min_iters) with row "
+        "provenance, which evaluate --iter_policy and serve --iter_policy "
+        "run as the early-exit forward")
+    p.add_argument("--emit-policy", default=None, metavar="PATH",
+                   help="write the policy JSON here (the decision table "
+                        "still prints)")
+    p.add_argument("--policy-tau", type=float, default=None,
+                   help="exit threshold frozen into the policy (px mean "
+                        "|delta disparity|; default 0.05)")
+    p.add_argument("--policy-min-iters", type=int, default=1,
+                   help="iteration floor before a sample may freeze")
+    p.add_argument("--policy-margin", type=int, default=1,
+                   help="budget = recorded exit p95 + this safety margin "
+                        "(clamped to the recorded valid_iters)")
+    return parser
 
 
 def build_serve_parser() -> argparse.ArgumentParser:

@@ -65,6 +65,13 @@ class RAFTStereoConfig:
     # "reg_pallas" where the pyramid fits (4 levels, every level wider than
     # 2r+2), and leaves the unfused path everywhere else.
     fused_lookup: Optional[bool] = None
+    # Mechanism of the test-mode early exit (``adaptive_tau``, thresholds
+    # and budgets from a recorded iteration policy, obs/converge.py).
+    # "masked_scan" runs the policy budget's fixed trips and freezes the
+    # converged samples (no host sync); "while_loop" stops once every
+    # sample has frozen, at one host sync an iteration (eager PyTorch
+    # reads the batch's mask to decide). Both give the same flows.
+    adaptive_mode: str = "masked_scan"
 
     def __post_init__(self):
         impl = CORR_ALIASES.get(self.corr_implementation,
@@ -90,6 +97,10 @@ class RAFTStereoConfig:
             raise ValueError(
                 f"unknown corr_storage_dtype {self.corr_storage_dtype!r}; "
                 "expected None, 'float32' or 'bfloat16'")
+        if self.adaptive_mode not in ("masked_scan", "while_loop"):
+            raise ValueError(
+                f"adaptive_mode must be 'masked_scan' or 'while_loop', "
+                f"got {self.adaptive_mode!r}")
         if (len(self.hidden_dims) != 3
                 or self.hidden_dims[0] != self.hidden_dims[2]):
             # context conv i (sized hidden_dims[i]) feeds the GRU whose

@@ -27,10 +27,12 @@ Predictors without ``predict_async`` — or ``StreamConfig(enabled=False)``
 Telemetry: every frame emits a ``step`` record with the data-wait /
 dispatch / fetch split (plus ``in_flight`` depth and ``batch_size``), the
 streaming path emits a ``pipeline`` gauge every ``GAUGE_EVERY`` dispatches,
-and both record ``eval/*`` spans when the bus has a tracer. The JAX
-package's per-frame ``converge`` and ``numerics`` records need the model's
-aux outputs, which the port does not have yet (ROADMAP A11): a port run
-emits none, as a JAX run without them does.
+and both record ``eval/*`` spans when the bus has a tracer. A predictor
+built with ``converge`` adds one ``converge`` record a frame (with ``epe``
+and ``iters_taken`` when it has them, also from a micro-batch), one with
+``numerics`` one ``numerics`` record a dispatch (the tap statistics are
+taken over the whole batch). With ``iter_epe`` the frames' GT goes to
+the forward.
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ import numpy as np
 
 from raft_stereo_tpu_torch.data.datasets import StereoDataset
 from raft_stereo_tpu_torch.data.loader import stop_worker_server
+from raft_stereo_tpu_torch.obs import converge as converge_obs
+from raft_stereo_tpu_torch.obs import numerics as numerics_obs
 from raft_stereo_tpu_torch.obs.trace import NULL_TRACER
 from raft_stereo_tpu_torch.serve.batching import collect_group, stack_pairs
 
@@ -166,14 +170,16 @@ def _decode_pool(dataset, workers: int):
 
 def run_frames(predictor, dataset, consume: Consume, *, iters: int,
                stream: Union[None, bool, StreamConfig] = None,
-               telemetry=None, timed: bool = False) -> Dict[str, Any]:
+               telemetry=None, timed: bool = False,
+               source: Optional[str] = None) -> Dict[str, Any]:
     """Drive ``consume`` over every dataset frame, in index order.
 
     ``timed=True`` asks the sequential path for device-only timing via
     ``predictor.predict_timed`` (the KITTI validator's FPS discipline);
-    other validators use the single-dispatch ``__call__``. Returns a stats
-    dict (mode, wall seconds, frames/sec) for callers that report
-    throughput.
+    other validators use the single-dispatch ``__call__``. ``source``
+    names the validator on the ``converge`` and ``numerics`` records
+    (``"eval:<source>"``). Returns a stats dict (mode, wall seconds,
+    frames/sec) for callers that report throughput.
     """
     cfg = resolve_stream(stream)
     use_stream = (hasattr(predictor, "predict_async")
@@ -182,11 +188,14 @@ def run_frames(predictor, dataset, consume: Consume, *, iters: int,
         raise ValueError(
             f"stream=on but {type(predictor).__name__} has no predict_async")
     n = len(dataset)
+    src = f"eval:{source or 'eval'}"
     t_run0 = time.perf_counter()
     if use_stream:
-        _run_streaming(predictor, dataset, consume, iters, cfg, telemetry)
+        _run_streaming(predictor, dataset, consume, iters, cfg, telemetry,
+                       src)
     else:
-        _run_sequential(predictor, dataset, consume, iters, telemetry, timed)
+        _run_sequential(predictor, dataset, consume, iters, telemetry, timed,
+                        src)
     wall = time.perf_counter() - t_run0
     return {
         "mode": "stream" if use_stream else "sequential",
@@ -206,18 +215,69 @@ def _emit_step(telemetry, index: int, timing: FrameTiming) -> None:
                        in_flight=timing.in_flight)
 
 
-def _run_sequential(predictor, dataset, consume, iters, telemetry, timed):
+def _gt_kwargs(predictor, samples) -> Dict[str, np.ndarray]:
+    """The GT and validity kwargs of the iter-EPE output: only when the
+    predictor asks for it (``iter_epe``) and every frame has GT."""
+    if not getattr(predictor, "iter_epe", False):
+        return {}
+    if not all("flow" in s for s in samples):
+        return {}
+    kw = {"flow_gt": np.stack([s["flow"] for s in samples])}
+    if all("valid" in s for s in samples):
+        kw["valid"] = np.stack([s["valid"] for s in samples])
+    return kw
+
+
+def _emit_numerics(telemetry, source, sample, aux, index) -> None:
+    """One dispatch's ``numerics`` record (the statistics are over the
+    whole batch); ``frame`` is the group's first dataset index."""
+    if telemetry is None or aux is None:
+        return
+    taps = aux.get("numerics")
+    if not taps:
+        return
+    h, w = sample["image1"].shape[:2]
+    numerics_obs.emit(telemetry, numerics_obs.taps_payload(
+        source, taps, bucket=f"{h}x{w}", frame=index))
+
+
+def _emit_converge(telemetry, source, sample, aux, j, index) -> None:
+    """Frame ``j`` of a dispatch's ``converge`` record, with its
+    ``iters_taken`` when the predictor ran the early exit."""
+    if telemetry is None or aux is None or "residual" not in aux:
+        return
+    residual = np.asarray(aux["residual"])
+    res = residual[:, j] if residual.ndim == 2 else residual
+    epe = aux.get("epe")
+    if epe is not None:
+        epe = np.asarray(epe)
+        epe = epe[:, j] if epe.ndim == 2 else epe
+    extra = {}
+    taken = aux.get("iters_taken")
+    if taken is not None:
+        arr = np.asarray(taken)
+        extra["iters_taken"] = int(arr[j] if arr.ndim else arr)
+    h, w = sample["image1"].shape[:2]
+    converge_obs.emit(telemetry, source, len(res), res, epe=epe,
+                      bucket=f"{h}x{w}", frame=index, **extra)
+
+
+def _run_sequential(predictor, dataset, consume, iters, telemetry, timed,
+                    source):
     tracer = getattr(telemetry, "tracer", None) or NULL_TRACER
+    take_aux = getattr(predictor, "take_aux", None)
     for i in range(len(dataset)):
         t_load = time.perf_counter()
         sample = dataset.sample(i)
+        gt_kw = _gt_kwargs(predictor, [sample])
         t0 = time.perf_counter()
         if timed:
             flow, dt_dev = predictor.predict_timed(
-                sample["image1"][None], sample["image2"][None], iters)
+                sample["image1"][None], sample["image2"][None], iters,
+                **gt_kw)
         else:
             flow = predictor(sample["image1"][None], sample["image2"][None],
-                             iters)
+                             iters, **gt_kw)
             dt_dev = None
         t1 = time.perf_counter()
         root = tracer.record("eval/frame", t_load, t1, index=i)
@@ -232,10 +292,14 @@ def _run_sequential(predictor, dataset, consume, iters, telemetry, timed):
             fetch_s=max((t1 - t0) - dispatch_s, 0.0), device_s=dt_dev,
             e2e_s=t1 - t0, batch_size=1, in_flight=1)
         _emit_step(telemetry, i, timing)
+        aux = take_aux() if take_aux is not None else None
+        _emit_converge(telemetry, source, sample, aux, 0, i)
+        _emit_numerics(telemetry, source, sample, aux, i)
         consume(i, sample, flow[0], timing)
 
 
-def _run_streaming(predictor, dataset, consume, iters, cfg, telemetry):
+def _run_streaming(predictor, dataset, consume, iters, cfg, telemetry,
+                   source):
     tracer = getattr(telemetry, "tracer", None) or NULL_TRACER
     n = len(dataset)
     window = max(1, cfg.window)
@@ -270,6 +334,8 @@ def _run_streaming(predictor, dataset, consume, iters, cfg, telemetry):
         group, handle, dispatch_s, data_wait_s, stamps = in_flight.popleft()
         tr0 = time.perf_counter()
         flows = handle.result()  # (B, H, W, 1); blocks until the device is done
+        aux_fn = getattr(handle, "aux_result", None)
+        aux = aux_fn() if aux_fn is not None else None
         tr1 = time.perf_counter()
         fetch_s = getattr(handle, "fetch_s", None) or 0.0
         b = len(group)
@@ -283,6 +349,7 @@ def _run_streaming(predictor, dataset, consume, iters, cfg, telemetry):
                       parent=root)
         tracer.record("eval/dispatch", td0, td1, parent=root)
         tracer.record("eval/fetch", tr0, tr1, parent=root)
+        _emit_numerics(telemetry, source, group[0][1], aux, group[0][0])
         for j, (idx, sample) in enumerate(group):
             now = time.perf_counter()
             timing = FrameTiming(
@@ -292,6 +359,7 @@ def _run_streaming(predictor, dataset, consume, iters, cfg, telemetry):
                 in_flight=len(in_flight))
             t_last_retire = now
             _emit_step(telemetry, idx, timing)
+            _emit_converge(telemetry, source, sample, aux, j, idx)
             consume(idx, sample, flows[j], timing)
 
     finished = False
@@ -324,8 +392,9 @@ def _run_streaming(predictor, dataset, consume, iters, cfg, telemetry):
                     key=lambda item: item[1]["image1"].shape)
                 wait = sum(waits)
                 im1, im2 = stack_pairs([s for _, s in group])
+                gt_kw = _gt_kwargs(predictor, [s for _, s in group])
                 t0 = time.perf_counter()
-                handle = predictor.predict_async(im1, im2, iters)
+                handle = predictor.predict_async(im1, im2, iters, **gt_kw)
                 t1 = time.perf_counter()
                 dispatch_s = t1 - t0
                 in_flight.append((group, handle, dispatch_s, wait,

@@ -89,7 +89,7 @@ def validate_eth3d(predictor: StereoPredictor, root: str = "datasets",
         out_list.append((epe > 1.0)[valid].mean().item())
 
     run_frames(predictor, ds, consume, iters=iters, stream=stream,
-               telemetry=telemetry)
+               telemetry=telemetry, source="eth3d")
     epe = float(np.mean(epe_list))
     d1 = 100 * float(np.mean(out_list))
     logger.info("Validation ETH3D: EPE %f, D1 %f", epe, d1)
@@ -137,7 +137,7 @@ def validate_kitti(predictor: StereoPredictor, root: str = "datasets",
         out_list.append((epe > 3.0)[valid])
 
     run_frames(predictor, ds, consume, iters=iters, stream=stream,
-               telemetry=telemetry, timed=True)
+               telemetry=telemetry, timed=True, source="kitti")
     epe = float(np.mean(epe_list))
     d1 = 100 * float(np.concatenate(out_list).mean())
     result = {"kitti-epe": epe, "kitti-d1": d1}
@@ -179,7 +179,7 @@ def validate_things(predictor: StereoPredictor, root: str = "datasets",
         out_list.append((epe > 1.0)[valid])
 
     run_frames(predictor, ds, consume, iters=iters, stream=stream,
-               telemetry=telemetry)
+               telemetry=telemetry, source="things")
     epe = float(np.mean(epe_list))
     d1 = 100 * float(np.concatenate(out_list).mean())
     logger.info("Validation FlyingThings: EPE %f, D1 %f", epe, d1)
@@ -216,7 +216,7 @@ def validate_middlebury(predictor: StereoPredictor, root: str = "datasets",
         out_list.append((epe > 2.0)[valid].mean().item())
 
     run_frames(predictor, ds, consume, iters=iters, stream=stream,
-               telemetry=telemetry)
+               telemetry=telemetry, source=f"middlebury{split}")
     epe = float(np.mean(epe_list))
     d1 = 100 * float(np.mean(out_list))
     logger.info("Validation Middlebury%s: EPE %f, D1 %f", split, epe, d1)

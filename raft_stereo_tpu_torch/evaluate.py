@@ -8,6 +8,13 @@ precision. Weights come from ``--restore_ckpt``, a reference ``.pth`` or a
 checkpoint directory of the port's trainer (``utils/weights.load_weights``),
 or, without one, from seed 0. Like every entry point of the port it leaves
 PyTorch's TF32 settings as they are.
+
+As in the JAX package, the convergence curves and the numerics taps are on
+unless ``--no_converge`` / ``--no_numerics`` turn them off (a ``converge``
+record a frame, a ``numerics`` record a dispatch); ``--iter_epe`` adds the
+per-iteration EPE against the dataset's GT, and ``--iter_policy`` runs the
+early exit of a recorded policy (which carries no taps, so it turns the
+numerics off).
 """
 
 from __future__ import annotations
@@ -29,10 +36,6 @@ def main(argv=None) -> None:
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(filename)s:%(lineno)d %(message)s")
-    if args.iter_epe or args.iter_policy:
-        raise ValueError("--iter_epe and --iter_policy need the model's "
-                         "per-iteration outputs, which are not ported yet "
-                         "(ROADMAP A11)")
     # the kernel implementations run in mixed precision, as the reference's
     if (args.corr_implementation.endswith(("_cuda", "_pallas"))
             or args.corr_implementation in ("fused", "memoryless")) \
@@ -41,9 +44,17 @@ def main(argv=None) -> None:
                     args.corr_implementation)
         args.mixed_precision = True
     cfg = cli.model_config(args)
+    if args.iter_policy and not args.no_numerics:
+        # the adaptive path carries no numerics taps
+        logger.info("disabling numerics taps for --iter_policy run")
     predictor = StereoPredictor(cfg, load_weights(args.restore_ckpt, cfg),
                                 valid_iters=args.valid_iters,
-                                bucket=args.bucket, device=args.device)
+                                bucket=args.bucket, device=args.device,
+                                converge=not args.no_converge,
+                                iter_epe=args.iter_epe,
+                                numerics=(not args.no_numerics
+                                          and not args.iter_policy),
+                                iter_policy=args.iter_policy)
     stream = StreamConfig(
         enabled={"auto": None, "on": True, "off": False}[args.stream],
         window=args.stream_window, microbatch=args.stream_microbatch,
@@ -57,9 +68,11 @@ def main(argv=None) -> None:
                               "stream": args.stream,
                               "stream_window": args.stream_window,
                               "stream_microbatch": args.stream_microbatch,
-                              "converge": False, "iter_epe": False,
-                              "numerics": False, "iter_policy": None,
-                              "iter_policy_digest": None,
+                              "converge": not args.no_converge,
+                              "iter_epe": args.iter_epe,
+                              "numerics": not args.no_numerics,
+                              "iter_policy": args.iter_policy,
+                              "iter_policy_digest": predictor.policy_digest,
                               "device": str(predictor.device)})
     try:
         if args.dataset.startswith("middlebury_"):

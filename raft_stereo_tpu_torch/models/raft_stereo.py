@@ -28,7 +28,8 @@ from torch.utils.checkpoint import checkpoint
 
 from raft_stereo_tpu_torch.config import RAFTStereoConfig
 from raft_stereo_tpu_torch.nn.encoder import BasicEncoder, MultiBasicEncoder
-from raft_stereo_tpu_torch.nn.gru import BasicMultiUpdateBlock
+from raft_stereo_tpu_torch.nn.gru import (BasicMultiUpdateBlock,
+                                          numerics_taps, record_numerics_tap)
 from raft_stereo_tpu_torch.nn.layers import Conv, ResidualBlock
 from raft_stereo_tpu_torch.ops.corr import corr_lookup, init_corr
 from raft_stereo_tpu_torch.ops.geometry import (convex_upsample_tiles,
@@ -54,6 +55,17 @@ class RAFTStereo(nn.Module):
     batch-mean curve ``(iters,)``, ``"per_sample"`` the ``(iters, B)``
     means over H and W; the return becomes ``(flow_lowres, flow_up,
     delta_norms)``. With ``iter_metrics=False`` nothing else changes.
+
+    ``flow_gt`` (``(B, H, W, 1)``, with ``iter_metrics``; ``loss_mask``
+    of the same shape marks its valid pixels) adds the per-iteration
+    low-res EPE against the factor-pooled GT, shaped like the residuals,
+    after them. ``numerics=True`` adds a dict of ``(iters, 6)`` tap
+    statistics stacks (nn/gru.py), always the last element.
+    ``adaptive_tau`` (with ``iter_metrics="per_sample"``, not with
+    ``numerics``) runs the early exit of :meth:`_refine_adaptive`:
+    ``iters`` is the budget, and ``iters_taken (B,)`` follows the residual
+    (and EPE) stacks. These are the JAX package's return orders and
+    guards.
 
     ``dtype`` overrides the compute dtype that ``cfg.mixed_precision``
     selects (bf16 when set, fp32 otherwise).
@@ -107,7 +119,12 @@ class RAFTStereo(nn.Module):
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
                 iters: int = 12, flow_init: Optional[torch.Tensor] = None,
-                test_mode: bool = True, iter_metrics=False):
+                test_mode: bool = True, iter_metrics=False,
+                flow_gt: Optional[torch.Tensor] = None,
+                loss_mask: Optional[torch.Tensor] = None,
+                numerics: bool = False,
+                adaptive_tau: Optional[float] = None,
+                adaptive_min_iters: int = 1):
         if iters < 1:
             raise ValueError(f"iters must be >= 1, got {iters}")
         if iter_metrics not in (False, True, "per_sample"):
@@ -115,6 +132,33 @@ class RAFTStereo(nn.Module):
                              f"'per_sample', got {iter_metrics!r}")
         if iter_metrics and not test_mode:
             raise ValueError("iter_metrics is a test-mode output")
+        if test_mode and flow_gt is not None and not iter_metrics:
+            raise ValueError("the test-mode iter-EPE output rides the "
+                             "iter_metrics outputs; pass iter_metrics=True "
+                             "or 'per_sample'")
+        if flow_gt is not None and not test_mode:
+            raise ValueError("the fused-loss training forward (flow_gt in "
+                             "train mode) is not ported (ROADMAP A9b); the "
+                             "training loss reads the prediction stack")
+        if numerics and not test_mode:
+            raise ValueError("the numerics taps are a test-mode output; "
+                             "the training side is the per-leaf gradient "
+                             "norms (training/state.py numerics=True)")
+        if adaptive_tau is not None:
+            if not test_mode:
+                raise ValueError("adaptive early exit (adaptive_tau) is "
+                                 "a test-mode path")
+            if iter_metrics != "per_sample":
+                raise ValueError("adaptive early exit requires "
+                                 "iter_metrics='per_sample': the per-sample "
+                                 "residual drives the freeze mask")
+            if numerics:
+                raise ValueError("numerics taps are not supported on the "
+                                 "adaptive path; record numerics on the "
+                                 "fixed-trip loop")
+            if adaptive_tau < 0:
+                raise ValueError(f"adaptive_tau must be >= 0, got "
+                                 f"{adaptive_tau}")
         cfg = self.cfg
 
         image1 = 2.0 * (image1.float() / 255.0) - 1.0
@@ -151,24 +195,152 @@ class RAFTStereo(nn.Module):
         if not test_mode:
             return self._train_refine(net_list, inp_list, corr_state,
                                       coords0, coords1, iters, fused)
+        per_sample = iter_metrics == "per_sample"
+        iter_epe = None
+        if flow_gt is not None:
+            iter_epe = self._iter_epe(flow_gt, loss_mask, coords0,
+                                      per_sample)
+        if adaptive_tau is not None:
+            return self._refine_adaptive(
+                net_list, inp_list, corr_state, coords0, coords1, iters,
+                float(adaptive_tau), int(adaptive_min_iters), iter_epe,
+                fused)
         mask = None
-        residuals = []
+        residuals, epes, taps = [], [], []
         for itr in range(iters):
             previous = coords1
-            net_list, coords1, mask = self._iteration(
-                net_list, inp_list, corr_state, coords0, coords1,
-                compute_mask=itr == iters - 1, fused=fused)
+            last = itr == iters - 1
+            if numerics:
+                # armed one iteration at a time: each iteration's taps are
+                # one row of the stacks, the final (mask-head) one last
+                with numerics_taps() as sink:
+                    net_list, coords1, mask = self._iteration(
+                        net_list, inp_list, corr_state, coords0, coords1,
+                        compute_mask=last, fused=fused)
+                taps.append(sink)
+            else:
+                net_list, coords1, mask = self._iteration(
+                    net_list, inp_list, corr_state, coords0, coords1,
+                    compute_mask=last, fused=fused)
             if iter_metrics:
                 d = (coords1 - previous)[..., 0].abs()
-                residuals.append(d.mean(dim=(1, 2))
-                                 if iter_metrics == "per_sample"
+                residuals.append(d.mean(dim=(1, 2)) if per_sample
                                  else d.mean())
+            if iter_epe is not None:
+                epes.append(iter_epe(coords1))
         flow_lowres = coords1 - coords0
         flow_up = upsample_disparity_convex(flow_lowres, mask.float(),
                                             cfg.factor)
+        ret = (flow_lowres, flow_up)
         if iter_metrics:
-            return flow_lowres, flow_up, torch.stack(residuals)
-        return flow_lowres, flow_up
+            ret += (torch.stack(residuals),)
+        if iter_epe is not None:
+            ret += (torch.stack(epes),)
+        if numerics:
+            # one (iters, 6) stack a tap; the dict is always last
+            ret += ({k: torch.stack([t[k] for t in taps])
+                     for k in taps[-1]},)
+        return ret
+
+    def _iter_epe(self, flow_gt, loss_mask, coords0, per_sample):
+        """The per-iteration low-res EPE proxy: the full-resolution GT
+        (``(B, H, W, 1)``, negative disparity) pooled to the flow grid once
+        by mask-weighted means (``loss_mask`` marks valid pixels; a cell
+        with none is left out), then one masked reduction an iteration.
+        Returns ``epe(coords1)``: ``(B,)`` per sample, else the batch
+        mean."""
+        f = self.cfg.factor
+        b, h, w = coords0.shape[:3]
+        gt = flow_gt.float()[..., 0]
+        m = (torch.ones_like(gt) if loss_mask is None
+             else loss_mask.float()[..., 0])
+        gt_c = gt.reshape(b, h, f, w, f)
+        m_c = m.reshape(b, h, f, w, f)
+        msum = m_c.sum(dim=(2, 4))
+        gt_pool = (gt_c * m_c).sum(dim=(2, 4)) / msum.clamp(min=1.0)
+        cell_valid = (msum > 0).float()
+        denom = cell_valid.sum(dim=(1, 2)).clamp(min=1.0)
+
+        def epe(coords1):
+            err = ((coords1 - coords0)[..., 0] * f - gt_pool).abs()
+            e = (err * cell_valid).sum(dim=(1, 2)) / denom
+            return e if per_sample else e.mean()
+        return epe
+
+    def _refine_adaptive(self, net_list, inp_list, corr_state, coords0,
+                         coords1, budget, tau, min_iters, iter_epe, fused):
+        """Early-exit test-mode refinement (JAX ``_refine_adaptive``).
+
+        The fixed loop's iteration, with a per-sample freeze mask in the
+        carry: once an applied update moved a sample's disparity field
+        less than ``tau`` (mean |Δ disparity| in low-res px, strict ``<``,
+        after at least ``min_iters`` applied updates) the sample freezes;
+        later iterations compute the body and ``torch.where`` keeps the
+        old carry, so its residual row is 0.0. ``budget`` (``iters``) is
+        the trip count; ``iters_taken`` counts applied updates, the final
+        iteration's included. The final iteration always runs with the
+        mask head and respects the mask.
+
+        ``cfg.adaptive_mode``: ``"masked_scan"`` runs the ``budget - 1``
+        trips with no host sync; ``"while_loop"`` stops once every sample
+        has frozen, and to know that it reads the batch's mask on the host
+        before each trip: one host sync an iteration (the JAX package's
+        ``lax.while_loop`` decides on the device). Rows after such a stop
+        stay 0.0 (EPE rows too). The two give bitwise-equal flows and
+        ``iters_taken``; ``tau=0`` never freezes a sample, so the flow is
+        bitwise the fixed loop's at the same budget.
+
+        Returns ``(flow_lowres, flow_up, residuals (budget, B)[, epes
+        (budget, B)], iters_taken (B,) int32)``."""
+        b = net_list[0].shape[0]
+        dev = coords0.device
+        active = torch.ones(b, dtype=torch.bool, device=dev)
+        taken = torch.zeros(b, dtype=torch.int32, device=dev)
+        zero = torch.zeros((), device=dev)
+
+        def advance(nets, coords, act, tk, new_nets, new_coords):
+            r = (new_coords - coords)[..., 0].abs().mean(dim=(1, 2))
+            m = act[:, None, None, None]
+            nets = [torch.where(m, n2, n1)
+                    for n1, n2 in zip(nets, new_nets)]
+            coords = torch.where(m, new_coords, coords)
+            row = torch.where(act, r, zero)
+            tk = tk + act.to(torch.int32)
+            act = act & ((r >= tau) | (tk < min_iters))
+            return nets, coords, act, tk, row
+
+        rows, epe_rows = [], []
+        while_loop = self.cfg.adaptive_mode == "while_loop"
+        for _ in range(budget - 1):
+            if while_loop and not bool(active.any()):
+                break
+            new_nets, new_coords, _unused = self._iteration(
+                net_list, inp_list, corr_state, coords0, coords1,
+                compute_mask=False, fused=fused)
+            net_list, coords1, active, taken, row = advance(
+                net_list, coords1, active, taken, new_nets, new_coords)
+            rows.append(row)
+            if iter_epe is not None:
+                epe_rows.append(iter_epe(coords1))
+        # rows of the trips a whole-batch stop skipped
+        for _ in range(budget - 1 - len(rows)):
+            rows.append(torch.zeros(b, device=dev))
+            if iter_epe is not None:
+                epe_rows.append(torch.zeros(b, device=dev))
+        new_nets, new_coords, up_mask = self._iteration(
+            net_list, inp_list, corr_state, coords0, coords1,
+            compute_mask=True, fused=fused)
+        net_list, coords1, active, taken, row = advance(
+            net_list, coords1, active, taken, new_nets, new_coords)
+        rows.append(row)
+        flow_lowres = coords1 - coords0
+        flow_up = upsample_disparity_convex(flow_lowres, up_mask.float(),
+                                            self.cfg.factor)
+        ret = (flow_lowres, flow_up, torch.stack(rows))
+        if iter_epe is not None:
+            epe_rows.append(iter_epe(coords1))
+            ret += (torch.stack(epe_rows),)
+        return ret + (taken,)
 
     def _iteration(self, net_list, inp_list, corr_state, coords0, coords1,
                    compute_mask: bool, fused: bool = False):
@@ -188,6 +360,7 @@ class RAFTStereo(nn.Module):
                               coords_x=coords1[..., 0].contiguous())
         else:
             corr = corr_lookup(corr_state, coords1).to(dt)
+            record_numerics_tap(corr, "corr_feats")
             fused_args = {}
         flow = (coords1 - coords0).to(dt)
         if cfg.slow_fast_gru and n == 3:
@@ -199,11 +372,13 @@ class RAFTStereo(nn.Module):
         net_list, mask, delta_flow = block(
             net_list, inp_list, corr, flow, iter32=n == 3, iter16=n >= 2,
             compute_mask=compute_mask, **fused_args)
-        # stereo: project the update onto the epipolar line
+        # stereo: project the update onto the epipolar line (the JAX
+        # package's flow head computes the x channel alone, so its
+        # delta_flow tap sees this tensor)
         delta_x = delta_flow[..., 0].float()
-        coords1 = coords1 + torch.stack([delta_x, torch.zeros_like(delta_x)],
-                                        -1)
-        return net_list, coords1, mask
+        delta = torch.stack([delta_x, torch.zeros_like(delta_x)], -1)
+        record_numerics_tap(delta, "delta_flow")
+        return net_list, coords1 + delta, mask
 
     def _train_refine(self, net_list, inp_list, corr_state, coords0,
                       coords1, iters, fused: bool = False):

@@ -6,10 +6,21 @@ features, the flow head and the upsampling-mask head. The context biases
 ``cz, cr, cq`` are computed once outside the loop and added per gate.
 The math is upstream's: one conv over the concatenated inputs, where the
 JAX package splits its gate convs by input.
+
+The numerics tap sink: :func:`numerics_taps` arms a module-level dict
+around a forward; while it is armed, every :func:`record_numerics_tap`
+call deposits one ``(6,)`` statistics vector (obs/numerics.py's
+``STAT_FIELDS``) under ``"NN:label"``, NN the trace order. Unarmed (the
+default) a recording call does nothing and the forward runs the same ops.
+The sites are the JAX package's: each ConvGRU's gate pre-activations
+(``"gru32.zr"``, ``"gru32.q"``, ...), the looked-up correlation
+(``"corr_feats"``) and the flow head's output (``"delta_flow"``,
+models/raft_stereo.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -18,9 +29,78 @@ import torch.nn.functional as F
 
 from raft_stereo_tpu_torch.config import RAFTStereoConfig
 from raft_stereo_tpu_torch.nn.layers import Conv
+from raft_stereo_tpu_torch.obs.numerics import (BF16_MAX_FINITE,
+                                                BF16_MIN_NORMAL)
 from raft_stereo_tpu_torch.ops.geometry import (pool2x,
                                                 resize_bilinear_align_corners)
 from raft_stereo_tpu_torch.ops.kernels.fused_lookup import fused_lookup_c1
+
+
+# the armed sink: None (unarmed) or the dict the recording calls fill
+_tap_sink = None
+
+#: fp32 bit pattern of the smallest normal bf16: the underflow rail
+_BF16_MIN_BITS = int(torch.tensor(BF16_MIN_NORMAL, dtype=torch.float32)
+                     .view(torch.int32))
+#: fp32 bit pattern of +inf: magnitudes at or above it are not finite
+_F32_INF_BITS = 0x7F800000
+
+
+def _tap_stats(x: torch.Tensor) -> torch.Tensor:
+    """``[min, max, absmean, nonfinite, sat, underflow]`` of ``x`` as one
+    fp32 ``(6,)`` tensor on its device, enqueued without a host sync. min,
+    max and absmean are over the finite values (an all-NaN tensor gives
+    the +/-inf sentinels); absmean divides by every element. ``sat``
+    counts ``|x| >= BF16_MAX_FINITE``; ``underflow`` counts nonzero
+    magnitudes below bf16's smallest normal, compared on the raw fp32 bit
+    pattern. The magnitude's bits (sign cleared) give ``|x|`` and the
+    finiteness test alike."""
+    x32 = x.float()
+    mag = x32.view(torch.int32) & 0x7FFFFFFF
+    finite = mag < _F32_INF_BITS
+    absx = mag.view(torch.float32)
+    f32 = torch.float32
+    return torch.stack([
+        torch.where(finite, x32, float("inf")).amin(),
+        torch.where(finite, x32, float("-inf")).amax(),
+        torch.where(finite, absx, 0.0).mean(),
+        (~finite).sum(dtype=f32),
+        (absx >= BF16_MAX_FINITE).sum(dtype=f32),
+        ((mag != 0) & (mag < _BF16_MIN_BITS)).sum(dtype=f32)])
+
+
+@contextlib.contextmanager
+def numerics_taps():
+    """Arm the tap sink for one forward (or one iteration); yields the
+    dict the recording calls fill. Re-entrant: the previous sink is
+    restored on exit."""
+    global _tap_sink
+    prev = _tap_sink
+    _tap_sink = {}
+    try:
+        yield _tap_sink
+    finally:
+        _tap_sink = prev
+
+
+def record_numerics_tap(x: torch.Tensor, label: str) -> torch.Tensor:
+    """Deposit ``x``'s statistics in the armed sink under
+    ``"NN:label"``; a label recorded again in one arming (the slow-fast
+    pre-iterations re-run a GRU) becomes ``label#2``, ``label#3``.
+    Returns ``x``; does nothing when no sink is armed."""
+    if _tap_sink is None:
+        return x
+    base, n = label, 2
+    while any(k.partition(":")[2] == label for k in _tap_sink):
+        label = f"{base}#{n}"
+        n += 1
+    _tap_sink[f"{len(_tap_sink):02d}:{label}"] = _tap_stats(x)
+    return x
+
+
+def taps_armed() -> bool:
+    """Whether a tap sink is armed."""
+    return _tap_sink is not None
 
 
 class FlowHead(nn.Module):
@@ -36,12 +116,18 @@ class FlowHead(nn.Module):
 
 
 class ConvGRU(nn.Module):
-    """3x3 convolutional GRU with additive per-gate context biases."""
+    """3x3 convolutional GRU with additive per-gate context biases.
+
+    ``site`` leads its numerics tap labels (``"gru32.zr"``, ``.q``): the
+    gate pre-activations with the conv bias, before the context biases;
+    ``zr`` is the z and r convs' outputs together, as the JAX package
+    computes them in one conv."""
 
     def __init__(self, hidden_dim: int, input_dim: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, site: str = "gru"):
         super().__init__()
         c = hidden_dim + input_dim
+        self.site = site
         self.convz = Conv(c, hidden_dim, 3, 1, 1, dtype)
         self.convr = Conv(c, hidden_dim, 3, 1, 1, dtype)
         self.convq = Conv(c, hidden_dim, 3, 1, 1, dtype)
@@ -49,9 +135,15 @@ class ConvGRU(nn.Module):
     def forward(self, h, cz, cr, cq, *x_list):
         x = torch.cat(x_list, dim=-1)
         hx = torch.cat([h, x], dim=-1)
-        z = torch.sigmoid(self.convz(hx) + cz)
-        r = torch.sigmoid(self.convr(hx) + cr)
-        q = torch.tanh(self.convq(torch.cat([r * h, x], dim=-1)) + cq)
+        z, r = self.convz(hx), self.convr(hx)
+        if taps_armed():
+            record_numerics_tap(torch.cat([z, r], dim=-1),
+                                f"{self.site}.zr")
+        z = torch.sigmoid(z + cz)
+        r = torch.sigmoid(r + cr)
+        q = self.convq(torch.cat([r * h, x], dim=-1))
+        record_numerics_tap(q, f"{self.site}.q")
+        q = torch.tanh(q + cq)
         return (1 - z) * h + z * q
 
 
@@ -113,12 +205,13 @@ class BasicMultiUpdateBlock(nn.Module):
         hd = cfg.hidden_dims
         n = cfg.n_gru_layers
         self.encoder = BasicMotionEncoder(cfg, dtype)
-        self.gru08 = ConvGRU(hd[2], 128 + hd[1] * (n > 1), dtype=dtype)
+        self.gru08 = ConvGRU(hd[2], 128 + hd[1] * (n > 1), dtype=dtype,
+                             site="gru08")
         if n >= 2:
             self.gru16 = ConvGRU(hd[1], hd[0] * (n == 3) + hd[2],
-                                 dtype=dtype)
+                                 dtype=dtype, site="gru16")
         if n == 3:
-            self.gru32 = ConvGRU(hd[0], hd[1], dtype=dtype)
+            self.gru32 = ConvGRU(hd[0], hd[1], dtype=dtype, site="gru32")
         self.flow_head = FlowHead(hd[2], dtype)
         self.mask = nn.Sequential(
             Conv(hd[2], 256, 3, 1, 1, dtype), nn.ReLU(),

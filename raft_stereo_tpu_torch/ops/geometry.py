@@ -140,6 +140,14 @@ class InputPadder:
                for x in inputs]
         return out if len(out) > 1 else out[0]
 
+    def pad_zeros(self, *inputs: torch.Tensor):
+        """Like :meth:`pad`, zero-filled: for ground-truth and validity
+        planes, where replicated edges would count the padding as valid
+        GT (the iter-EPE output pools over it)."""
+        out = [F.pad(x.permute(0, 3, 1, 2), self._pad).permute(0, 2, 3, 1)
+               for x in inputs]
+        return out if len(out) > 1 else out[0]
+
     def unpad(self, x: torch.Tensor) -> torch.Tensor:
         l, r, t, b = self._pad
         ht, wd = x.shape[-3], x.shape[-2]

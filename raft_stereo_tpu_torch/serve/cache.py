@@ -7,8 +7,10 @@ implementation. Its program is the model's test-mode forward plus the
 per-request guard: a ``(B,)`` finiteness flag over each sample's output,
 computed on the device beside the outputs, so a poisoned request fails
 alone. The low-res flow comes back too (a video session's next
-``flow_init``), and with ``converge`` the per-sample residual curves
-``(iters, B)``.
+``flow_init``), with ``converge`` the per-sample residual curves
+``(iters, B)``, on the adaptive flavour (a bucket an iteration policy
+covers, ``BucketKey.policy`` its digest) the per-sample ``iters_taken``,
+and with ``numerics`` the tap statistics, last.
 
 Where the JAX package compiles an executable per key, the port keeps a
 module per correlation implementation: an entry whose ``impl`` differs
@@ -37,8 +39,12 @@ import numpy as np
 import torch
 
 from raft_stereo_tpu_torch.config import RAFTStereoConfig
-from raft_stereo_tpu_torch.inference import PAD_DIVIS, resolve_device, stage
+from raft_stereo_tpu_torch.inference import (PAD_DIVIS, host_copy,
+                                             host_numpy, resolve_device,
+                                             stage)
 from raft_stereo_tpu_torch.models.raft_stereo import RAFTStereo
+from raft_stereo_tpu_torch.obs.converge import (load_policy, policy_digest,
+                                                policy_lookup)
 from raft_stereo_tpu_torch.ops.geometry import InputPadder
 from raft_stereo_tpu_torch.training.resilience import tree_structure_hash
 
@@ -51,9 +57,9 @@ class BucketKey(NamedTuple):
     batch: int
     iters: int
     warm: bool    # True = the flavour with a flow_init input
-    #: iteration-policy digest of the JAX package's early-exit flavour; ""
-    #: is the fixed-trip program, the only one the port serves yet
-    #: (ROADMAP A11)
+    #: iteration-policy digest (obs/converge.py ``policy_digest``) of the
+    #: early-exit flavour; "" is the fixed-trip forward. Part of the key,
+    #: so another policy never reuses an entry made for this one
     policy: str = ""
     #: correlation implementation of the program; "" is the server
     #: config's own (e.g. "fused" for buckets past --fused_width)
@@ -86,7 +92,8 @@ def padded_batch(images: Sequence[np.ndarray], target: Tuple[int, int],
 class Dispatch:
     """One enqueued bucket forward. :meth:`result` blocks until it has
     finished and returns its outputs as numpy: ``(flow_lowres, flow_up,
-    finite[, deltas])``. A device error of the asynchronous forward is
+    finite[, deltas][, iters_taken][, taps])``, ``taps`` a dict of
+    ``(iters, 6)`` arrays. A device error of the asynchronous forward is
     raised there, once captured, on this and every later call; the
     buffers are released either way."""
 
@@ -117,7 +124,7 @@ class Dispatch:
             try:
                 if self._done is not None:
                     self._done.synchronize()
-                self._result = tuple(h.numpy() for h in self._host)
+                self._result = tuple(host_numpy(h) for h in self._host)
             except Exception as exc:
                 self._error = exc
                 raise
@@ -132,18 +139,43 @@ class ExecutableCache:
     ``state_dict`` holds the port's weights (loaded ``strict=True``).
     ``converge`` serves the convergence flavour: each dispatch also
     returns the per-sample residual curves (``iter_metrics="per_sample"``).
+    ``iter_policy`` (a path or a loaded doc; loading lints it, so a
+    doctored policy fails here) backs the adaptive flavour, on iff a
+    policy is given unless ``adaptive`` says otherwise (False serves the
+    fixed forwards with a policy loaded); it implies ``converge``.
+    ``numerics`` adds the tap statistics; it does not combine with the
+    adaptive flavour, as in the JAX package.
     """
 
     def __init__(self, cfg: RAFTStereoConfig,
                  state_dict: Dict[str, torch.Tensor], *, device=None,
-                 aot: bool = True, converge: bool = False):
+                 aot: bool = True, converge: bool = False,
+                 numerics: bool = False, iter_policy=None,
+                 adaptive: Optional[bool] = None):
+        self.policy = None
+        self.policy_digest: str = ""
+        if iter_policy is not None:
+            self.policy = (load_policy(iter_policy)
+                           if isinstance(iter_policy, str) else iter_policy)
+            self.policy_digest = policy_digest(self.policy)
+        self.adaptive = (bool(adaptive) if adaptive is not None
+                         else self.policy is not None)
+        if self.adaptive and self.policy is None:
+            raise ValueError("adaptive serving needs an iter_policy "
+                             "(python -m raft_stereo_tpu_torch.obs.converge "
+                             "--emit-policy)")
+        if self.adaptive and numerics:
+            raise ValueError("the adaptive flavour carries no numerics "
+                             "taps (models/raft_stereo.py); serve "
+                             "--numerics needs --adaptive off")
+        self.converge = converge or self.adaptive
+        self.numerics = numerics
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # the scheduler thread selects the card by index
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.aot = aot
-        self.converge = converge
         self.model = RAFTStereo(cfg)
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
@@ -175,6 +207,14 @@ class ExecutableCache:
 
     # --- entries -------------------------------------------------------------
 
+    def bucket_entry(self, height: int, width: int) -> Optional[Dict]:
+        """The policy entry of a padded bucket (``{"tau", "budget",
+        "min_iters", ...}``), or None when adaptive is off or the policy
+        covers neither the bucket nor a default."""
+        if not self.adaptive:
+            return None
+        return policy_lookup(self.policy, f"{height}x{width}")
+
     def _module(self, impl: str) -> RAFTStereo:
         impl = impl or self.cfg.corr_implementation
         module = self._modules.get(impl)
@@ -191,10 +231,12 @@ class ExecutableCache:
 
     def get(self, key: BucketKey) -> RAFTStereo:
         """The module that serves ``key`` (an entry is made on a miss)."""
-        if key.policy:
-            raise ValueError(f"bucket {key.label()} names an iteration "
-                             "policy; the adaptive flavour is not ported yet "
-                             "(ROADMAP A11)")
+        if key.policy and (key.policy != self.policy_digest or
+                           self.bucket_entry(key.height, key.width) is None):
+            raise ValueError(
+                f"bucket key {key.label()} names policy {key.policy} but "
+                f"the loaded policy (digest {self.policy_digest or None}) "
+                f"does not cover {key.height}x{key.width}")
         with self._lock:
             module = self._entries.get(key)
             if module is None:
@@ -251,20 +293,23 @@ class ExecutableCache:
         if flow_init is not None and not isinstance(flow_init, torch.Tensor):
             flow_init, h3 = stage(flow_init, self.device)
             keep.append(h3)
+        kw = {"iter_metrics": "per_sample" if self.converge else False}
+        if key.policy:
+            entry = self.bucket_entry(key.height, key.width)
+            kw.update(adaptive_tau=float(entry["tau"]),
+                      adaptive_min_iters=int(entry["min_iters"]))
+        elif self.numerics:
+            kw["numerics"] = True
         with torch.inference_mode():
             out = module(im1, im2, iters=key.iters, flow_init=flow_init,
-                         test_mode=True,
-                         iter_metrics="per_sample" if self.converge
-                         else False)
+                         test_mode=True, **kw)
             flow_lr, flow_up = out[0], out[1]
             finite = torch.isfinite(flow_up).flatten(1).all(dim=1)
             outputs = (flow_lr, flow_up, finite) + tuple(out[2:])
-            if self.device.type != "cuda":
-                return Dispatch(outputs, None)
-            host = tuple(torch.empty(t.shape, dtype=t.dtype,
-                                     pin_memory=True) for t in outputs)
-            for h, t in zip(host, outputs):
-                h.copy_(t, non_blocking=True)
+            cuda = self.device.type == "cuda"
+            host = tuple(host_copy(t, cuda) for t in outputs)
+            if not cuda:
+                return Dispatch(host, None)
             done = torch.cuda.Event()
             done.record()
         return Dispatch(host, done, keep=(outputs, im1, im2, flow_init,

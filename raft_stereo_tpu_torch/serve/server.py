@@ -16,9 +16,12 @@ One scheduler thread, the production shape of eval/stream.py's window:
   :class:`ServerDraining`, and everything already admitted completes (the
   SIGTERM contract: stop admitting, finish, exit 0).
 * **Batching** — the scheduler pulls the queue in arrival order and packs
-  consecutive requests of one ``(bucket H×W, iters, warm, impl)`` key into
-  one dispatch (serve/batching.py, the streaming evaluator's policy),
-  lingering up to ``linger_s`` for stragglers while the batch is short.
+  consecutive requests of one ``(bucket H×W, iters, warm, policy, impl)``
+  key into one dispatch (serve/batching.py, the streaming evaluator's
+  policy), lingering up to ``linger_s`` for stragglers while the batch is
+  short. Where an iteration policy covers a bucket, its budget caps the
+  iterations and the early-exit flavour serves it (``policy`` is the
+  policy's digest, ``@digest`` in the bucket label).
   Requests of different raw shapes share a dispatch when they pad to the
   same bucket; each keeps its own padder for an exact unpad.
 * **Fault isolation** — the served program returns a per-sample finiteness
@@ -55,6 +58,7 @@ import torch
 
 from raft_stereo_tpu_torch.config import RAFTStereoConfig
 from raft_stereo_tpu_torch.inference import PAD_DIVIS, bucket_size
+from raft_stereo_tpu_torch.obs import numerics as numerics_obs
 from raft_stereo_tpu_torch.obs.converge import emit as converge_emit
 from raft_stereo_tpu_torch.obs.trace import NULL_TRACER
 from raft_stereo_tpu_torch.serve.batching import (BoundedQueue, QueueClosed,
@@ -109,22 +113,20 @@ class ServeConfig:
     #: serve the converge flavour: per-request residual curves (`converge`
     #: records) and the per-bucket quality gauges of the slo rollups
     converge: bool = True
-    #: the JAX package's numerics flavour; not ported (ROADMAP A11)
+    #: serve the numerics flavour: a `numerics` record a dispatch (the tap
+    #: statistics) and each request's output range in the slo rollups and
+    #: on /metrics; off by default, and then the forward has no taps
     numerics: bool = False
-    #: the JAX package's iteration policy (early exit); not ported (A11)
+    #: iteration-policy path (or loaded doc): buckets it covers are served
+    #: by the early-exit forward, its budget in place of default_iters,
+    #: with iters_taken in the request/slo telemetry and on /metrics
     iter_policy: Any = None
-    #: early-exit override; only None and False are served (A11)
+    #: early-exit override: None = adaptive iff iter_policy is set, False
+    #: ignores a loaded policy, True without one is an error
     adaptive: Optional[bool] = None
     #: serve buckets whose padded width reaches this with the memoryless
     #: 'fused' correlation (BucketKey.impl); 0 is off
     fused_width: int = 0
-
-    def __post_init__(self):
-        if self.numerics or self.iter_policy is not None or self.adaptive:
-            raise ValueError(
-                "the numerics and adaptive (iteration-policy) serving "
-                "flavours are not ported yet (ROADMAP A11); serve without "
-                "--numerics, --iter_policy and --adaptive on")
 
 
 @dataclasses.dataclass
@@ -147,6 +149,13 @@ class ServeResult:
     final_residual: Optional[float] = None
     #: the whole residual curve, one value an iteration (converge only)
     residuals: Optional[np.ndarray] = None
+    #: refinement iterations the early exit applied to this request (None
+    #: on fixed-trip forwards)
+    iters_taken: Optional[int] = None
+    #: host min and max of the unpadded output flow (numerics flavour
+    #: only; None on errors)
+    output_min: Optional[float] = None
+    output_max: Optional[float] = None
     #: the low-res flow this request's frame leaves its session (warm
     #: requests only): the next frame's flow_init
     flow_lowres: Optional[np.ndarray] = None
@@ -242,7 +251,10 @@ class StereoServer:
         self.telemetry = telemetry
         self.cache = ExecutableCache(cfg, state_dict, device=device,
                                      aot=self.serve.aot,
-                                     converge=self.serve.converge)
+                                     converge=self.serve.converge,
+                                     numerics=self.serve.numerics,
+                                     iter_policy=self.serve.iter_policy,
+                                     adaptive=self.serve.adaptive)
         self.device = self.cache.device
         self.slo = SLOTracker(telemetry, window=self.serve.slo_window,
                               emit_every=self.serve.slo_every)
@@ -399,10 +411,11 @@ class StereoServer:
         keys = []
         for h, w in shapes:
             bh, bw = self._bucket_shape(h, w)
+            it, policy = self._bucket_plan(
+                bh, bw, int(iters or self.serve.default_iters))
             for b in batch_sizes:
-                keys.append(BucketKey(bh, bw, int(b),
-                                      int(iters or self.serve.default_iters),
-                                      warm, "", self._bucket_impl(bw)))
+                keys.append(BucketKey(bh, bw, int(b), it, warm, policy,
+                                      self._bucket_impl(bw)))
         if not self._thread.is_alive():
             return self.cache.warmup(keys)
         job = _Job(lambda: self.cache.warmup(keys))
@@ -416,6 +429,17 @@ class StereoServer:
         return (bucket_size(h, PAD_DIVIS, self.serve.bucket),
                 bucket_size(w, PAD_DIVIS, self.serve.bucket))
 
+    def _bucket_plan(self, bh: int, bw: int, iters: int) -> Tuple[int, str]:
+        """(iterations, policy digest) of a padded bucket: where the
+        loaded policy covers it, its budget caps the iterations and the
+        group rides the early-exit flavour (a cache without policies
+        serves every bucket fixed)."""
+        lookup = getattr(self.cache, "bucket_entry", None)
+        entry = lookup(bh, bw) if lookup is not None else None
+        if entry is None:
+            return iters, ""
+        return min(int(iters), int(entry["budget"])), self.cache.policy_digest
+
     def _bucket_impl(self, bw: int) -> str:
         """The correlation flavour of a padded bucket width: '' keeps the
         config's implementation; buckets at or past ``fused_width`` ride
@@ -427,7 +451,8 @@ class StereoServer:
 
     def _group_key(self, req: _Request) -> Tuple:
         bh, bw = self._bucket_shape(*req.image1.shape[:2])
-        return (bh, bw, req.iters, req.warm, self._bucket_impl(bw))
+        iters, policy = self._bucket_plan(bh, bw, req.iters)
+        return (bh, bw, iters, req.warm, policy, self._bucket_impl(bw))
 
     def _collect(self, first: _Request) -> List[_Request]:
         first.t_collect = first.t_collect or time.perf_counter()
@@ -465,8 +490,8 @@ class StereoServer:
         return np.zeros(shape, np.float32)
 
     def _dispatch(self, group: List[_Request]) -> None:
-        bh, bw, iters, warm, impl = self._group_key(group[0])
-        key = BucketKey(bh, bw, len(group), iters, warm, "", impl)
+        bh, bw, iters, warm, policy, impl = self._group_key(group[0])
+        key = BucketKey(bh, bw, len(group), iters, warm, policy, impl)
         t0 = time.perf_counter()
         for req in group:
             req.t_dispatch = t0
@@ -496,8 +521,19 @@ class StereoServer:
         except Exception as exc:
             self._fail_group(group, key, exc, kind="dispatch")
             return
-        deltas = aux[0] if aux else None
+        # the outputs after the guard, in the forward's order: the
+        # per-sample curves, the adaptive flavour's iters_taken, the tap
+        # statistics last (adaptive and numerics never combine)
+        taps = aux.pop() if aux and self.serve.numerics else None
+        taken = aux.pop() if aux and key.policy else None
+        deltas = aux[0] if aux and getattr(self.cache, "converge",
+                                           self.serve.converge) else None
         now = time.perf_counter()
+        if taps is not None:
+            # one numerics record a dispatch (the statistics are batch-wide)
+            numerics_obs.emit(self.telemetry, numerics_obs.taps_payload(
+                f"serve:{key.label()}", taps,
+                bucket=f"{key.height}x{key.width}", id=group[0].id))
         for j, req in enumerate(group):
             if not bool(finite[j]):
                 # this request failed; its batchmates retire normally. A
@@ -514,24 +550,40 @@ class StereoServer:
                     batch_size=len(group), bucket=key.label()))
                 continue
             flow = padders[j].unpad(flow_up[j:j + 1])[0]
+            output_min = output_max = None
+            if taps is not None:
+                # the request's output range for the drift gauges (paid
+                # for only with the numerics flavour)
+                output_min, output_max = float(flow.min()), float(flow.max())
             flow_lowres = None
             if req.warm and req.stream is not None:
                 flow_lowres = flow_lr[j].copy()
                 self._sessions[req.stream] = (flow_lowres.shape, flow_lowres)
             final_residual = curve = None
+            iters_taken = None if taken is None else int(taken[j])
             if deltas is not None:
                 curve = deltas[:, j].copy()
-                final_residual = float(curve[-1])
+                extra = {} if iters_taken is None else {
+                    "iters_taken": iters_taken}
+                # the adaptive forward records 0.0 rows for frozen
+                # iterations: the quality gauge takes the last applied
+                # update's residual
+                applied = curve[curve > 0.0]
+                final_residual = (float(applied[-1])
+                                  if iters_taken is not None and applied.size
+                                  else float(curve[-1]))
                 converge_emit(self.telemetry, f"serve:{key.label()}",
                               len(curve), curve,
-                              bucket=f"{key.height}x{key.width}", id=req.id)
+                              bucket=f"{key.height}x{key.width}", id=req.id,
+                              **extra)
             self._finish(req, ServeResult(
                 request_id=req.id, ok=True, flow=flow, stream=req.stream,
                 latency_s=now - req.t_submit,
                 queue_wait_s=req.t_dispatch - req.t_submit,
                 batch_size=len(group), bucket=key.label(),
                 final_residual=final_residual, residuals=curve,
-                flow_lowres=flow_lowres))
+                iters_taken=iters_taken, output_min=output_min,
+                output_max=output_max, flow_lowres=flow_lowres))
 
     def _fail_group(self, group: List[_Request], key: BucketKey,
                     exc: BaseException, kind: str) -> None:
@@ -558,7 +610,9 @@ class StereoServer:
             bucket=result.bucket, batch_size=result.batch_size,
             in_flight=len(self._in_flight), stream=req.stream,
             error=result.error, traceback_tail=result.traceback,
-            final_residual=result.final_residual)
+            final_residual=result.final_residual,
+            iters_taken=result.iters_taken,
+            output_min=result.output_min, output_max=result.output_max)
         # the request's span tree from its lifecycle stamps: queue_wait /
         # collect_group / dispatch / retire tile the root exactly (end =
         # submit + the latency the client was told)

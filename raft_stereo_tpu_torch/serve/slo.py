@@ -14,9 +14,9 @@ Three records ride the event bus (obs/telemetry.py):
   pairs/s sustained over that window. With the convergence output on,
   the rollup carries a per-bucket ``quality`` extra (rolling percentiles
   of the last iteration's residual), so quality drift after a hot reload
-  shows. The ``output_range`` and ``iters`` extras of the JAX package's
-  numerics and adaptive flavours are kept for when those flavours are
-  ported (ROADMAP A11); the port's server feeds neither yet.
+  shows. The numerics flavour adds ``output_range`` (rolling percentiles
+  of each request's output min and max a bucket), the adaptive one
+  ``iters`` (rolling ``iters_taken`` percentiles a bucket).
 
 The tracker is lock-guarded (the scheduler thread retires, client threads
 admit) and fails open: with ``telemetry=None`` it still aggregates and

@@ -50,6 +50,8 @@ def _port_modules():
 def test_port_modules_load_no_jax():
     mods = _port_modules()
     assert f"{PKG}.ops.kernels.windowed_sample" in mods
+    # the policy lint is the port's own copy, not the JAX package's
+    assert f"{PKG}.obs.validate" in mods
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -18,7 +18,8 @@ point) against the JAX package's, on bridged weights and synthetic trees.
 * ``python -m raft_stereo_tpu_torch.evaluate --device cpu`` runs end to
   end, and its ``events.jsonl`` has the event kinds and counts of a JAX
   eval run with ``--no_converge --no_numerics --stream off``; streamed, it
-  leaves no process running once it has exited; ``--iter_epe`` raises.
+  leaves no process running once it has exited; ``--iter_epe`` and
+  ``--iter_policy`` run, and a doctored policy raises.
 """
 
 import collections
@@ -577,12 +578,39 @@ def test_streamed_entry_point_leaves_no_process(tree, tmp_path):
     assert left == []
 
 
-def test_iter_epe_and_iter_policy_raise(tree):
+def test_iter_epe_and_iter_policy_raise(tree, tmp_path, capsys):
+    """``--iter_epe`` and ``--iter_policy`` run through the entry point,
+    as the JAX package's do: EPE curves on every converge record, then a
+    policy built from them runs the early exit (iters_taken on the
+    records, the numerics taps off). They raise only where JAX's do: a
+    doctored policy fails at construction."""
+    from raft_stereo_tpu_torch.obs import converge as tcv
     base = ["--device", "cpu", "--dataset", "kitti", "--data_root",
-            str(tree)]
-    for extra in (["--iter_epe"], ["--iter_policy", "p.json"]):
-        with pytest.raises(ValueError, match="A11"):
-            evaluate.main(base + extra)
+            str(tree), "--valid_iters", "3", "--hidden_dims", "32", "32",
+            "32", "--stream", "off"]
+    evaluate.main(base + ["--iter_epe", "--run_dir", str(tmp_path / "epe")])
+    recs = read_events(str(tmp_path / "epe" / "events.jsonl"))
+    conv = [r for r in recs if r["event"] == "converge"]
+    assert len(conv) == 2
+    assert all(len(r["epe"]) == len(r["idx"]) == 3 for r in conv)
+    assert sum(r["event"] == "numerics" for r in recs) == 2
+    tau = float(np.median([r["residual"][1] for r in conv]))
+    policy = tcv.build_policy(conv, tau=tau, source_run="epe")
+    path = tmp_path / "iter_policy.json"
+    path.write_text(json.dumps(policy))
+    evaluate.main(base + ["--iter_policy", str(path), "--run_dir",
+                          str(tmp_path / "policy")])
+    recs = read_events(str(tmp_path / "policy" / "events.jsonl"))
+    start = next(r for r in recs if r["event"] == "run_start")["config"]
+    assert start["iter_policy_digest"] == tcv.policy_digest(policy)
+    conv = [r for r in recs if r["event"] == "converge"]
+    assert len(conv) == 2 and all(1 <= r["iters_taken"] <= 3 for r in conv)
+    assert not any(r["event"] == "numerics" for r in recs)
+    doctored = json.loads(json.dumps(policy))
+    doctored["default"]["budget"] = 9
+    path.write_text(json.dumps(doctored))
+    with pytest.raises(ValueError, match="exceeds the recorded"):
+        evaluate.main(base + ["--iter_policy", str(path)])
     # a directory that is no trainer checkpoint is refused by name
     with pytest.raises(ValueError, match="neither a reference .pth nor a "
                                          "checkpoint directory"):

@@ -313,12 +313,18 @@ def test_serve_parsers_match_jax():
     assert (cfg.aot, cfg.linger_s, cfg.fused_width, cfg.converge) == (
         False, 0.025, 1248, True)
     assert cli._parse_shapes(["48x96", "128X64"]) == [(48, 96), (128, 64)]
+    # the numerics and early-exit flags parse into the JAX package's
+    # fields; the guards are the cache's, at construction, as in JAX
     for flags in (["--numerics"], ["--iter_policy", "p.json"],
-                  ["--adaptive", "on"]):
-        for build in (cli.build_serve_parser, cli.build_loadtest_parser):
-            args = build().parse_args(flags)
-            with pytest.raises(ValueError, match="A11"):
-                cli.serve_config(args)
+                  ["--adaptive", "on"], ["--adaptive", "off"]):
+        for build, jbuild in ((cli.build_serve_parser,
+                               jcli.build_serve_parser),
+                              (cli.build_loadtest_parser,
+                               jcli.build_loadtest_parser)):
+            got = cli.serve_config(build().parse_args(flags))
+            want = jcli.serve_config(jbuild().parse_args(flags))
+            assert ((got.numerics, got.iter_policy, got.adaptive)
+                    == (want.numerics, want.iter_policy, want.adaptive))
     assert cli.serve_config(cli.build_serve_parser().parse_args(
         ["--adaptive", "off"])).adaptive is False
 
@@ -684,3 +690,170 @@ def test_boundedqueue_blocks_and_wakes():
     with pytest.raises(QueueClosed):
         q.put("c")
     assert collect_group("x", q.get_nowait, q.push_front, 3, len) == ["x"]
+
+
+# --- the numerics and early-exit flavours (small model) ----------------------
+
+def _policy_doc(bucket, tau, budget, recorded):
+    entry = {"tau": tau, "budget": budget, "min_iters": 1,
+             "provenance": {"source": "serve:test",
+                            "row": {"tau": tau, "budget": recorded}}}
+    return {"kind": "iter_policy", "version": 1, "source_run": "runs/test",
+            "buckets": {bucket: entry}}
+
+
+def _run_server(server_cls, config_cls, cfg, weights, knobs, submits,
+                run_dir, **kw):
+    """Serve ``submits`` one at a time (each awaited) on a fresh server
+    with telemetry under ``run_dir``; the results, stats and records."""
+    from raft_stereo_tpu_torch.obs import read_events as t_read
+    tel = Telemetry(str(run_dir), stall_deadline_s=None)
+    tel.run_start(config={"mode": "serve"})
+    server = server_cls(cfg, weights, config_cls(**knobs), telemetry=tel,
+                        **kw)
+    try:
+        results = [server.submit(l, r).result(timeout=300)
+                   for l, r in submits]
+    finally:
+        server.request_drain()
+        assert server.join(timeout=120)
+    stats = server.stats()
+    tel.emit("run_end", steps=len(results), ok=True)
+    tel.close()
+    return results, stats, t_read(str(run_dir / "events.jsonl"))
+
+
+def test_served_adaptive_and_fixed_flavours_match_jax(tmp_path):
+    """One server, one policy covering the 64x96 bucket: its requests ride
+    the ``@digest`` flavour and retire with the JAX server's iters_taken,
+    curves and flows; the uncovered bucket stays fixed. A tau inside the
+    recorded residuals (read from the fixed forward) freezes one request
+    early and the other not."""
+    from raft_stereo_tpu.serve import ServeConfig as JServeConfig
+    from raft_stereo_tpu.serve import StereoServer as JServer
+    from raft_stereo_tpu.serve.http import prometheus_metrics
+    from raft_stereo_tpu_torch.obs.converge import policy_digest
+    jcfg = JConfig(hidden_dims=(32, 32, 32))
+    variables = tp.jax_variables(jcfg, seed=9, image_shape=(1, H, W, 3))
+    sd = state_dict_from_jax(variables)
+    iters = 3
+    submits = [_pair(31), _pair(32), _pair(33, 70, 96)]
+    pred = StereoPredictor(SMALL, sd, valid_iters=iters, device="cpu",
+                           converge=True)
+    curves = []
+    for l, r in submits[:2]:
+        pred(l[None], r[None])
+        curves.append(pred.take_aux()["residual"][:, 0])
+    # midway between the two requests' first residuals: one freezes after
+    # its first update, the other does not
+    lo, hi = sorted(c[0] for c in curves)
+    tau = float((lo + hi) / 2)
+    assert all(min(abs(v - tau) for v in c) > 1e-3 for c in curves)
+    oracle = [next((i + 1 for i, v in enumerate(c) if v < tau), iters)
+              for c in curves]
+    policy = _policy_doc("64x96", tau, iters, iters)
+    digest = policy_digest(policy)
+    knobs = dict(max_batch=1, default_iters=iters, slo_every=1,
+                 iter_policy=policy)
+    got, stats, events = _run_server(StereoServer, ServeConfig, SMALL, sd,
+                                     knobs, submits, tmp_path / "port",
+                                     device="cpu")
+    want, jstats, jevents = _run_server(JServer, JServeConfig, jcfg,
+                                        variables, knobs, submits,
+                                        tmp_path / "jax")
+    assert [r.iters_taken for r in got[:2]] == oracle and min(oracle) == 1
+    for res, jres in zip(got, want):
+        assert res.ok and res.bucket == jres.bucket
+        assert res.iters_taken == jres.iters_taken
+        assert tp.max_abs(res.flow, jres.flow) <= FLOW_TOL_PX
+    assert got[0].bucket == f"64x96b1i{iters}@{digest}"
+    assert got[2].bucket == f"96x96b1i{iters}" and got[2].iters_taken is None
+    assert stats["iters"] == jstats["iters"]
+    text = prometheus_metrics(stats)
+    assert f'raft_serve_iters_taken_p50{{bucket="{got[0].bucket}"}}' in text
+    conv = [e for e in events if e["event"] == "converge"]
+    jconv = [e for e in jevents if e["event"] == "converge"]
+    assert [e.get("iters_taken") for e in conv] == \
+        [e.get("iters_taken") for e in jconv] == [r.iters_taken for r in got]
+    for e, je in zip(conv, jconv):
+        assert tp.max_abs(e["residual"], je["residual"]) <= 1e-4
+    assert check_path(str(tmp_path / "port")) == []
+
+
+def test_served_numerics_records_match_jax(tmp_path):
+    """``numerics=True``: one ``numerics`` record a dispatch with the JAX
+    server's tap labels, counters and (within 1e-4 relative) statistics,
+    and each request's output range in the slo rollup and on /metrics."""
+    from raft_stereo_tpu.serve import ServeConfig as JServeConfig
+    from raft_stereo_tpu.serve import StereoServer as JServer
+    from raft_stereo_tpu.serve.http import prometheus_metrics
+    jcfg = JConfig(hidden_dims=(32, 32, 32))
+    variables = tp.jax_variables(jcfg, seed=9, image_shape=(1, H, W, 3))
+    sd = state_dict_from_jax(variables)
+    submits = [_pair(41), _pair(42)]
+    knobs = dict(max_batch=1, default_iters=ITERS, slo_every=1,
+                 numerics=True)
+    got, stats, events = _run_server(StereoServer, ServeConfig, SMALL, sd,
+                                     knobs, submits, tmp_path / "port",
+                                     device="cpu")
+    want, jstats, jevents = _run_server(JServer, JServeConfig, jcfg,
+                                        variables, knobs, submits,
+                                        tmp_path / "jax")
+    recs = [e for e in events if e["event"] == "numerics"]
+    jrecs = [e for e in jevents if e["event"] == "numerics"]
+    assert len(recs) == len(jrecs) == 2
+    for rec, jrec in zip(recs, jrecs):
+        assert list(rec["taps"]) == list(jrec["taps"])
+        assert len(rec["taps"]) == 8 and rec["iters"] == ITERS
+        for k in ("sat_total", "underflow_total", "first_nonfinite",
+                  "source", "bucket", "id"):
+            assert rec[k] == jrec[k], k
+        for label, series in rec["taps"].items():
+            for field in ("nonfinite", "sat", "underflow"):
+                assert series[field] == jrec["taps"][label][field]
+            for field in ("min", "max", "absmean"):
+                assert np.allclose(series[field],
+                                   jrec["taps"][label][field],
+                                   rtol=1e-4, atol=1e-6), (label, field)
+    for res, jres in zip(got, want):
+        assert res.output_min == pytest.approx(jres.output_min, abs=1e-3)
+        assert res.output_max == pytest.approx(jres.output_max, abs=1e-3)
+    (bucket, rng_), = stats["output_range"].items()
+    assert rng_["n"] == 2 and bucket in jstats["output_range"]
+    text = prometheus_metrics(stats)
+    assert f'raft_serve_output_min_p05{{bucket="{bucket}"}}' in text
+    assert check_path(str(tmp_path / "port")) == []
+
+
+def test_served_flavour_guards_match_jax(tmp_path):
+    """The server raises where the JAX server raises, at construction:
+    adaptive without a policy, numerics with the adaptive flavour, a
+    doctored policy; ``adaptive=False`` with a policy serves fixed."""
+    from raft_stereo_tpu.serve import ServeConfig as JServeConfig
+    from raft_stereo_tpu.serve import StereoServer as JServer
+    jcfg = JConfig(hidden_dims=(32, 32, 32))
+    policy = _policy_doc("64x96", 0.05, 2, 2)
+    doctored = json.loads(json.dumps(policy))
+    doctored["buckets"]["64x96"]["budget"] = 9
+    path = tmp_path / "doctored.json"
+    path.write_text(json.dumps(doctored))
+    for knobs, match in ((dict(adaptive=True), "needs an iter_policy"),
+                         (dict(iter_policy=policy, numerics=True),
+                          "numerics"),
+                         (dict(iter_policy=str(path)),
+                          "exceeds the recorded")):
+        with pytest.raises(ValueError, match=match):
+            StereoServer(SMALL, {}, ServeConfig(**knobs), device="cpu",
+                         autostart=False)
+        with pytest.raises(ValueError, match=match):
+            JServer(jcfg, {}, JServeConfig(**knobs))
+    sd = state_dict_from_jax(tp.jax_variables(jcfg, seed=9,
+                                              image_shape=(1, H, W, 3)))
+    server = StereoServer(SMALL, sd, ServeConfig(
+        default_iters=2, iter_policy=policy, adaptive=False), device="cpu",
+        autostart=False)
+    assert not server.cache.adaptive
+    assert server._group_key(type("R", (), {
+        "image1": np.zeros((H, W, 3)), "iters": 2, "warm": False})()) == (
+        64, 96, 2, False, "", "")
+    server.close()
