@@ -92,7 +92,7 @@ Phases, each reported as one JSON line, in the order they run:
 11b. eval_kitti, eval_cli, eval_microbatch, eval_middlebury, eval_cpu —
    the evaluation path on synthetic trees written by the port's png.py
    (Paeth rows, as photographs are written) in a temporary directory,
-   seeded weights: eval_kitti runs validate_kitti over 42 KITTI frames (40
+   seeded weights: eval_kitti runs validate_kitti over EVAL_FRAMES KITTI frames (all but 2
    timed after the validator's warm-up) at 375x1242 (the
    default architecture, reg_cuda, mixed precision as the eval entry point
    sets it, 32 iterations, warmup_frames=1; PyTorch's TF32 defaults, as
@@ -188,12 +188,42 @@ Phases, each reported as one JSON line, in the order they run:
    ((44, 88): one forward launch an iteration, four backward; (44, 88);
    (44, 22)) and none of the other kernels'.
 15. train_cpu_parity — one fp32 step of the default architecture, 2
-   iterations, on the card (kernels) and on the CPU (plain versions):
+   iterations, on the card (kernels) and on the CPU (plain versions),
+   under the recipe's full per-iteration recompute
+   (refinement_save_policy=False; (4, 2) launches, (4, 8) for B2 and B3):
    reg_cuda with the card's convolutions in cuDNN (as the main path runs
    them) and outside it, alt_cuda and alt_pallas in cuDNN at 64x160,
-   reg_cuda + fused_lookup in cuDNN at 64x352; the loss within 1e-5
-   relative, and the gradients within the null floor of NULL_RUNS CPU
-   null runs (see check_grad_parity).
+   reg_cuda + fused_lookup in cuDNN at 64x352; then reg_cuda under the
+   auto save policy, which engages at this size ((2, 2): the lookups
+   replayed); the loss within 1e-5 relative, and the gradients within
+   the null floor of NULL_RUNS CPU null runs (see check_grad_parity).
+15a. train_schedules, train_schedules_fp32, train_schedules_kernels —
+   the JAX package's training schedules (TRAIN_SCHEDULES). At the
+   SceneFlow recipe (reg_cuda, bf16, batch 8 at 320x720, 22 iterations),
+   seeded weights and one batch, each schedule: batched_scan_wgrad, the
+   save policy on and "corr", residual_dtype=bfloat16, the in-loop
+   upsample, remat_loss_tail=False, the fused loss (chunked by the
+   default budget, one-shot, without the tail's remat, in the loop) and
+   each remat_encoders mode: the loss within SCHEDULE_LOSS_TOL of
+   today's schedule, the gradients within the null floor of today's
+   (NULL_RUNS null runs made once); under batched_scan_wgrad, whose fp32
+   sums depart from today's bf16 per-iteration terms, within the null
+   floor of the schedule it accumulates like (today's with each
+   iteration's gate weight gradients in fp32, NULL_RUNS null runs of its
+   own), closer to it than today's are on the gate weights, and within
+   JAX's bf16 contract of today's; train_schedules_wgrad holds every
+   batched weight-gradient contraction at the recipe no further from a
+   float64 im2col contraction of the same stacks than today's
+   per-iteration route on them is. B1's
+   launches a step as TRAIN_SCHEDULES states them (22 or 44 forward, 22
+   backward) and no other kernel's; ms/step (median of
+   SCHEDULE_STEPS after a warm-up), peak memory, and the device-time
+   split (lookup, convolution, matmul, elementwise), kernels and idle
+   share of one profiled step. In fp32 (TF32 off) at batch
+   FP32_GATE_BATCH: batched_scan_wgrad (and with the full policy)
+   through B1, and through B2 (alt_cuda), B3 (alt_pallas) and B4
+   (fused_lookup), each within the null floor of that correlation's
+   autodiff step, with its launches.
 15b. train_loader, train_trainer, train_trainer_steady,
    train_trainer_fused, train_resume — the training path on a synthetic
    FlyingThings tree written by the port's png.py (8 frames a pass at
@@ -203,11 +233,11 @@ Phases, each reported as one JSON line, in the order they run:
    photometric, resize, crop), two passes bitwise equal and a
    start_batch resume equal to the uninterrupted stream. train_trainer:
    train() in this process at the recipe (reg_cuda, bf16, batch 8 at
-   320x720, 22 iterations, 12 steps, checkpoints every 4, validation
+   320x720, 22 iterations, TRAINER_STEPS steps, checkpoints every 4, validation
    every 6 on the TEST frames at 32 iterations): exactly (44, 22)
    windowed_sample launches every step and no other kernel's, finite
    losses, an events.jsonl the port's validate_events passes with the
-   fleet stamp and heartbeats; ms/step (median of steps 3-12), pairs/s,
+   fleet stamp and heartbeats; ms/step (median of steps 3 on), pairs/s,
    the data_wait/dispatch/fetch medians and data_wait's share, peak
    memory, checkpoint bytes and save seconds. train_trainer_steady: the
    same for STEADY_STEPS steps with no checkpoint or validation, timed
@@ -233,11 +263,14 @@ Phases, each reported as one JSON line, in the order they run:
    64x160, 2 iterations, global batch 4 split 2 + 2: the 2-rank loss
    within 1e-5 relative of the one-process step's on the concatenated
    batch, the reduced gradients within the null floor of NULL_RUNS card
-   null runs (check_grad_parity), (4, 2) windowed_sample launches a rank
-   and no other kernel's, both ranks' gradients and, after two steps,
-   their parameters and AdamW moments bitwise equal. dp_train: the
+   null runs (check_grad_parity), under the recipe's full per-iteration
+   recompute ((4, 2) windowed_sample launches a rank) and under the auto
+   save policy, engaged at this size ((2, 2)), and no other kernel's,
+   both ranks' gradients and, after two steps, their parameters and
+   AdamW moments bitwise equal. dp_train: the
    SceneFlow recipe (reg_cuda, bf16, 22 iterations) at global batch 8 at
-   320x720 split 4 + 4: (44, 22) windowed_sample launches a rank a step
+   320x720 split 4 + 4: (22, 22) windowed_sample launches a rank a step
+   (the auto save policy keeps the lookups at batch 4)
    and no other kernel's, equal finite losses, the replicas bitwise
    equal; a rank's ms/step (median of TRAIN_STEPS after a warm-up), the
    gradients' all-reduce ms alone, peak memory a rank. Two ranks share
@@ -247,7 +280,7 @@ Phases, each reported as one JSON line, in the order they run:
    for one step: one checkpoint set, written by rank 0; each rank's
    events.jsonl valid with its mesh coordinates and the backend on
    run_start; the restored step's loss the uninterrupted run's bitwise;
-   (44, 22) launches a rank a step; no process left.
+   (22, 22) launches a rank a step (batch 4 a rank); no process left.
 16. timings, bwd_timings — windowed_sample's forward at the default,
    realtime and train pyramids and its backward at the train pyramid: per
    level, the one-level launch's time, its bound (bound_ms: bytes over
@@ -283,6 +316,7 @@ check raises, and the script exits non-zero without that last line. It
 exits non-zero at once when torch.cuda is not available.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -325,8 +359,8 @@ LOOKUP_C1 = {"default": ("float32", "float32", (1, 96, 312, 312)),
              "train": ("bfloat16", "bfloat16", (8, 80, 180, 180))}
 # the evaluation phases: KITTI frames, their size, their pairs' shift (the
 # disparity), iterations. validate_kitti times the frames after
-# warmup_frames=1 (frames 0 and 1 are its warm-up): 40 timed frames
-EVAL_FRAMES = 42
+# warmup_frames=1 (frames 0 and 1 are its warm-up): 8 timed frames
+EVAL_FRAMES = 10
 EVAL_KITTI_HW = (375, 1242)
 EVAL_SHIFT = 12
 EVAL_ITERS = 32
@@ -336,8 +370,13 @@ EVAL_ITERS = 32
 DEPARTURE_REL = 2.0 ** -5
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": round(time.perf_counter() - _T0, 1)}),
+          flush=True)
 
 
 def check(cond, message):
@@ -1504,6 +1543,448 @@ def train_cpu_parity(dev, impl, kernel, state, modes, size=(64, 160),
     return runs
 
 
+# ---------------------------------------------------- training schedules
+
+# (name, config fields, fused loss, B1 forward launches a step): the JAX
+# package's training schedules at the SceneFlow recipe, "default" today's
+# (the auto save policy does not engage at batch 8: full per-iteration
+# recompute, 22 + 22 forward launches; a save policy keeps the lookups and
+# launches 22)
+TRAIN_SCHEDULES = (
+    ("default", {}, False, 44),
+    ("batched_scan_wgrad", {"batched_scan_wgrad": True}, False, 44),
+    ("policy_on", {"refinement_save_policy": True}, False, 22),
+    ("policy_corr", {"refinement_save_policy": "corr"}, False, 22),
+    ("batched_policy_on", {"batched_scan_wgrad": True,
+                           "refinement_save_policy": True}, False, 22),
+    ("policy_on_residual_bf16", {"refinement_save_policy": True,
+                                 "residual_dtype": "bfloat16"}, False, 22),
+    ("in_loop_upsample", {"deferred_upsample": False}, False, 44),
+    ("no_remat_loss_tail", {"remat_loss_tail": False}, False, 44),
+    ("fused_loss", {}, True, 44),
+    ("fused_loss_one_shot", {"upsample_tile_budget": 2 ** 31}, True, 44),
+    ("fused_loss_no_tail_remat", {"remat_loss_tail": False}, True, 44),
+    ("fused_loss_in_loop", {"deferred_upsample": False}, True, 44),
+    ("remat_encoders", {"remat_encoders": True}, False, 44),
+    ("remat_encoders_blocks", {"remat_encoders": "blocks"}, False, 44),
+    ("remat_encoders_blocks_hires", {"remat_encoders": "blocks_hires"},
+     False, 44),
+    ("remat_encoders_norms", {"remat_encoders": "norms"}, False, 44),
+)
+SCHEDULE_LOSS_TOL = 2.0 ** -8  # bf16's relative precision
+SCHEDULE_STEPS = 3             # timed steps a schedule, after a warm-up
+GATE_WEIGHTS = ("convz.weight", "convr.weight", "convq.weight")
+
+
+def device_split(kernels):
+    """Device ms of profiled kernels (device_kernels) by kind: the lookup
+    kernels, the convolutions, matmuls, and the rest (PyTorch's
+    elementwise, reduction and copy kernels);
+    scripts/profile_torch_main_path.py's categories."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "scripts"))
+    from profile_torch_main_path import category
+    split = {"lookup": 0.0, "convolution": 0.0, "matmul": 0.0,
+             "elementwise": 0.0}
+    kind = {"convolution": "convolution", "matmul": "matmul",
+            "other": "elementwise"}
+    for e in kernels:
+        split[kind.get(category(e.name), "lookup")] += (
+            e.time_range.elapsed_us() / 1e3)
+    split["total"] = sum(split.values())
+    return split
+
+
+def schedule_run(dev, mcfg, tcfg, state, batch, fused_loss, kernels,
+                 timed=True):
+    """One schedule: the loss and gradients of one step on ``state``'s
+    weights (the launches of each of ``kernels`` counted); then, ``timed``,
+    a warm-up and SCHEDULE_STEPS timed optimizer steps (ms/step, peak
+    memory above what was resident before the steps) and one profiled
+    step (device_split, and the idle share of its kernels' span)."""
+    import torch
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    from raft_stereo_tpu_torch.training.optim import fetch_optimizer
+    from raft_stereo_tpu_torch.training.state import (TrainState,
+                                                      loss_and_grads,
+                                                      make_train_step)
+    model = RAFTStereo(mcfg)
+    model.load_state_dict(state, strict=True)
+    model.to(dev)
+    for k in kernels:
+        k.launches = k.bwd_launches = 0
+    loss, _, grads = loss_and_grads(model, batch, tcfg.train_iters,
+                                    fused_loss=fused_loss)
+    torch.cuda.synchronize()
+    launches = [(k.launches, k.bwd_launches) for k in kernels]
+    if not timed:
+        del model
+        return dict(loss=float(loss), grads=grads, launches=launches)
+    opt = fetch_optimizer(tcfg, model.parameters())
+    st = TrainState(model, opt)
+    step = make_train_step(model, opt, tcfg.train_iters,
+                           fused_loss=fused_loss)
+    st, _ = step(st, batch)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs = []
+    for _ in range(SCHEDULE_STEPS):
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        check(float(m["skipped_updates"]) == 0.0, "schedule step skipped")
+    out = dict(loss=float(loss), grads=grads, launches=launches,
+               ms_per_step_median=statistics.median(secs) * 1e3,
+               ms_per_step_runs=[x * 1e3 for x in secs],
+               peak_mem_bytes=torch.cuda.max_memory_allocated(dev)
+               - resident)
+    box = [st]
+
+    def one_step():
+        box[0], _ = step(box[0], batch)
+    found = device_kernels(one_step)
+    split = device_split(found)
+    out.update(device_ms=split, elementwise_share=(
+        split["elementwise"] / split["total"] if split["total"] else None),
+        kernels_per_step=len(found),
+        idle_share=(1.0 - split["total"] * 1e3 / (
+            max(e.time_range.end for e in found)
+            - min(e.time_range.start for e in found)) if found else None))
+    del st, box, step, opt, model
+    return out
+
+
+def schedule_nulls(dev, mcfg, tcfg, state, batch):
+    """NULL_RUNS gradients of today's schedule with every weight scaled by
+    1 + 1e-6 N(0, 1): the null runs the schedules' gradients are gated
+    by."""
+    import torch
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    from raft_stereo_tpu_torch.training.state import loss_and_grads
+    base = RAFTStereo(mcfg)
+    base.load_state_dict(state, strict=True)
+    nulls = []
+    for i in range(NULL_RUNS):
+        other = perturbed_copy(base, NULL_PERTURBATION, SEED + 60 + i)
+        nulls.append(loss_and_grads(other.to(dev), batch,
+                                    tcfg.train_iters)[2])
+        del other
+    torch.cuda.empty_cache()
+    return [n for n, _ in base.named_parameters()], nulls
+
+
+def bf16_contract(names, got, want):
+    """JAX's gradient contract for bf16 residuals (tests/test_scan_grad.py
+    ``assert_grads_tolerance``, rel 2e-2), leaf by leaf: ``|got - want| <=
+    2e-2 |want| + 1e-4 max_leaf |want|`` (L2 norms). Returns the worst
+    ratio to the bound, its leaf and whether every leaf is within."""
+    import torch
+    scale = max(float(torch.linalg.vector_norm(w.double())) for w in want)
+    ratios = {}
+    for n, g, w in zip(names, got, want):
+        diff = float(torch.linalg.vector_norm((g - w).double()))
+        bound = 2e-2 * float(torch.linalg.vector_norm(w.double())) \
+            + 1e-4 * scale
+        ratios[n] = diff / bound
+    worst = max(ratios, key=ratios.get)
+    return dict(bf16_contract_ratio=ratios[worst],
+                bf16_contract_worst_leaf=worst,
+                bf16_contract_ok=ratios[worst] < 1.0)
+
+
+@contextlib.contextmanager
+def per_iteration_fp32_wgrads():
+    """Today's schedule with each iteration's gate-conv weight gradients
+    kept in fp32: the model's per-iteration refinement (refinement_scan of
+    one iteration, batched=False) run with batched=True, so that each
+    iteration's gate weight gradient is one fp32-accumulated contraction
+    over that iteration's batch and autograd sums the 22 in fp32, where
+    today's schedule takes each from the conv's bf16 weight-gradient
+    output before the sum. The reference batched_scan_wgrad accumulates
+    like (a measurement instrument: no config selects it)."""
+    from raft_stereo_tpu_torch.models import raft_stereo as rs
+    real = rs.refinement_scan
+
+    def scan(*args, **kwargs):
+        if kwargs.get("length") == 1:
+            kwargs["batched"] = True
+        return real(*args, **kwargs)
+    rs.refinement_scan = scan
+    try:
+        yield
+    finally:
+        rs.refinement_scan = real
+
+
+def wgrad_fp64(conv, x, g, chunk=4):
+    """``conv``'s weight gradient for the inputs ``x (N, H, W, Cin)`` and
+    the output cotangents ``g (N, H, W, Cout')``, in float64: im2col
+    (F.unfold) and one product a chunk of N, independent of cuDNN."""
+    import torch
+    import torch.nn.functional as F
+    k, cout = conv.kernel_size, g.shape[-1]
+    dw = torch.zeros((cout, x.shape[-1] * k[0] * k[1]), dtype=torch.float64,
+                     device=g.device)
+    for i in range(0, x.shape[0], chunk):
+        cols = F.unfold(x[i:i + chunk].permute(0, 3, 1, 2).double(), k,
+                        padding=conv.padding, stride=conv.stride)
+        gc = g[i:i + chunk].double().reshape(cols.shape[0], -1, cout)
+        dw += torch.einsum("nlo,ncl->oc", gc, cols)
+        del cols, gc
+    return dw.reshape((cout, x.shape[-1]) + tuple(k))
+
+
+def per_iteration_route(conv, x, g, groups):
+    """The weight gradient as today's schedule accumulates it from the
+    same stacks: one contraction an iteration in the stacks' dtype (in
+    bf16 cuDNN's bf16 output, as autograd's conv backward gives it for
+    the bf16 weight copy), each widened to fp32 and summed."""
+    import torch
+    n = x.shape[0] // groups
+    w = torch.zeros((g.shape[-1], x.shape[-1]) + tuple(conv.kernel_size),
+                    dtype=x.dtype, device=x.device)
+    total = None
+    for t in range(groups):
+        part = conv.conv_backward(x[t * n:(t + 1) * n], w,
+                                  g[t * n:(t + 1) * n],
+                                  (False, True, False))[1].float()
+        total = part if total is None else total + part
+    return total
+
+
+@contextlib.contextmanager
+def checked_weight_grads(rows):
+    """Every Conv.weight_grad call (the batched backward's contractions)
+    also held against wgrad_fp64 on the same stacks: a row of ``rows``
+    a call (shapes, dtypes, groups, cuDNN's route for the stacked weight;
+    the relative L2 from float64 of the contraction, of today's
+    per-iteration route (per_iteration_route, its yardstick) and of the
+    same contraction in one group (one fp32 sum over every iteration: the
+    earlier design, a reading))."""
+    import torch
+    from raft_stereo_tpu_torch.nn.layers import Conv, cudnn_takes_fft
+    real = Conv.weight_grad
+
+    def checked(self, x, g, groups=1):
+        dw = real(self, x, g, groups=groups)
+        want = wgrad_fp64(self, x, g)
+        one = real(self, x, g) if groups > 1 else dw
+        today = per_iteration_route(self, x, g, groups)
+        rows.append(dict(
+            x_shape=list(x.shape), cout=g.shape[-1], dtype=str(x.dtype),
+            groups=groups, rel_l2=rel_l2(dw, want),
+            rel_l2_per_iteration_route=rel_l2(today, want),
+            rel_l2_one_group=rel_l2(one, want),
+            fft_route=cudnn_takes_fft(
+                self, x.permute(0, 3, 1, 2).float(),
+                torch.empty((g.shape[-1], x.shape[-1]) + self.kernel_size,
+                            device="meta"))))
+        del want, one, today
+        return dw
+    Conv.weight_grad = checked
+    try:
+        yield
+    finally:
+        Conv.weight_grad = real
+
+
+def gate_weight_dev(names, got, want):
+    """Relative L2 of the gate convs' weight gradients together."""
+    import torch
+    pick = [i for i, n in enumerate(names) if n.endswith(GATE_WEIGHTS)]
+    return rel_l2(torch.cat([got[i].flatten() for i in pick]),
+                  torch.cat([want[i].flatten() for i in pick]))
+
+
+def run_train_schedules(dev, all_kernels, ws_kernel):
+    """train_schedules: each of TRAIN_SCHEDULES at the SceneFlow recipe
+    (reg_cuda, bf16, batch 8 at 320x720, 22 iterations) on one seeded
+    batch and seeded weights, under PyTorch's TF32 defaults (the train
+    entry point leaves them so): its loss within SCHEDULE_LOSS_TOL
+    relative of today's; its gradients against today's under the null
+    floor (check_grad_parity over NULL_RUNS null runs made once) and
+    JAX's bf16 contract (bf16_contract). Under batched_scan_wgrad, whose
+    fp32 sums depart from today's bf16 per-iteration terms, the null
+    floor is taken against the schedule it accumulates like, today's
+    with fp32 per-iteration gate weight gradients
+    (per_iteration_fp32_wgrads, NULL_RUNS null runs of its own), and the
+    gate weights' gradients must sit closer to that reference than
+    today's do; each contraction itself must be no further from
+    wgrad_fp64 on the recipe's stacks than today's per-iteration route
+    on them (per_iteration_route; train_schedules_wgrad).
+    B1's launches a step as TRAIN_SCHEDULES states them (22 forward where
+    a policy keeps the lookups, 44 where the backward recomputes them;
+    22 backward) and no other kernel's; ms/step (median of
+    SCHEDULE_STEPS), peak memory and the device-time split of one
+    profiled step, printed a schedule a line."""
+    import torch
+    from raft_stereo_tpu_torch.config import sceneflow_config
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    mcfg0, tcfg = sceneflow_config()
+    mcfg0 = dataclasses.replace(mcfg0, corr_implementation="reg_cuda")
+    state = seeded_weights(RAFTStereo(mcfg0), SEED)
+    b, (h, w), iters = tcfg.batch_size, tcfg.image_size, tcfg.train_iters
+    batch = train_batch(b, h, w, SEED + 3, dev)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        names, nulls = schedule_nulls(dev, mcfg0, tcfg, state, batch)
+        with per_iteration_fp32_wgrads():
+            ref = schedule_run(dev, mcfg0, tcfg, state, batch, False,
+                               all_kernels, timed=False)["grads"]
+            _, ref_nulls = schedule_nulls(dev, mcfg0, tcfg, state, batch)
+        contraction = []
+        with checked_weight_grads(contraction):
+            schedule_run(dev, dataclasses.replace(
+                mcfg0, batched_scan_wgrad=True), tcfg, state, batch, False,
+                all_kernels, timed=False)
+        torch.cuda.empty_cache()
+        worst = max(contraction, key=lambda r: r["rel_l2"]
+                    / r["rel_l2_per_iteration_route"])
+        emit("train_schedules_wgrad", contractions=contraction,
+             worst=worst)
+        rows = schedule_rows(dev, mcfg0, tcfg, state, batch, all_kernels,
+                             ws_kernel, names, nulls, ref, ref_nulls)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    check(len(contraction) >= 6
+          and worst["rel_l2"] <= worst["rel_l2_per_iteration_route"]
+          and not any(r["fft_route"] for r in contraction),
+          f"train_schedules_wgrad: a batched contraction is further from "
+          f"float64 than today's per-iteration route (or took cuDNN's "
+          f"FFT): {worst}")
+    return rows
+
+
+def schedule_rows(dev, mcfg0, tcfg, state, batch, all_kernels, ws_kernel,
+                  names, nulls, ref, ref_nulls):
+    """run_train_schedules' rows, a schedule a line."""
+    b, (h, w), iters = tcfg.batch_size, tcfg.image_size, tcfg.train_iters
+    idx = list(all_kernels).index(ws_kernel)
+    rows, want = {}, None
+    for name, fields, fused_loss, b1_fwd in TRAIN_SCHEDULES:
+        mcfg = dataclasses.replace(mcfg0, **fields)
+        run = schedule_run(dev, mcfg, tcfg, state, batch, fused_loss,
+                           all_kernels)
+        grads = run.pop("grads")
+        if want is None:
+            want, want_loss = grads, run["loss"]
+        gate = check_grad_parity(names, grads, want, nulls)
+        ref_gate = check_grad_parity(names, grads, ref, ref_nulls)
+        contract = bf16_contract(names, grads, want)
+        batched = bool(fields.get("batched_scan_wgrad"))
+        dev_ref = gate_weight_dev(names, grads, ref)
+        if batched:
+            closer = dev_ref < rows["default"]["gate_weight_dev_ref"]
+            grads_ok = ref_gate["ok"] and closer \
+                and contract["bf16_contract_ok"]
+        else:
+            grads_ok = gate["ok"]
+        expect = (b1_fwd, iters)
+        row = dict(schedule=name, fields=fields, fused_loss=fused_loss,
+                   loss_rel_dev=abs(run["loss"] - want_loss) / abs(want_loss),
+                   launches_expected=list(expect), **run,
+                   grads_gate=("null_floor_vs_fp32_wgrad_reference"
+                               if batched else "null_floor"),
+                   grads_ok=grads_ok, null_floor_ok=gate["ok"], **contract,
+                   gate_weight_dev_ref=dev_ref,
+                   ref_gate=ref_gate,
+                   **{"grad_" + k: v for k, v in gate.items() if k != "ok"})
+        rows[name] = row
+        emit("train_schedules", config="sceneflow_config() + reg_cuda",
+             batch=b, image_size=[h, w], iters=iters, **row)
+        check(tuple(run["launches"][idx]) == expect
+              and all(tuple(c) == (0, 0) for j, c in
+                      enumerate(run["launches"]) if j != idx),
+              f"train_schedules {name}: launches {run['launches']}, "
+              f"expected {expect} of B1 and no other kernel's")
+        check(row["loss_rel_dev"] <= SCHEDULE_LOSS_TOL,
+              f"train_schedules {name}: loss {run['loss']} vs {want_loss}")
+        check(grads_ok, f"train_schedules {name}: gradients beyond "
+                        f"{row['grads_gate']}: {row}")
+    return rows
+
+
+FP32_GATE_BATCH = 2  # the fp32 gates' batch at 320x720, 22 iterations
+
+
+def run_train_schedules_kernels(dev, all_kernels):
+    """train_schedules_fp32 and train_schedules_kernels: batched_scan_wgrad
+    in fp32 (TF32 off) at 320x720, batch FP32_GATE_BATCH, 22 iterations,
+    through each lookup kernel: B1 (reg_cuda, with and without the full
+    save policy), B2 (alt_cuda), B3 (alt_pallas) and B4 (reg_cuda +
+    fused_lookup). Each against that correlation's autodiff step (today's
+    schedule) under the null floor of its own NULL_RUNS null runs, its
+    loss within SCHEDULE_LOSS_TOL, its kernel's launches a step (the
+    forward's: 22 where the auto save policy, engaged at this batch,
+    keeps the lookups, 44 with the fused lookup, which has none to keep)
+    and no other kernel's (one step each: the timings are
+    train_schedules')."""
+    from raft_stereo_tpu_torch.config import sceneflow_config
+    from raft_stereo_tpu_torch.models import RAFTStereo
+    ws_k, fc_k, ac_k, fl_k = all_kernels
+    mcfg0, tcfg = sceneflow_config()
+    mcfg0 = dataclasses.replace(mcfg0, mixed_precision=False,
+                                corr_storage_dtype=None)
+    tcfg = dataclasses.replace(tcfg, batch_size=FP32_GATE_BATCH)
+    b, (h, w), iters = tcfg.batch_size, tcfg.image_size, tcfg.train_iters
+    batch = train_batch(b, h, w, SEED + 3, dev)
+    batched = {"batched_scan_wgrad": True}
+    rows = {}
+    for phase, label, kernel, fields, per_iter, schedules in (
+            ("train_schedules_fp32", "reg_cuda", ws_k,
+             {"corr_implementation": "reg_cuda"}, (1, 1),
+             (("batched_scan_wgrad", batched),
+              ("batched_policy_on", dict(batched,
+                                         refinement_save_policy=True)))),
+            ("train_schedules_kernels", "alt_cuda", fc_k,
+             {"corr_implementation": "alt_cuda"}, (1, 4),
+             (("batched_scan_wgrad", batched),)),
+            ("train_schedules_kernels", "alt_pallas", ac_k,
+             {"corr_implementation": "alt_pallas"}, (1, 4),
+             (("batched_scan_wgrad", batched),)),
+            ("train_schedules_kernels", "fused_lookup", fl_k,
+             {"corr_implementation": "reg_cuda", "fused_lookup": True},
+             (2, 1),
+             (("batched_scan_wgrad", batched),))):
+        mcfg = dataclasses.replace(mcfg0, **fields)
+        state = seeded_weights(RAFTStereo(mcfg), SEED)
+        names, nulls = schedule_nulls(dev, mcfg, tcfg, state, batch)
+        idx = list(all_kernels).index(kernel)
+        runs = {}
+        for name, extra in (("autodiff", {}),) + schedules:
+            cfg = dataclasses.replace(mcfg, **extra)
+            runs[name] = schedule_run(dev, cfg, tcfg, state, batch, False,
+                                      all_kernels, timed=False)
+            expect = (per_iter[0] * iters, per_iter[1] * iters)
+            got = runs[name]["launches"]
+            check(tuple(got[idx]) == expect and all(
+                tuple(c) == (0, 0) for j, c in enumerate(got) if j != idx),
+                f"{phase} {label} {name}: launches {got}, expected {expect} "
+                f"of {kernel.__name__}")
+        want = runs["autodiff"].pop("grads")
+        for name, _ in schedules:
+            got = runs[name].pop("grads")
+            gate = check_grad_parity(names, got, want, nulls)
+            loss_dev = (abs(runs[name]["loss"] - runs["autodiff"]["loss"])
+                        / abs(runs["autodiff"]["loss"]))
+            runs[name].update(loss_rel_dev=loss_dev, grads_ok=gate["ok"],
+                              **{"grad_" + k: v for k, v in gate.items()
+                                 if k != "ok"})
+            check(loss_dev <= SCHEDULE_LOSS_TOL,
+                  f"{phase} {label} {name}: loss deviates {loss_dev}")
+            check(gate["ok"], f"{phase} {label} {name}: gradients beyond "
+                              f"the null floor: {gate}")
+        row = dict(kernel=kernel.__name__, config="sceneflow_config() fp32 "
+                   "+ " + ", ".join(f"{k}={v}" for k, v in fields.items()),
+                   batch=b, image_size=[h, w], iters=iters, **runs)
+        rows[label] = row
+        emit(phase, **row)
+    return rows
+
+
 # --------------------------------------------------------- evaluation path
 
 class FlowRecorder:
@@ -1606,7 +2087,7 @@ def write_sceneflow_tree(root, n, h, w, seed, test_frames=0,
 # batches an epoch) and 2 TEST frames for the validation hook
 TRAIN_TREE_FRAMES = 8
 TRAIN_TREE_HW = (540, 960)
-TRAINER_STEPS = 12
+TRAINER_STEPS = 8
 TRAINER_CKPT_EVERY = 4
 TRAINER_VAL_EVERY = 6
 TRAINER_WORKERS = 6          # loader worker processes (8 host cores)
@@ -1614,7 +2095,7 @@ TRAINER_WORKERS = 6          # loader worker processes (8 host cores)
 # the loader time to catch up), long enough that a loader slower than the
 # card shows in data_wait_s; timed from the second epoch on (the loader's
 # queue starts empty each epoch, so every epoch's first step waits)
-STEADY_STEPS = 40
+STEADY_STEPS = 16
 STEADY_SKIP = 8
 RESUME_SIGTERM_AFTER = 5     # SIGTERM once the step-5 record is written
 # the card's training is not bitwise run to run (scripts/
@@ -2116,11 +2597,12 @@ def _zero_counts(kernels):
         k.launches = k.bwd_launches = 0
 
 
-def dp_parity_rank(dev, cfg, state, batch, iters):
+def dp_parity_rank(dev, cfg, state, batch, iters, policy_cfg):
     """One rank of dp_parity (a process chip_smoke.py spawns and joins to
     the group): its slice of ``batch`` through the data-parallel loss and
-    gradients (B1 launches counted), then two data-parallel steps from
-    rank 0's broadcast state."""
+    gradients (B1 launches counted) under ``cfg`` and under
+    ``policy_cfg``, then two data-parallel steps from rank 0's broadcast
+    state under ``cfg``."""
     import torch
     import torch.distributed as dist
     from raft_stereo_tpu_torch.config import TrainConfig
@@ -2137,16 +2619,25 @@ def dp_parity_rank(dev, cfg, state, batch, iters):
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels = _rank_kernels()
     mesh = global_mesh(device=dev)
+    sl = process_batch_slice(len(batch["image1"]))
+    local = {k: v[sl] for k, v in batch.items()}
+    runs = []
+    for c in (cfg, policy_cfg):
+        model = RAFTStereo(c)
+        model.load_state_dict(state, strict=True)
+        model.to(dev)
+        _zero_counts(kernels)
+        loss, _, grads = loss_and_grads(model, local, iters,
+                                        group=mesh.group)
+        grads, _ = all_reduce_grads(grads, mesh.group)
+        torch.cuda.synchronize()
+        runs.append(dict(loss=float(loss), counts=[
+            (k.launches, k.bwd_launches) for k in kernels],
+            grads_digest=_digest(grads),
+            grads=[g.cpu() for g in grads] if mesh.rank == 0 else None))
     model = RAFTStereo(cfg)
     model.load_state_dict(state, strict=True)
     model.to(dev)
-    sl = process_batch_slice(len(batch["image1"]))
-    local = {k: v[sl] for k, v in batch.items()}
-    _zero_counts(kernels)
-    loss, _, grads = loss_and_grads(model, local, iters, group=mesh.group)
-    grads, _ = all_reduce_grads(grads, mesh.group)
-    torch.cuda.synchronize()
-    counts = [(k.launches, k.bwd_launches) for k in kernels]
     opt = fetch_optimizer(TrainConfig(num_steps=100, lr=1e-4,
                                       batch_size=len(batch["image1"])),
                           model.parameters())
@@ -2157,9 +2648,7 @@ def dp_parity_rank(dev, cfg, state, batch, iters):
         state_, m = step(state_, local)
         losses.append(float(m["loss"]))
     return dict(rank=mesh.rank, backend=dist.get_backend(), device=str(dev),
-                loss=float(loss), counts=counts, grads_digest=_digest(grads),
-                grads=[g.cpu() for g in grads] if mesh.rank == 0 else None,
-                step_losses=losses,
+                **runs[0], policy=runs[1], step_losses=losses,
                 params_digest=_digest(model.parameters()),
                 moments_digest=_digest([t for p in model.parameters() for t in
                                         (opt.adamw.state[p]["exp_avg"],
@@ -2169,70 +2658,92 @@ def dp_parity_rank(dev, cfg, state, batch, iters):
 def run_dp_parity(dev, default_state):
     """dp_parity: the default architecture (fp32, reg_cuda) at 64x160, 2
     iterations, global batch 4 split 2 + 2 over two ranks sharing the
-    card (gloo by the backend rule): the reduced gradients against the
-    one-process gradients of the concatenated batch on the card (the loss
-    within TRAIN_LOSS_TOL relative, the gradients under check_grad_parity
-    over NULL_RUNS card null runs), (4, 2) B1 launches a rank and none of
-    the other kernels', the two ranks' gradients and, after two steps,
-    their parameters and AdamW moments bitwise equal."""
+    card (gloo by the backend rule), under the recipe's full
+    per-iteration recompute (refinement_save_policy=False): the reduced
+    gradients against the one-process gradients of the concatenated batch
+    on the card (the loss within TRAIN_LOSS_TOL relative, the gradients
+    under check_grad_parity over NULL_RUNS card null runs), (4, 2) B1
+    launches a rank and none of the other kernels', the two ranks'
+    gradients and, after two steps, their parameters and AdamW moments
+    bitwise equal. Then the same reduced gradients under the auto save
+    policy, which engages at this size ((2, 2) launches a rank: the
+    lookups replayed), against its own one-process gradients and null
+    runs."""
     import torch
     from raft_stereo_tpu_torch.config import RAFTStereoConfig
     from raft_stereo_tpu_torch.models import RAFTStereo
     from raft_stereo_tpu_torch.parallel.distributed import launch
     from raft_stereo_tpu_torch.training.state import loss_and_grads
-    cfg = RAFTStereoConfig(corr_implementation="reg_cuda")
+    cfg = RAFTStereoConfig(corr_implementation="reg_cuda",
+                           refinement_save_policy=False)
+    policy_cfg = RAFTStereoConfig(corr_implementation="reg_cuda")
     batch = train_batch(DP_PARITY_BATCH, *DP_PARITY_HW, SEED + 5, "cpu",
                         max_disp=16.0)
     t0 = time.perf_counter()
     ranks = launch(dp_parity_rank, DP_RANKS, cfg, default_state, batch,
-                   DP_PARITY_ITERS)
+                   DP_PARITY_ITERS, policy_cfg)
     ranks_s = time.perf_counter() - t0
-    model = RAFTStereo(cfg)
-    model.load_state_dict(default_state, strict=True)
-    names = [n for n, _ in model.named_parameters()]
-    one_loss, _, one = loss_and_grads(model.to(dev), batch, DP_PARITY_ITERS)
-    one = [g.cpu() for g in one]
-    nulls = []
-    for i in range(NULL_RUNS):
-        other = perturbed_copy(model.cpu(), NULL_PERTURBATION, SEED + 40 + i)
-        nulls.append([g.cpu() for g in loss_and_grads(
-            other.to(dev), batch, DP_PARITY_ITERS)[2]])
-        del other
-    gate = check_grad_parity(names, ranks[0]["grads"], one, nulls)
-    loss_dev = abs(ranks[0]["loss"] - float(one_loss)) / abs(float(one_loss))
-    want = (2 * DP_PARITY_ITERS, DP_PARITY_ITERS)
+
+    def one_process(c, rank_runs):
+        model = RAFTStereo(c)
+        model.load_state_dict(default_state, strict=True)
+        names = [n for n, _ in model.named_parameters()]
+        one_loss, _, one = loss_and_grads(model.to(dev), batch,
+                                          DP_PARITY_ITERS)
+        one = [g.cpu() for g in one]
+        nulls = []
+        for i in range(NULL_RUNS):
+            other = perturbed_copy(model.cpu(), NULL_PERTURBATION,
+                                   SEED + 40 + i)
+            nulls.append([g.cpu() for g in loss_and_grads(
+                other.to(dev), batch, DP_PARITY_ITERS)[2]])
+            del other
+        gate = check_grad_parity(names, rank_runs[0]["grads"], one, nulls)
+        loss_dev = (abs(rank_runs[0]["loss"] - float(one_loss))
+                    / abs(float(one_loss)))
+        return dict(
+            loss_dp=rank_runs[0]["loss"], loss_one_process=float(one_loss),
+            loss_rel_dev=loss_dev,
+            launches_per_rank=[r["counts"][0] for r in rank_runs],
+            others_per_rank=[r["counts"][1:] for r in rank_runs],
+            grads_bitwise_across_ranks=rank_runs[0]["grads_digest"]
+            == rank_runs[1]["grads_digest"],
+            **{k: v for k, v in gate.items() if k != "ok"},
+            grads_ok=gate["ok"])
+    full = one_process(cfg, ranks)
+    policy = one_process(policy_cfg, [r["policy"] for r in ranks])
     result = dict(
-        config="default + reg_cuda, fp32", ranks=list(DP_RANKS),
+        config="default + reg_cuda, fp32, refinement_save_policy=False",
+        ranks=list(DP_RANKS),
         backends=[r["backend"] for r in ranks], image_size=list(DP_PARITY_HW),
         batch=[DP_PARITY_BATCH // 2] * 2, iters=DP_PARITY_ITERS,
-        loss_dp=ranks[0]["loss"], loss_one_process=float(one_loss),
-        loss_rel_dev=loss_dev, loss_bound=TRAIN_LOSS_TOL,
-        launches_per_rank=[r["counts"][0] for r in ranks],
-        others_per_rank=[r["counts"][1:] for r in ranks],
-        grads_bitwise_across_ranks=ranks[0]["grads_digest"]
-        == ranks[1]["grads_digest"],
+        loss_bound=TRAIN_LOSS_TOL, **full,
         params_bitwise_after_2_steps=ranks[0]["params_digest"]
         == ranks[1]["params_digest"],
         moments_bitwise_after_2_steps=ranks[0]["moments_digest"]
         == ranks[1]["moments_digest"],
         step_losses=[r["step_losses"] for r in ranks], ranks_wall_s=ranks_s,
-        null_runs=NULL_RUNS, **{k: v for k, v in gate.items() if k != "ok"},
-        grads_ok=gate["ok"])
+        null_runs=NULL_RUNS,
+        auto_save_policy=dict(config="default + reg_cuda, fp32", **policy))
     emit("dp_parity", **result)
     check(result["backends"] == ["gloo", "gloo"],
           f"dp_parity: two ranks on one card took {result['backends']}")
-    check(all(tuple(c) == want for c in result["launches_per_rank"])
-          and not any(c != (0, 0) for o in result["others_per_rank"]
-                      for c in o),
-          f"dp_parity: launches {result['launches_per_rank']}, others "
-          f"{result['others_per_rank']}, expected {want} of B1 a rank")
-    check(loss_dev <= TRAIN_LOSS_TOL,
-          f"dp_parity: 2-rank loss {ranks[0]['loss']} vs one process "
-          f"{float(one_loss)}: {loss_dev} relative")
-    check(gate["ok"], f"dp_parity: 2-rank gradients beyond the null floor: "
-                      f"{gate}")
-    check(result["grads_bitwise_across_ranks"]
-          and result["params_bitwise_after_2_steps"]
+    for label, run, want in (("full recompute", full, (4, 2)),
+                             ("auto save policy", policy, (2, 2))):
+        check(all(tuple(c) == want for c in run["launches_per_rank"])
+              and not any(c != (0, 0) for o in run["others_per_rank"]
+                          for c in o),
+              f"dp_parity ({label}): launches {run['launches_per_rank']}, "
+              f"others {run['others_per_rank']}, expected {want} of B1 a "
+              f"rank")
+        check(run["loss_rel_dev"] <= TRAIN_LOSS_TOL,
+              f"dp_parity ({label}): 2-rank loss {run['loss_dp']} vs one "
+              f"process {run['loss_one_process']}")
+        check(run["grads_ok"], f"dp_parity ({label}): 2-rank gradients "
+                               f"beyond the null floor: {run}")
+        check(run["grads_bitwise_across_ranks"],
+              f"dp_parity ({label}): the ranks' gradients differ")
+    check(result["params_bitwise_after_2_steps"]
           and result["moments_bitwise_after_2_steps"]
           and ranks[0]["step_losses"] == ranks[1]["step_losses"],
           "dp_parity: the replicas differ")
@@ -2311,13 +2822,16 @@ def run_dp_train(train):
     """dp_train: the SceneFlow recipe at full width as two ranks sharing
     the card (gloo), global batch 8 split 4 + 4: per rank ms/step (median
     of TRAIN_STEPS after a warm-up), the gradients' all-reduce ms (alone,
-    median of DP_ALLREDUCE_RUNS), peak memory; (44, 22) B1 launches a
+    median of DP_ALLREDUCE_RUNS), peak memory; (22, 22) B1 launches a
     rank a step and no other kernel's; finite equal losses and the
     replicas bitwise equal. Two ranks share one card here: no scaling
     figure is drawn from it."""
     from raft_stereo_tpu_torch.parallel.distributed import launch
+    from raft_stereo_tpu_torch.config import sceneflow_config
     ranks = launch(dp_train_rank, DP_RANKS, SEED, TRAIN_STEPS)
-    want = (44, 22)
+    mcfg, tcfg = sceneflow_config()
+    # batch 4 a rank: the auto save policy keeps the lookups
+    want = (tcfg.train_iters, tcfg.train_iters)
     ms = [statistics.median(r["ms_per_step"]) for r in ranks]
     result = dict(
         config="sceneflow_config() + reg_cuda, bf16", ranks=list(DP_RANKS),
@@ -2378,7 +2892,7 @@ def run_dp_trainer(tree, work):
     rank 0 (its records; none of rank 1's); each rank's events.jsonl
     valid with its coords and the gloo backend on run_start; equal losses
     on both ranks; the restored step's loss the uninterrupted run's
-    bitwise; (44, 22) B1 launches a step a rank; no process left."""
+    bitwise; (22, 22) B1 launches a step a rank; no process left."""
     from raft_stereo_tpu_torch.parallel.distributed import launch
     root = os.path.join(work, "dp_trainer")
     mcfg, tcfg = recipe_config(tree, root, "dp", heartbeat_every_s=0)
@@ -2443,7 +2957,9 @@ def run_dp_trainer(tree, work):
           f"dp_trainer: the restored step's loss "
           f"{result['restored_step_loss']} is not the uninterrupted "
           f"run's {result['uninterrupted_step_loss']}")
-    check(result["launches_per_step_per_rank"] == [(44.0, 22.0)]
+    # batch 4 a rank: the auto save policy keeps the lookups
+    want = (float(tcfg.train_iters), float(tcfg.train_iters))
+    check(result["launches_per_step_per_rank"] == [want]
           and not any(c != (0, 0) for o in result["others"] for c in o),
           f"dp_trainer: launches {result['launches_per_step_per_rank']}, "
           f"others {result['others']}")
@@ -3492,7 +4008,7 @@ POLICY_MAX_BUDGET = 16       # adaptive_eval picks the smallest τ (of the
                              # budget is at most this
 TAP_CPU_TOL = 1e-3           # numerics_eval: card vs CPU tap statistics,
                              # |diff| <= this x max(1, |CPU value|)
-NUMERICS_PROFILED = 4        # frames profiled a predictor in numerics_eval
+NUMERICS_PROFILED = 2        # frames profiled a predictor in numerics_eval
 
 
 def oracle_taken(res, tau, min_iters=1):
@@ -4340,20 +4856,27 @@ def main():
     # 10. one fp32 training step, card against CPU, same weights: reg_cuda
     # with the card's convolutions in cuDNN (the main path's) and outside
     # it, alt_cuda in cuDNN
+    # the recipe's full per-iteration recompute pinned (the auto save
+    # policy would keep the lookups at this size), then reg_cuda under
+    # the auto policy, engaged here: the lookups replayed, not relaunched
+    full = {"refinement_save_policy": False}
     for impl, kernel, modes, size, launches, extra in (
             ("reg_cuda", windowed_sample, (("cudnn", True),
                                            ("cudnn_off", False)),
-             (64, 160), (4, 2), {}),
+             (64, 160), (4, 2), full),
             ("alt_cuda", fused_corr, (("cudnn", True),), (64, 160), (4, 8),
-             {}),
+             full),
             ("alt_pallas", alt_corr, (("cudnn", True),), (64, 160), (4, 8),
-             {}),
+             full),
             ("reg_cuda", fused_lookup_c1, (("cudnn", True),), (64, 352),
-             (4, 2), {"fused_lookup": True})):
+             (4, 2), dict(full, fused_lookup=True)),
+            ("reg_cuda", windowed_sample, (("cudnn", True),), (64, 160),
+             (2, 2), {"refinement_save_policy": None})):
         runs = train_cpu_parity(dev, impl, kernel, default_state, modes,
                                 size, launches, **extra)
         emit("train_cpu_parity", impl=impl, kernel=kernel.__name__,
              shape=list(size), iters=2, launches=list(launches),
+             fields=extra,
              loss_bound=TRAIN_LOSS_TOL, null_perturbation=NULL_PERTURBATION,
              null_runs=NULL_RUNS, **runs)
         for label, run in runs.items():
@@ -4362,6 +4885,12 @@ def main():
                   f"{run['loss_rel_dev']} relative")
             check(run["ok"], f"card ({impl}, {label}) vs CPU gradients "
                              f"beyond the null floor: {run}")
+
+    # 10'. the training step's schedules at the recipe (B1), and the
+    # batched-weight-gradient backward through B2, B3 and B4
+    torch.cuda.empty_cache()
+    schedules = run_train_schedules(dev, all_kernels, windowed_sample)
+    schedules_kernels = run_train_schedules_kernels(dev, all_kernels)
 
     # 10a. data parallel: two ranks sharing the card (gloo), the step against
     # the one-process step, then the recipe at full width
@@ -4607,6 +5136,8 @@ def main():
         "launches_dp_train_per_rank_step":
         dp_train["launches_per_rank_step"][0][0],
         "launches_dp_parity_per_rank": dp_parity["launches_per_rank"][0][0],
+        "launches_dp_parity_auto_policy_per_rank":
+        dp_parity["auto_save_policy"]["launches_per_rank"][0][0],
         "launches_dp_trainer_per_rank_step":
         dp_trainer["launches_per_step_per_rank"][0][0],
         "launches_eval_kitti_per_frame": eval_kitti["launches_per_frame"],
@@ -4623,6 +5154,8 @@ def main():
         "adaptive_eval_policy_budget": adaptive_eval["policy_budget"],
         "launches_serve_adaptive_per_dispatch":
         serve_adaptive["launches_per_dispatch"],
+        "launches_train_schedules": {
+            n: r["launches"][0][0] for n, r in schedules.items()},
         "max_abs_err": max(max_err, ws_err["fwd"]),
         "ms": ws_fwd["ms"], "plain_ms": ws_fwd["plain_ms"],
         "bound_ms": ws_fwd["bound_ms"], "bound_by": ws_fwd["bound_by"],
@@ -4650,8 +5183,12 @@ def main():
         "launches_dp_train_per_rank_step":
         dp_train["launches_per_rank_step"][0][1],
         "launches_dp_parity_per_rank": dp_parity["launches_per_rank"][0][1],
+        "launches_dp_parity_auto_policy_per_rank":
+        dp_parity["auto_save_policy"]["launches_per_rank"][0][1],
         "launches_dp_trainer_per_rank_step":
         dp_trainer["launches_per_step_per_rank"][0][1],
+        "launches_train_schedules": {
+            n: r["launches"][0][1] for n, r in schedules.items()},
         "max_abs_err": max(bwd_err, ws_err["dvol"], ws_err["dcoords"]),
         "ms": ws_bwd["ms"], "plain_ms": ws_bwd["plain_ms"],
         "bound_ms": ws_bwd["bound_ms"], "bound_by": ws_bwd["bound_by"],
@@ -4684,6 +5221,8 @@ def main():
     } for which, suffix, replaces, launches, extra, rows, timed_at in (
         ("fwd", "", fc.REPLACES, hires["launches"],
          {"launches_train_step": train_fused["launches_fwd"],
+          "launches_train_step_batched_scan_wgrad": schedules_kernels[
+              "alt_cuda"]["batched_scan_wgrad"]["launches"][1][0],
           "launches_trainer_per_step":
           trainer_fused["launches_per_step"][0][0],
           "launches_eval_middlebury": eval_mb["launches"][
@@ -4700,7 +5239,9 @@ def main():
          "L2 flushed"),
         ("bwd", "_bwd", fc.REPLACES_BWD, train_fused["launches_bwd"],
          {"launches_trainer_per_step":
-          trainer_fused["launches_per_step"][0][1]},
+          trainer_fused["launches_per_step"][0][1],
+          "launches_train_step_batched_scan_wgrad": schedules_kernels[
+              "alt_cuda"]["batched_scan_wgrad"]["launches"][1][1]},
          fused_rows["bwd"], "mean per launch over the train_fused step's 4 "
          "levels (8,80,180,{180,90,45,22},256) bf16 on random centers, L2 "
          "flushed"))] + [{
@@ -4722,6 +5263,8 @@ def main():
     } for which, suffix, replaces, launches, extra, rows, timed_at in (
         ("fwd", "", ac.REPLACES, main["alt_pallas"]["launches"],
          {"launches_train_step": train_alt["launches_fwd"],
+          "launches_train_step_batched_scan_wgrad": schedules_kernels[
+              "alt_pallas"]["batched_scan_wgrad"]["launches"][2][0],
           "ms_levels_one_each": [r["ms"] for r in rnd(
               alt_rows["fwd_level"])],
           "ms_train": rnd(alt_rows["fwd_train"])[0]["ms"],
@@ -4733,7 +5276,9 @@ def main():
          alt_rows["fwd"], "per launch: one launch for the alt_pallas "
          "frame's 4 levels (1,96,312,{312,156,78,39},256) fp32 on random "
          "centers, L2 flushed"),
-        ("bwd", "_bwd", ac.REPLACES_BWD, train_alt["launches_bwd"], {},
+        ("bwd", "_bwd", ac.REPLACES_BWD, train_alt["launches_bwd"],
+         {"launches_train_step_batched_scan_wgrad": schedules_kernels[
+             "alt_pallas"]["batched_scan_wgrad"]["launches"][2][1]},
          alt_rows["bwd"], "mean per launch over the train_alt step's 4 "
          "levels (8,80,180,{180,90,45,22},256) bf16 on random centers, L2 "
          "flushed"))] + [{
@@ -4754,6 +5299,8 @@ def main():
           "launches_adaptive_eval_per_frame":
           adaptive_eval["launches_per_frame"][fused_lookup_c1.__name__],
           "launches_train_step": train_lookup["launches_fwd"],
+          "launches_train_step_batched_scan_wgrad": schedules_kernels[
+              "fused_lookup"]["batched_scan_wgrad"]["launches"][3][0],
           "ms_realtime": lookup_rows["fwd"][1]["ms"],
           "bound_ms_realtime": lookup_rows["fwd"][1]["bound_ms"],
           "ms_train": lookup_rows["fwd"][2]["ms"],
@@ -4762,7 +5309,10 @@ def main():
          "default frame's pyramid (1,96,312,{312,156,78,39}) fp32, L2 "
          "flushed"),
         ("_bwd", fl.REPLACES_BWD, train_lookup["launches_bwd"],
-         {"max_rel_err_dk_db": lookup_err["dk_db_rel"]}, lookup_err["dvol"],
+         {"max_rel_err_dk_db": lookup_err["dk_db_rel"],
+          "launches_train_step_batched_scan_wgrad": schedules_kernels[
+              "fused_lookup"]["batched_scan_wgrad"]["launches"][3][1]},
+         lookup_err["dvol"],
          lookup_rows["bwd"][0], "per launch at the train batch's pyramid "
          "(8,80,180,{180,90,45,22}) bf16, L2 flushed"))]}),
         flush=True)

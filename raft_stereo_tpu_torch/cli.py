@@ -4,9 +4,11 @@ The flag surface is the JAX package's (``raft_stereo_tpu/cli.py``
 ``add_model_args``, ``add_train_args``, ``build_train_parser``,
 ``build_eval_parser``, ``build_demo_parser``, ``add_serve_args``,
 ``build_serve_parser`` and ``build_loadtest_parser``) plus ``--device``.
-Flags that only steer training memory or the JAX package's TPU kernels
-(such as ``--fused_block_w``) are accepted so that the same command lines
-parse; test-mode inference does not read them.
+Every flag reaches the config as the JAX package's ``model_config`` maps
+it, except ``--fused_block_w``: the W2 tile of the JAX package's TPU
+kernel, accepted so that the same command lines parse, and read by
+nothing (the CUDA kernels take no tile width). The training-schedule
+flags steer the training forward and backward only.
 ``--corr_implementation alt_cuda`` runs the memoryless ``fused_corr``
 kernels, ``alt_pallas`` the ``alt_corr`` kernels, and ``--fused_lookup on``
 the ``fused_lookup`` kernel.
@@ -64,27 +66,43 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
                         "features); default fp32 for reg and alt, the "
                         "compute dtype for the CUDA kernels' implementations")
     t = parser.add_argument_group(
-        "training and TPU-kernel knobs",
-        "accepted so JAX-package command lines parse; the port reads "
-        "--no_remat (training keeps every iteration's activations) and "
-        "--fused_lookup, and ignores the others")
-    t.add_argument("--no_remat", action="store_true")
+        "training schedules and kernels",
+        "the training step's schedules (what the backward recomputes or "
+        "keeps, and how it accumulates) and the fused lookup kernel; "
+        "--fused_block_w is accepted and read by nothing")
+    t.add_argument("--no_remat", action="store_true",
+                   help="keep every refinement iteration's activations for "
+                        "the backward instead of recomputing them")
     t.add_argument("--fused_block_w", type=int, default=256,
                    help="the JAX package's W2 tile of its TPU 'fused' "
                         "kernel; the port's CUDA kernels take no tile width "
-                        "and ignore it")
+                        "and nothing reads it")
     t.add_argument("--fused_lookup", choices=["auto", "on", "off"],
                    default="auto",
                    help="'on' runs the lookup and the motion encoder's "
                         "convc1 as one fused_lookup CUDA kernel (reg and "
                         "reg_cuda, where the pyramid fits); 'auto' is off")
     t.add_argument("--refinement_save_policy",
-                   choices=["auto", "on", "off", "corr"], default="auto")
+                   choices=["auto", "on", "off", "corr"], default="auto",
+                   help="keep the GRU gate outputs and the looked-up "
+                        "correlation of every iteration across the "
+                        "backward ('on'), the correlation alone ('corr') "
+                        "or nothing ('off'); 'auto' by the size estimate "
+                        "(models/raft_stereo.py refinement_save_policy_fits)")
     t.add_argument("--batched_scan_wgrad", choices=["auto", "on", "off"],
-                   default="auto")
+                   default="auto",
+                   help="'on': the refinement's own backward, each gate "
+                        "conv's weight gradient one contraction after the "
+                        "reverse loop (ops/scan_grad.py); 'auto' is off")
     t.add_argument("--residual_dtype", choices=["float32", "bfloat16"],
-                   default=None)
-    t.add_argument("--no_remat_loss_tail", action="store_true")
+                   default=None,
+                   help="storage dtype of the refinement's saved residuals "
+                        "(hidden states, saves and weight-gradient stacks "
+                        "under --batched_scan_wgrad on; the kept values, "
+                        "rounded through it, under a save policy)")
+    t.add_argument("--no_remat_loss_tail", action="store_true",
+                   help="keep the post-loop upsample's intermediates for "
+                        "the backward instead of recomputing them")
 
 
 def model_config(args: argparse.Namespace) -> RAFTStereoConfig:
@@ -103,6 +121,13 @@ def model_config(args: argparse.Namespace) -> RAFTStereoConfig:
         fused_lookup={"auto": None, "on": True, "off": False}[
             getattr(args, "fused_lookup", "auto")],
         remat_refinement=not getattr(args, "no_remat", False),
+        remat_loss_tail=not getattr(args, "no_remat_loss_tail", False),
+        refinement_save_policy={"auto": None, "on": True, "off": False,
+                                "corr": "corr"}[
+            getattr(args, "refinement_save_policy", "auto")],
+        batched_scan_wgrad={"auto": None, "on": True, "off": False}[
+            getattr(args, "batched_scan_wgrad", "auto")],
+        residual_dtype=getattr(args, "residual_dtype", None),
     )
 
 

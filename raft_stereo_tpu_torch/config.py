@@ -6,15 +6,25 @@ the JAX package's), and the presets. Defaults, validation and the
 ``CORR_ALIASES`` folding are the same, so a reference command line selects
 the same implementation in both packages. What the port does not have yet
 is refused with a ``ValueError`` (corr ``ring``, sequence parallelism):
-the port never substitutes another implementation. The JAX
-package's other architecture knobs (remat modes, save policies, fused
-loss) are not fields here at all; ROADMAP.md queues them.
+the port never substitutes another implementation.
+
+The training schedules (``remat_encoders``, ``refinement_save_policy``,
+``batched_scan_wgrad``, ``residual_dtype``, ``deferred_upsample``,
+``upsample_tile_budget``, ``remat_loss_tail``) are fields with the JAX
+package's defaults, validation and ``R4_BEST_SCHEDULE``. Three JAX fields
+are left out because eager PyTorch has nothing for them to steer, and the
+numbers do not depend on them: ``fused_block_w`` (the W2 tile of the TPU
+``fused`` kernel; the CUDA kernels take no tile width), ``fold_enc_saves``
+(folds W into 128-lane tiles so that the encoders' saved activations are
+not padded on the TPU's vector layout) and ``scan_unroll`` (the unroll
+factor of ``lax.scan``; the port's refinement is a Python loop).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import warnings
+from typing import Optional, Tuple, Union
 
 # Every name the JAX package accepts (the reference's --corr_implementation
 # plugin switch plus the JAX package's kernels).
@@ -59,6 +69,41 @@ class RAFTStereoConfig:
     # Training forward: recompute each refinement iteration in the backward
     # pass (torch.utils.checkpoint) instead of keeping its activations.
     remat_refinement: bool = True
+    # Training: the refinement emits every iteration's low-res flow and
+    # upsampling mask, and one batched convex upsample runs after the loop;
+    # False upsamples inside each iteration (the same numbers).
+    deferred_upsample: bool = True
+    # Training: recompute the encoders in the backward pass. True: each
+    # whole encoder; "blocks": every trunk ResidualBlock (block inputs
+    # saved); "blocks_hires": the trunk blocks that run at the post-stem
+    # resolution (layer1 at the presets), the context encoder saved whole
+    # unless the backbone is shared; "norms": every conv output and norm
+    # statistic saved, the norm/ReLU/add glue recomputed.
+    remat_encoders: Union[bool, str] = False
+    # Training with the fused loss: fp32 working-set budget (bytes) of the
+    # post-loop upsample before it is chunked over the iterations (None:
+    # models/raft_stereo.py _UPSAMPLE_TILE_BUDGET).
+    upsample_tile_budget: Optional[int] = None
+    # Training: recompute the post-loop upsample (and loss) tail in the
+    # backward instead of keeping its fp32 softmax intermediates.
+    remat_loss_tail: bool = True
+    # Training under remat_refinement: keep the GRU gate-conv outputs and
+    # the looked-up correlation of every iteration across the backward
+    # (True), the correlation alone ("corr"), or nothing (False: full
+    # recompute). None picks by the size estimate
+    # models/raft_stereo.py::refinement_save_policy_fits.
+    refinement_save_policy: Union[bool, str, None] = None
+    # Training: one autograd Function around the whole refinement loop
+    # (ops/scan_grad.py) whose backward computes data gradients in one
+    # reverse loop and each gate conv's weight gradient after it, as one
+    # contraction over the (iters*B)-stacked inputs and cotangents. None
+    # (auto) is off.
+    batched_scan_wgrad: Optional[bool] = None
+    # Training: storage dtype of the refinement's saved residuals. Under
+    # batched_scan_wgrad every stacked residual (hidden states, saves,
+    # wgrad stacks; never the coordinates); on the autodiff path the
+    # values a save policy keeps, rounded through it in the forward.
+    residual_dtype: Optional[str] = None
     # The 4-level lookup and the motion encoder's 1x1 convc1 + ReLU as one
     # hand-written fused_lookup CUDA kernel, forward and backward. None
     # (auto) is off, as in the JAX package; True engages it for "reg" and
@@ -93,10 +138,34 @@ class RAFTStereoConfig:
             raise ValueError(f"unknown context_norm {self.context_norm!r}")
         if not 1 <= self.n_gru_layers <= 3:
             raise ValueError("n_gru_layers must be in {1,2,3}")
+        if self.remat_encoders not in (False, True, "blocks", "blocks_hires",
+                                       "norms"):
+            raise ValueError(
+                f"remat_encoders must be False, True, 'blocks', "
+                f"'blocks_hires' or 'norms', got {self.remat_encoders!r}")
+        if self.refinement_save_policy not in (None, False, True, "corr"):
+            raise ValueError(
+                f"refinement_save_policy must be None, False, True or "
+                f"'corr', got {self.refinement_save_policy!r}")
+        if (self.refinement_save_policy not in (None, False)
+                and not self.remat_refinement):
+            warnings.warn(
+                f"refinement_save_policy={self.refinement_save_policy!r} "
+                "has no effect with remat_refinement=False (save policies "
+                "select which residuals the refinement remat keeps); the "
+                "un-rematted scan saves everything anyway")
         if self.corr_storage_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(
                 f"unknown corr_storage_dtype {self.corr_storage_dtype!r}; "
                 "expected None, 'float32' or 'bfloat16'")
+        if self.residual_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(
+                f"unknown residual_dtype {self.residual_dtype!r}; "
+                "expected None, 'float32' or 'bfloat16'")
+        if self.batched_scan_wgrad not in (None, True, False):
+            raise ValueError(
+                f"batched_scan_wgrad must be None (auto), True or False, "
+                f"got {self.batched_scan_wgrad!r}")
         if self.adaptive_mode not in ("masked_scan", "while_loop"):
             raise ValueError(
                 f"adaptive_mode must be 'masked_scan' or 'while_loop', "
@@ -227,6 +296,15 @@ def middlebury_finetune_config() -> Tuple[RAFTStereoConfig, TrainConfig]:
                     spatial_scale=(-0.2, 0.4), saturation_range=(0.0, 1.4),
                     restore_ckpt="models/raftstereo-sceneflow.pth"),
     )
+
+
+# The JAX package's fastest measured SceneFlow-b8 training schedule, keyed by
+# RAFTStereoConfig field names (its fold_enc_saves entry has no field here:
+# the module docstring).
+R4_BEST_SCHEDULE = {
+    "upsample_tile_budget": 2_147_483_648,
+    "remat_loss_tail": False,
+}
 
 
 def realtime_config() -> RAFTStereoConfig:

@@ -4,8 +4,21 @@
 Encoders, the all-pairs correlation pyramid, ``iters`` refinement
 iterations (pyramid lookup -> update block) in a Python loop, and the
 convex upsample: once, of the final iteration, in test mode; of every
-iteration, as one batched upsample after the loop, in train mode (the JAX
-package's deferred-upsample schedule).
+iteration in train mode, as one batched upsample after the loop (the
+default ``deferred_upsample``) or inside each iteration.
+
+Train mode runs the JAX package's training schedules: the encoder remat
+modes (``remat_encoders``), per-iteration recomputation with its save
+policies (``remat_refinement``, ``refinement_save_policy``,
+``residual_dtype``), the batched-weight-gradient backward
+(``batched_scan_wgrad``, ``ops/scan_grad.py``), and the fused loss
+(``flow_gt`` and ``loss_mask`` given: per-iteration masked L1 sums instead
+of the prediction stack, reduced in the loop or after it in tile layout,
+chunked by :func:`upsample_chunk_count`, the tail recomputed in the
+backward under ``remat_loss_tail``). The shape-dependent resolvers
+(:func:`refinement_save_policy_fits`, :func:`upsample_chunk_count`) are
+the JAX package's, with its constants, so that one config resolves to the
+same schedule in both packages.
 
 With ``fused_lookup`` on and a volume-pyramid implementation whose
 pyramid fits (``ops/kernels/fused_lookup.fused_lookup_applicable``), each
@@ -20,24 +33,149 @@ are blended in fp32. The coordinates stay fp32 throughout.
 
 from __future__ import annotations
 
+import functools
+import warnings
 from typing import Optional
 
 import torch
 import torch.nn as nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from raft_stereo_tpu_torch.config import RAFTStereoConfig
-from raft_stereo_tpu_torch.nn.encoder import BasicEncoder, MultiBasicEncoder
+from raft_stereo_tpu_torch.nn.encoder import (BasicEncoder,
+                                              MultiBasicEncoder,
+                                              remat_block_names)
 from raft_stereo_tpu_torch.nn.gru import (BasicMultiUpdateBlock,
                                           numerics_taps, record_numerics_tap)
 from raft_stereo_tpu_torch.nn.layers import Conv, ResidualBlock
-from raft_stereo_tpu_torch.ops.corr import corr_lookup, init_corr
+from raft_stereo_tpu_torch.ops.corr import (corr_lookup, init_corr,
+                                            state_tensors, with_tensors)
 from raft_stereo_tpu_torch.ops.geometry import (convex_upsample_tiles,
                                                 coords_grid,
+                                                image_to_upsample_tiles,
                                                 upsample_disparity_convex,
                                                 upsample_tiles_to_image)
 from raft_stereo_tpu_torch.ops.kernels.fused_lookup import \
     fused_lookup_applicable
+from raft_stereo_tpu_torch.ops.scan_grad import refinement_scan
+
+# fp32 working-set budget of the post-loop batched upsample before the
+# fused loss's tail is chunked over the iterations (a module constant so
+# that tests can force the chunked path at small shapes).
+_UPSAMPLE_TILE_BUDGET = 1024 * 1024 * 1024
+
+
+# ---- shape-dependent schedule selection -----------------------------------
+#
+# The JAX package's resolvers with its constants: a 16 GB TPU v5e's
+# calibration at the SceneFlow recipe's shapes, not the H100's (80 GB).
+# They are copied unchanged so that one config resolves to the same
+# schedule in both packages; recalibrating them for the card is a
+# performance item (ROADMAP.md A9b).
+
+def refinement_save_policy_fits(cfg, iters: int, batch: int, h: int, w: int,
+                                dt, fused_lookup: bool = False,
+                                residual_dtype=None) -> bool:
+    """Whether the auto save policy (``refinement_save_policy=None``)
+    engages: the tagged values (every GRU level's gate outputs, each
+    slow-fast pre-pass's too, and the correlation) of ``iters``
+    iterations at ``batch`` on the ``h x w`` grid (1/factor resolution)
+    take at most 1.5 GB, at 2 bytes a value when the compute dtype ``dt``
+    or ``residual_dtype`` is bf16, else 4. The fused lookup has no
+    correlation tensor to keep."""
+    per_px = 3.0 * cfg.hidden_dims[2] + cfg.corr_channels
+    if cfg.n_gru_layers >= 2:
+        per_px += 3.0 * cfg.hidden_dims[1] / 4
+    if cfg.n_gru_layers == 3:
+        per_px += 3.0 * cfg.hidden_dims[0] / 16
+    if cfg.slow_fast_gru:
+        if cfg.n_gru_layers == 3:
+            per_px += 2 * 3.0 * cfg.hidden_dims[0] / 16
+        if cfg.n_gru_layers >= 2:
+            per_px += 3.0 * cfg.hidden_dims[1] / 4
+    bytes_per = 2 if (dt == torch.bfloat16
+                      or residual_dtype in ("bfloat16", torch.bfloat16)) \
+        else 4
+    saved_bytes = int(iters * batch * h * w * per_px * bytes_per)
+    if fused_lookup:
+        saved_bytes -= iters * batch * h * w * cfg.corr_channels * bytes_per
+    return saved_bytes <= 1_500_000_000
+
+
+def resolve_save_kinds(cfg, iters: int, batch: int, h: int, w: int, dt,
+                       fused_lookup: bool = False) -> frozenset:
+    """The values the training refinement keeps an iteration for its
+    backward (``ops/scan_grad.py``'s ``save_kinds``), as the JAX package's
+    ``_refine`` resolves ``refinement_save_policy`` at this shape: none
+    without ``remat_refinement``; ``{"corr"}`` under ``"corr"``; the gate
+    outputs and the lookup, ``{"zr", "q", "corr"}``, under True, or under
+    None where :func:`refinement_save_policy_fits` holds; no lookup with
+    the fused lookup, whose ``"corr"`` policy warns and keeps nothing
+    (full per-iteration recompute)."""
+    if not cfg.remat_refinement:
+        return frozenset()
+    engage = cfg.refinement_save_policy
+    if engage is None:
+        engage = refinement_save_policy_fits(
+            cfg, iters, batch, h, w, dt, fused_lookup=fused_lookup,
+            residual_dtype=cfg.residual_dtype)
+    if engage == "corr":
+        if fused_lookup:
+            warnings.warn(
+                "refinement_save_policy='corr' has no effect with "
+                "fused_lookup (no corr_feats tensor exists to save); "
+                "using full per-iteration remat")
+            return frozenset()
+        return frozenset({"corr"})
+    if not engage:
+        return frozenset()
+    return frozenset({"zr", "q"} if fused_lookup else {"zr", "q", "corr"})
+
+
+def upsample_chunk_count(it: int, batch: int, hp: int, wp: int, factor: int,
+                         budget: Optional[int] = None) -> int:
+    """Chunks of the fused loss's post-loop upsample over the ``it``
+    iterations: 1 when the ``(it*B, h, w, f, f)`` fp32 working set fits
+    ``budget`` (None: ``_UPSAMPLE_TILE_BUDGET``), else the smallest
+    divisor of ``it`` whose chunk fits, else ``it``."""
+    if budget is None:
+        budget = _UPSAMPLE_TILE_BUDGET
+    tile_bytes = batch * hp * wp * (9 + 2) * factor ** 2 * 4
+    nch = 1
+    if it * tile_bytes > budget:
+        nch = it
+        for cand in range(2, it + 1):
+            if it % cand:
+                continue
+            if (it // cand) * tile_bytes <= budget:
+                nch = cand
+                break
+    return nch
+
+
+# The "norms" encoder schedule keeps these ops' outputs (every conv output
+# and the norms' means and variances) and recomputes the rest.
+_NORMS_SAVED = (torch.ops.aten.convolution.default,
+                torch.ops.aten._slow_conv2d_forward.default,
+                torch.ops.aten.mean.dim)
+
+
+def _norms_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _NORMS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode, *args):
+    """``fn(*args)`` under an encoder remat ``mode``: True recomputes all
+    of it in the backward, ``"norms"`` all but the outputs of
+    ``_NORMS_SAVED``."""
+    if mode == "norms":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _norms_policy))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 class RAFTStereo(nn.Module):
@@ -47,7 +185,9 @@ class RAFTStereo(nn.Module):
     takes uint8-range images ``(B, H, W, 3)`` and returns, in test mode,
     ``(flow_lowres (B, H/f, W/f, 2), flow_up (B, H, W, 1))``; in train mode
     the ``(iters, B, H, W, 1)`` stack of every iteration's upsampled
-    x-flow (negative disparity).
+    x-flow (negative disparity), or, given ``flow_gt`` and ``loss_mask``
+    (the fused loss), ``(err_sums (iters,), flow_up (B, H, W, 1))``: each
+    iteration's masked L1 sum and the final prediction.
 
     ``iter_metrics`` (test mode only) adds the per-iteration mean
     |Δ disparity|, how far each iteration still moves the low-res field
@@ -136,10 +276,9 @@ class RAFTStereo(nn.Module):
             raise ValueError("the test-mode iter-EPE output rides the "
                              "iter_metrics outputs; pass iter_metrics=True "
                              "or 'per_sample'")
-        if flow_gt is not None and not test_mode:
-            raise ValueError("the fused-loss training forward (flow_gt in "
-                             "train mode) is not ported (ROADMAP A9b); the "
-                             "training loss reads the prediction stack")
+        if flow_gt is not None and not test_mode and loss_mask is None:
+            raise ValueError("the fused-loss path needs both flow_gt and "
+                             "loss_mask (see training.loss.loss_mask)")
         if numerics and not test_mode:
             raise ValueError("the numerics taps are a test-mode output; "
                              "the training side is the per-leaf gradient "
@@ -164,14 +303,7 @@ class RAFTStereo(nn.Module):
         image1 = 2.0 * (image1.float() / 255.0) - 1.0
         image2 = 2.0 * (image2.float() / 255.0) - 1.0
 
-        if cfg.shared_backbone:
-            *cnet_list, trunk = self.cnet(torch.cat([image1, image2], 0),
-                                          dual_inp=True)
-            fmap1, fmap2 = self.conv2(trunk).chunk(2, dim=0)
-        else:
-            cnet_list = self.cnet(image1)
-            fmap1, fmap2 = self.fnet(
-                torch.cat([image1, image2], 0)).chunk(2, dim=0)
+        cnet_list, fmap1, fmap2 = self._encode(image1, image2)
 
         net_list = [torch.tanh(x[0]) for x in cnet_list]
         # context gate biases (cz, cr, cq), computed once outside the loop
@@ -194,7 +326,8 @@ class RAFTStereo(nn.Module):
         fused = self.uses_fused_lookup(corr_state)
         if not test_mode:
             return self._train_refine(net_list, inp_list, corr_state,
-                                      coords0, coords1, iters, fused)
+                                      coords0, coords1, iters, fused,
+                                      flow_gt, loss_mask)
         per_sample = iter_metrics == "per_sample"
         iter_epe = None
         if flow_gt is not None:
@@ -241,6 +374,37 @@ class RAFTStereo(nn.Module):
             ret += ({k: torch.stack([t[k] for t in taps])
                      for k in taps[-1]},)
         return ret
+
+    def _encode(self, image1, image2):
+        """The encoders, under ``cfg.remat_encoders`` while autograd
+        records (JAX ``__call__``'s ``_cnet_fwd``/``_fnet_fwd``): True or
+        ``"norms"`` around each whole encoder, ``"blocks"`` and
+        ``"blocks_hires"`` around the trunk blocks of
+        :func:`remat_block_names` (the context encoder saved whole under
+        ``"blocks_hires"`` unless the backbone is shared). Returns
+        ``(cnet_list, fmap1, fmap2)``."""
+        cfg = self.cfg
+        mode = cfg.remat_encoders if torch.is_grad_enabled() else False
+        blocks = remat_block_names(mode, cfg.n_downsample)
+        cnet_blocks = blocks
+        if mode == "blocks_hires" and not cfg.shared_backbone:
+            cnet_blocks = frozenset()
+        whole = mode in (True, "norms")
+
+        def run(fn, *args):
+            return _remat(fn, mode, *args) if whole else fn(*args)
+        if cfg.shared_backbone:
+            *cnet_list, trunk = run(
+                lambda x: self.cnet(x, dual_inp=True, remat=cnet_blocks),
+                torch.cat([image1, image2], 0))
+            fmap1, fmap2 = self.conv2(trunk).chunk(2, dim=0)
+        else:
+            cnet_list = run(lambda x: self.cnet(x, remat=cnet_blocks),
+                            image1)
+            fmap1, fmap2 = run(lambda x: self.fnet(x, remat=blocks),
+                               torch.cat([image1, image2], 0)
+                               ).chunk(2, dim=0)
+        return cnet_list, fmap1, fmap2
 
     def _iter_epe(self, flow_gt, loss_mask, coords0, per_sample):
         """The per-iteration low-res EPE proxy: the full-resolution GT
@@ -343,12 +507,14 @@ class RAFTStereo(nn.Module):
         return ret + (taken,)
 
     def _iteration(self, net_list, inp_list, corr_state, coords0, coords1,
-                   compute_mask: bool, fused: bool = False):
+                   compute_mask: bool, fused: bool = False, tap=None):
         """One refinement iteration: lookup at the (detached) coordinates,
         the update block, the epipolar coordinate update. Returns
         ``(net_list, coords1, mask)``; ``mask`` is None unless
         ``compute_mask``. With ``fused`` the lookup happens inside the
-        motion encoder's fused kernel."""
+        motion encoder's fused kernel. ``tap`` (``ops/scan_grad.py``)
+        computes the lookup and the gate convs, per update-block
+        application (``pre32``, ``pre16``, ``main``)."""
         cfg = self.cfg
         dt = self.compute_dtype
         block = self.update_block
@@ -358,20 +524,26 @@ class RAFTStereo(nn.Module):
             corr = None
             fused_args = dict(corr_state=corr_state,
                               coords_x=coords1[..., 0].contiguous())
+        elif tap is not None:
+            corr = tap.corr_site(corr_state, coords1, dt)
+            fused_args = {}
         else:
             corr = corr_lookup(corr_state, coords1).to(dt)
             record_numerics_tap(corr, "corr_feats")
             fused_args = {}
+
+        def scope(prefix):
+            return None if tap is None else tap.scoped(prefix)
         flow = (coords1 - coords0).to(dt)
         if cfg.slow_fast_gru and n == 3:
             net_list = block(net_list, inp_list, iter32=True, iter16=False,
-                             iter08=False, update=False)
+                             iter08=False, update=False, tap=scope("pre32"))
         if cfg.slow_fast_gru and n >= 2:
             net_list = block(net_list, inp_list, iter32=n == 3, iter16=True,
-                             iter08=False, update=False)
+                             iter08=False, update=False, tap=scope("pre16"))
         net_list, mask, delta_flow = block(
             net_list, inp_list, corr, flow, iter32=n == 3, iter16=n >= 2,
-            compute_mask=compute_mask, **fused_args)
+            compute_mask=compute_mask, tap=scope("main"), **fused_args)
         # stereo: project the update onto the epipolar line (the JAX
         # package's flow head computes the x channel alone, so its
         # delta_flow tap sees this tensor)
@@ -381,45 +553,153 @@ class RAFTStereo(nn.Module):
         return net_list, coords1 + delta, mask
 
     def _train_refine(self, net_list, inp_list, corr_state, coords0,
-                      coords1, iters, fused: bool = False):
-        """Every iteration computes its upsampling mask; the low-res flows
-        and masks are stacked and upsampled together after the loop (the
-        JAX package's deferred schedule: the same numbers as upsampling
-        inside each iteration) in a ``torch.utils.checkpoint`` region, so
-        its fp32 softmax intermediates are recomputed in the backward
-        rather than kept (JAX ``remat_loss_tail``). Under
-        ``remat_refinement`` each iteration is such a region too (the
-        counterpart of ``nn.remat(RefinementStep)``)."""
+                      coords1, iters, fused: bool = False, flow_gt=None,
+                      loss_mask=None):
+        """The training refinement (JAX ``_refine``'s train branches).
+
+        Every iteration computes its upsampling mask. Under
+        ``deferred_upsample`` it emits its low-res flow and mask and one
+        batched upsample runs after the loop; otherwise each iteration
+        upsamples its own. The stacked predictions ``(iters, B, H, W, 1)``
+        are returned, or with ``flow_gt``/``loss_mask`` (the fused loss)
+        ``(err_sums (iters,), final flow_up (B, H, W, 1))``: each
+        iteration's masked L1 sum, reduced in the loop (non-deferred) or
+        after it in tile layout, over ``upsample_chunk_count`` chunks.
+        ``remat_loss_tail`` recomputes the post-loop tail in the
+        backward.
+
+        The iterations run under one of three schedules:
+        ``batched_scan_wgrad`` (``ops/scan_grad.py``, the whole loop as one
+        ``refinement_scan``); under ``remat_refinement`` each iteration as
+        ``refinement_scan(..., length=1, batched=False)``, keeping what
+        :func:`resolve_save_kinds` names (nothing: full per-iteration
+        recompute, the counterpart of ``nn.remat(RefinementStep)``); or
+        with nothing recomputed."""
         cfg = self.cfg
+        dt = self.compute_dtype
         n = len(net_list)
+        loss = flow_gt is not None
+        deferred = cfg.deferred_upsample
+        b, h, w = coords0.shape[:3]
+        rd = (getattr(torch, cfg.residual_dtype)
+              if cfg.residual_dtype is not None else None)
+        kinds = resolve_save_kinds(cfg, iters, b, h, w, dt,
+                                   fused_lookup=fused)
 
-        def step(coords, *nets):
+        # the iteration-invariant tensors, flat: coords0, the context
+        # biases, the correlation state, then the loss's gt and mask
+        inp_flat = [t for triple in inp_list for t in triple]
+        state_t = list(state_tensors(corr_state))
+        gt = lm = None
+        if loss:
+            gt, lm = flow_gt.float(), loss_mask.float()
+        bcast = [coords0, *inp_flat, *state_t] + ([gt, lm] if loss else [])
+        n_inp, n_state = len(inp_flat), len(state_t)
+
+        def body(tap, coords, nets, bc):
+            c0 = bc[0]
+            inp = [tuple(bc[1 + 3 * i:4 + 3 * i]) for i in range(n)]
+            state = with_tensors(corr_state,
+                                 bc[1 + n_inp:1 + n_inp + n_state])
             nets, coords, mask = self._iteration(
-                list(nets), inp_list, corr_state, coords0, coords,
-                compute_mask=True, fused=fused)
-            return (coords, mask, *nets)
+                list(nets), inp, state, c0, coords, compute_mask=True,
+                fused=fused, tap=tap)
+            if deferred:
+                return coords, nets, (), ((coords - c0)[..., :1], mask)
+            flow_up = upsample_disparity_convex(coords - c0, mask.float(),
+                                                cfg.factor)
+            if not loss:
+                return coords, nets, (), (flow_up,)
+            err = torch.abs(flow_up.float() - bc[-2])
+            err_sum = torch.where(bc[-1] > 0, err,
+                                  torch.zeros((), device=err.device)).sum()
+            return coords, nets, (flow_up,), (err_sum,)
 
-        lowres, masks = [], []
-        for _ in range(iters):
-            if cfg.remat_refinement:
-                out = checkpoint(step, coords1, *net_list,
-                                 use_reentrant=False)
-            else:
-                out = step(coords1, *net_list)
-            coords1, mask, net_list = out[0], out[1], list(out[2:2 + n])
-            lowres.append((coords1 - coords0)[..., :1])
-            masks.append(mask)
+        n_extra = int(loss and not deferred)
+        params = list(self.update_block.parameters())
+        if cfg.batched_scan_wgrad:
+            coords1, net_list, extra, ys = refinement_scan(
+                body, coords1, net_list, bcast, params, length=iters,
+                n_extra=n_extra, save_kinds=kinds, residual_dtype=rd)
+        else:
+            per_iter = []
+            extra = ()
+            for _ in range(iters):
+                if cfg.remat_refinement:
+                    coords1, net_list, extra, y = refinement_scan(
+                        body, coords1, net_list, bcast, params, length=1,
+                        n_extra=n_extra, save_kinds=kinds,
+                        residual_dtype=rd, batched=False)
+                    y = [v[0] for v in y]
+                else:
+                    coords1, net_list, extra, y = body(None, coords1,
+                                                       net_list, bcast)
+                    net_list = list(net_list)
+                per_iter.append(y)
+            ys = [torch.stack([y[j] for y in per_iter])
+                  for j in range(len(per_iter[0]))]
+
+        if not deferred:
+            return (ys[0], extra[0]) if loss else ys[0]
+        lowres, masks = ys
+        return (self._loss_tail(lowres, masks, gt, lm) if loss
+                else self._upsample_tail(lowres, masks))
+
+    def _upsample_tail(self, lowres, masks):
+        """The deferred schedule's stacked predictions: one batched convex
+        upsample of every iteration, in a checkpoint region under
+        ``remat_loss_tail`` (its fp32 softmax intermediates recomputed in
+        the backward rather than kept)."""
+        factor = self.cfg.factor
 
         def upsample_stack(lr, mk):
             it, b, h, w = lr.shape[:4]
             tiles = convex_upsample_tiles(
                 lr.reshape(it * b, h, w, 1).float(),
-                mk.reshape(it * b, h, w, -1).float(), cfg.factor)
+                mk.reshape(it * b, h, w, -1).float(), factor)
             up = upsample_tiles_to_image(tiles)
-            return up.reshape(it, b, h * cfg.factor, w * cfg.factor, 1)
+            return up.reshape(it, b, h * factor, w * factor, 1)
 
-        return checkpoint(upsample_stack, torch.stack(lowres),
-                          torch.stack(masks), use_reentrant=False)
+        if self.cfg.remat_loss_tail:
+            return checkpoint(upsample_stack, lowres, masks,
+                              use_reentrant=False)
+        return upsample_stack(lowres, masks)
+
+    def _loss_tail(self, lowres, masks, gt, lm):
+        """The deferred fused loss: each iteration's masked L1 sum against
+        the ground truth in tile layout (the ``(B, H, W)`` gt and mask
+        transposed once), over ``upsample_chunk_count`` chunks of
+        iterations, each chunk in a checkpoint region under
+        ``remat_loss_tail``; and the final iteration's upsampled flow.
+        Returns ``(err_sums (iters,), flow_up (B, H, W, 1))``."""
+        cfg = self.cfg
+        f = cfg.factor
+        it, bb, hp, wp = lowres.shape[:4]
+        gt_t = image_to_upsample_tiles(gt, f)
+        mask_t = image_to_upsample_tiles(lm, f)
+        zero = torch.zeros((), device=gt.device)
+
+        def chunk_err(lr_c, mk_c):
+            itc = lr_c.shape[0]
+            t = convex_upsample_tiles(
+                lr_c.reshape(itc * bb, hp, wp, 1).float(),
+                mk_c.reshape(itc * bb, hp, wp, -1).float(), f)
+            e = torch.abs(t.reshape(itc, bb, hp, wp, f, f) - gt_t[None])
+            e = torch.where(mask_t[None] > 0, e, zero)
+            return e.sum(dim=(1, 2, 3, 4, 5))
+
+        nch = upsample_chunk_count(it, bb, hp, wp, f,
+                                   budget=cfg.upsample_tile_budget)
+        itc = it // nch
+        sums = []
+        for c in range(nch):
+            args = (lowres[c * itc:(c + 1) * itc],
+                    masks[c * itc:(c + 1) * itc])
+            sums.append(checkpoint(chunk_err, *args, use_reentrant=False)
+                        if cfg.remat_loss_tail else chunk_err(*args))
+        final = upsample_tiles_to_image(convex_upsample_tiles(
+            lowres[-1].float(), masks[-1].float(), f))
+        return torch.cat(sums), final
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -5,15 +5,22 @@ The stride pattern follows the reference: the stem strides when
 ``downsample > 0``, so the finest feature scale is ``1/2**downsample``.
 Only the modules a configuration runs are built: no ``layer5``/
 ``outputs32`` below three GRU levels.
+
+``remat`` (a set of trunk block names, :data:`TRUNK_BLOCKS`) recomputes
+those residual blocks in the backward pass (``torch.utils.checkpoint``:
+each block's input is saved, its internals are not): the
+``remat_encoders="blocks"`` and ``"blocks_hires"`` schedules,
+:func:`remat_block_names`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import FrozenSet, Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from raft_stereo_tpu_torch.nn.layers import Conv, ResidualBlock, make_norm
 
@@ -23,6 +30,28 @@ def _stage(in_planes: int, planes: int, norm_fn: str, stride: int,
     return nn.Sequential(
         ResidualBlock(in_planes, planes, norm_fn, stride, dtype),
         ResidualBlock(planes, planes, norm_fn, 1, dtype))
+
+
+TRUNK_BLOCKS = ("layer1_0", "layer1_1", "layer2_0", "layer2_1", "layer3_0",
+                "layer3_1")
+
+
+def remat_block_names(mode, downsample: int) -> FrozenSet[str]:
+    """The trunk blocks a ``remat_encoders`` mode recomputes: every block
+    under ``"blocks"``; under ``"blocks_hires"`` the blocks that run
+    entirely at the post-stem resolution: layer1's, layer2's where layer2
+    does not stride (``downsample <= 1``) and layer3's where neither does
+    (``downsample == 0``). Other modes: none."""
+    if mode == "blocks":
+        return frozenset(TRUNK_BLOCKS)
+    if mode != "blocks_hires":
+        return frozenset()
+    names = {"layer1_0", "layer1_1"}
+    if downsample <= 1:
+        names |= {"layer2_0", "layer2_1"}
+        if downsample == 0:
+            names |= {"layer3_0", "layer3_1"}
+    return frozenset(names)
 
 
 class _Trunk(nn.Module):
@@ -38,9 +67,15 @@ class _Trunk(nn.Module):
         self.layer2 = _stage(64, 96, norm_fn, 1 + (downsample > 1), dtype)
         self.layer3 = _stage(96, 128, norm_fn, 1 + (downsample > 0), dtype)
 
-    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor,
+              remat: FrozenSet[str] = frozenset()) -> torch.Tensor:
         x = F.relu(self.norm1(self.conv1(x)))
-        return self.layer3(self.layer2(self.layer1(x)))
+        for name in TRUNK_BLOCKS:
+            layer, i = name.split("_")
+            block = getattr(self, layer)[int(i)]
+            x = (checkpoint(block, x, use_reentrant=False) if name in remat
+                 else block(x))
+        return x
 
 
 class BasicEncoder(_Trunk):
@@ -52,8 +87,9 @@ class BasicEncoder(_Trunk):
         super().__init__(norm_fn, downsample, dtype)
         self.conv2 = Conv(128, output_dim, 1, 1, 0, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2(self.trunk(x))
+    def forward(self, x: torch.Tensor,
+                remat: FrozenSet[str] = frozenset()) -> torch.Tensor:
+        return self.conv2(self.trunk(x, remat))
 
 
 class MultiBasicEncoder(_Trunk):
@@ -88,8 +124,9 @@ class MultiBasicEncoder(_Trunk):
             self.outputs32 = nn.ModuleList(Conv(128, d[0], 3, 1, 1, dtype)
                                            for d in output_dim)
 
-    def forward(self, x: torch.Tensor, dual_inp: bool = False):
-        x = self.trunk(x)
+    def forward(self, x: torch.Tensor, dual_inp: bool = False,
+                remat: FrozenSet[str] = frozenset()):
+        x = self.trunk(x, remat)
         trunk = x
         if dual_inp:
             x = x[: x.shape[0] // 2]

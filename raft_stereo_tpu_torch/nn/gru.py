@@ -121,7 +121,12 @@ class ConvGRU(nn.Module):
     ``site`` leads its numerics tap labels (``"gru32.zr"``, ``.q``): the
     gate pre-activations with the conv bias, before the context biases;
     ``zr`` is the z and r convs' outputs together, as the JAX package
-    computes them in one conv."""
+    computes them in one conv.
+
+    ``tap`` (the training refinement's, ``ops/scan_grad.py``) computes the
+    two gate sites instead: ``"zr"`` (``convz`` and ``convr`` of ``[h,
+    x]``, their outputs concatenated) and ``"q"`` (``convq`` of ``[r*h,
+    x]``), with the same values."""
 
     def __init__(self, hidden_dim: int, input_dim: int,
                  dtype: Optional[torch.dtype] = None, site: str = "gru"):
@@ -132,16 +137,22 @@ class ConvGRU(nn.Module):
         self.convr = Conv(c, hidden_dim, 3, 1, 1, dtype)
         self.convq = Conv(c, hidden_dim, 3, 1, 1, dtype)
 
-    def forward(self, h, cz, cr, cq, *x_list):
+    def forward(self, h, cz, cr, cq, *x_list, tap=None):
         x = torch.cat(x_list, dim=-1)
         hx = torch.cat([h, x], dim=-1)
-        z, r = self.convz(hx), self.convr(hx)
+        if tap is None:
+            z, r = self.convz(hx), self.convr(hx)
+        else:
+            z, r = tap.gate_conv(self.site, "zr", (self.convz, self.convr),
+                                 hx).chunk(2, dim=-1)
         if taps_armed():
             record_numerics_tap(torch.cat([z, r], dim=-1),
                                 f"{self.site}.zr")
         z = torch.sigmoid(z + cz)
         r = torch.sigmoid(r + cr)
-        q = self.convq(torch.cat([r * h, x], dim=-1))
+        rhx = torch.cat([r * h, x], dim=-1)
+        q = (self.convq(rhx) if tap is None
+             else tap.gate_conv(self.site, "q", (self.convq,), rhx))
         record_numerics_tap(q, f"{self.site}.q")
         q = torch.tanh(q + cq)
         return (1 - z) * h + z * q
@@ -195,7 +206,8 @@ class BasicMultiUpdateBlock(nn.Module):
     levels update in this call; ``update=False`` runs the GRUs only (the
     slow_fast_gru pre-iterations); ``compute_mask=False`` skips the mask
     head (inference needs only the final iteration's mask). ``corr_state``
-    and ``coords_x`` replace ``corr`` on the fused-lookup path.
+    and ``coords_x`` replace ``corr`` on the fused-lookup path. ``tap``
+    goes to every ConvGRU (their gate-conv sites, ``ops/scan_grad.py``).
     """
 
     def __init__(self, cfg: RAFTStereoConfig,
@@ -220,24 +232,25 @@ class BasicMultiUpdateBlock(nn.Module):
     def forward(self, net: Sequence[torch.Tensor], inp, corr=None, flow=None,
                 iter08: bool = True, iter16: bool = True, iter32: bool = True,
                 update: bool = True, compute_mask: bool = True,
-                corr_state=None, coords_x=None):
+                corr_state=None, coords_x=None, tap=None):
         n = self.cfg.n_gru_layers
         net = list(net)
         if iter32:
-            net[2] = self.gru32(net[2], *inp[2], pool2x(net[1]))
+            net[2] = self.gru32(net[2], *inp[2], pool2x(net[1]), tap=tap)
         if iter16:
             if n > 2:
                 net[1] = self.gru16(net[1], *inp[1], pool2x(net[0]),
-                                    interp_to(net[2], net[1]))
+                                    interp_to(net[2], net[1]), tap=tap)
             else:
-                net[1] = self.gru16(net[1], *inp[1], pool2x(net[0]))
+                net[1] = self.gru16(net[1], *inp[1], pool2x(net[0]),
+                                    tap=tap)
         if iter08:
             motion = self.encoder(flow, corr, corr_state, coords_x)
             if n > 1:
                 net[0] = self.gru08(net[0], *inp[0], motion,
-                                    interp_to(net[1], net[0]))
+                                    interp_to(net[1], net[0]), tap=tap)
             else:
-                net[0] = self.gru08(net[0], *inp[0], motion)
+                net[0] = self.gru08(net[0], *inp[0], motion, tap=tap)
 
         if not update:
             return net

@@ -23,6 +23,11 @@ current disparity coordinates. Five implementations are registered:
 
 On CPU tensors the kernels' wrappers take their plain versions; on CUDA
 tensors they launch the kernels or raise.
+
+:func:`corr_lookup_replay` gives a lookup's value from a saved copy while
+its backward still writes the volume's (or the features') gradient,
+without running the lookup's forward again: the refinement's save
+policies use it (``ops/scan_grad.py``).
 """
 
 from __future__ import annotations
@@ -35,11 +40,13 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from raft_stereo_tpu_torch.ops.geometry import pool_last_axis2, pool_w2
-from raft_stereo_tpu_torch.ops.kernels.alt_corr import alt_corr_pyramid
+from raft_stereo_tpu_torch.ops.kernels.alt_corr import (_AltCorrPyramid,
+                                                        alt_corr_pyramid)
 from raft_stereo_tpu_torch.ops.kernels.fused_corr import (MAX_LEVELS,
+                                                          _FusedCorrPyramid,
                                                           fused_corr_pyramid)
-from raft_stereo_tpu_torch.ops.kernels.windowed_sample import \
-    windowed_sample_pyramid
+from raft_stereo_tpu_torch.ops.kernels.windowed_sample import (
+    windowed_sample_pyramid, windowed_sample_pyramid_vjp)
 from raft_stereo_tpu_torch.ops.sampler import windowed_linear_sample
 
 
@@ -190,3 +197,114 @@ def corr_lookup(state: CorrState, coords: torch.Tensor) -> torch.Tensor:
     ``(B, H, W, num_levels*(2r+1))``."""
     coords_x = coords[..., 0].float().contiguous()
     return _LOOKUPS[state.impl](state, coords_x)
+
+
+def state_tensors(state: CorrState) -> Tuple[torch.Tensor, ...]:
+    """The tensors of ``state``: its levels, then ``fmap1`` where it has
+    one."""
+    return state.levels + (() if state.fmap1 is None else (state.fmap1,))
+
+
+def with_tensors(state: CorrState, tensors) -> CorrState:
+    """``state`` holding ``tensors`` (in :func:`state_tensors` order)."""
+    n = len(state.levels)
+    return dataclasses.replace(
+        state, levels=tuple(tensors[:n]),
+        fmap1=tensors[n] if len(tensors) > n else None)
+
+
+def _vjp_by_autograd(state, coords_x, ct, needs):
+    """The plain lookups' gradients: the lookup recomputed with autograd
+    (no kernel runs)."""
+    leaves = [t.detach().requires_grad_(n)
+              for t, n in zip(state_tensors(state), needs)]
+    with torch.enable_grad():
+        out = _LOOKUPS[state.impl](with_tensors(state, leaves), coords_x)
+        want = [t for t, n in zip(leaves, needs) if n]
+        got = iter(torch.autograd.grad(out, want, ct, allow_unused=True)
+                   if want else ())
+    return tuple(next(got) if n else None for n in needs)
+
+
+def _vjp_volume_pyramid(state, coords_x, ct, needs):
+    """``reg_pallas``: the windowed_sample backward, one launch per
+    MAX_LEVELS levels."""
+    k = 2 * state.radius + 1
+    out = []
+    for i in range(0, len(state.levels), MAX_LEVELS):
+        levels = state.levels[i:i + MAX_LEVELS]
+        center = coords_x if i == 0 else coords_x / (2 ** i)
+        _, dvols = windowed_sample_pyramid_vjp(
+            levels, center, ct[..., i * k:(i + len(levels)) * k],
+            state.radius, False, needs[i:i + len(levels)])
+        out.extend(dvols)
+    return tuple(out)
+
+
+def _vjp_features(function):
+    def vjp(state, coords_x, ct, needs):
+        """``alt_pallas``/``fused``: the kernel's backward per MAX_LEVELS
+        levels; ``fmap1``'s gradient summed over the chunks."""
+        k = 2 * state.radius + 1
+        n = len(state.levels)
+        dlevels, df1 = [], None
+        for i in range(0, n, MAX_LEVELS):
+            levels = state.levels[i:i + MAX_LEVELS]
+            center = coords_x if i == 0 else coords_x / (2 ** i)
+            d1, dl = function.backward_only(
+                state.fmap1, levels, center,
+                ct[..., i * k:(i + len(levels)) * k], state.radius,
+                needs[n], needs[i:i + len(levels)])
+            dlevels.extend(dl)
+            if d1 is not None:
+                df1 = d1 if df1 is None else df1 + d1
+        return tuple(dlevels) + (df1,)
+    return vjp
+
+
+_VJPS: Dict[str, Callable] = {
+    "reg": _vjp_by_autograd, "alt": _vjp_by_autograd,
+    "reg_pallas": _vjp_volume_pyramid,
+    "alt_pallas": _vjp_features(_AltCorrPyramid),
+    "fused": _vjp_features(_FusedCorrPyramid)}
+
+
+class _ReplayLookup(torch.autograd.Function):
+    """Returns ``saved`` (in ``dtype``) in place of ``corr_lookup(state,
+    coords)``'s value, cast to ``dtype``; the backward is that lookup's,
+    computed without its forward (the implementation's backward kernel or
+    plain version). ``through``: the value was rounded through that dtype
+    in the forward, so the cotangent is too."""
+
+    @staticmethod
+    def forward(ctx, meta, coords_x, saved, *tensors):
+        ctx.meta = meta
+        ctx.save_for_backward(coords_x, *tensors)
+        return saved.to(meta[1], copy=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        state, _, through = ctx.meta
+        coords_x, *tensors = ctx.saved_tensors
+        if through is not None:
+            g = g.to(through)
+        needs = ctx.needs_input_grad[3:]
+        grads = _VJPS[state.impl](with_tensors(state, tensors), coords_x,
+                                  g.float(), needs)
+        return (None, None, None, *grads)
+
+
+def corr_lookup_replay(state: CorrState, coords: torch.Tensor,
+                       saved: torch.Tensor, dtype: torch.dtype,
+                       through: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+    """``corr_lookup(state, coords).to(dtype)`` with the value of
+    ``saved`` (an earlier forward's copy) and no lookup forward run: the
+    gradient still flows to the state's tensors, by the implementation's
+    backward alone (on ``reg_pallas`` one windowed_sample backward launch
+    and no forward launch). ``through``: the saved value was rounded
+    through that dtype in the forward; its cotangent is rounded alike."""
+    coords_x = coords[..., 0].float().contiguous()
+    tensors = state_tensors(state)
+    meta = (with_tensors(state, (None,) * len(tensors)), dtype, through)
+    return _ReplayLookup.apply(meta, coords_x, saved, *tensors)

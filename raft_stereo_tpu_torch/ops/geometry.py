@@ -104,6 +104,14 @@ def upsample_tiles_to_image(up: torch.Tensor) -> torch.Tensor:
     return up.permute(0, 1, 3, 2, 4).reshape(b, h * f, w * f, 1)
 
 
+def image_to_upsample_tiles(img: torch.Tensor, factor: int) -> torch.Tensor:
+    """Inverse of :func:`upsample_tiles_to_image` for a ``(B, H, W, 1)``
+    image: ``(B, H/f, W/f, f, f)``."""
+    b, hh, ww, _ = img.shape
+    h, w = hh // factor, ww // factor
+    return img[..., 0].reshape(b, h, factor, w, factor).permute(0, 1, 3, 2, 4)
+
+
 def upsample_disparity_convex(flow: torch.Tensor, mask: torch.Tensor,
                               factor: int) -> torch.Tensor:
     """Single-channel convex upsampling: ``(B, h*f, w*f, 1)``."""

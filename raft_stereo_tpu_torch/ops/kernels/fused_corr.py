@@ -283,7 +283,9 @@ def pyramid_function(name: str, plain, launch, backward_plain,
     radius, need_df1=, need_df2=)`` (``backward_plain`` for CPU tensors)
     per level and sums ``df1`` from the last level to the first, in the
     feature dtype: the order in which JAX's backward sums fmap1's
-    cotangents (bitwise equal in bf16)."""
+    cotangents (bitwise equal in bf16). The class's ``backward_only(fmap1,
+    levels, center, ct, radius, need_df1, need_dlevels)`` is that backward
+    alone (the refinement's replayed lookup calls it)."""
 
     def forward(ctx, fmap1, center, radius, *levels):
         ctx.radius = radius
@@ -292,30 +294,38 @@ def pyramid_function(name: str, plain, launch, backward_plain,
             return plain(fmap1, levels, center, radius)
         return launch(fmap1, levels, center, radius)
 
-    def backward(ctx, ct):
-        fmap1, center, *levels = ctx.saved_tensors
-        k = 2 * ctx.radius + 1
-        need1 = ctx.needs_input_grad[0]
+    def backward_only(fmap1, levels, center, ct, radius, need1, need2s):
+        """``(df1, dlevels)`` for the cotangent ``ct``, computed without
+        the forward; each None unless asked for."""
+        k = 2 * radius + 1
         df1, dlevels = None, [None] * len(levels)
         for i in reversed(range(len(levels))):
             f2 = levels[i]
-            need2 = ctx.needs_input_grad[3 + i]
+            need2 = need2s[i]
             c_i, ct_i = center / (2 ** i), ct[..., i * k:(i + 1) * k]
             if on_cpu(fmap1, f2, center):
-                d1, d2 = backward_plain(fmap1, f2, c_i, ct_i, ctx.radius)
+                d1, d2 = backward_plain(fmap1, f2, c_i, ct_i, radius)
             elif need1 or need2:
-                d1, d2 = backward_launch(fmap1, f2, c_i, ct_i, ctx.radius,
+                d1, d2 = backward_launch(fmap1, f2, c_i, ct_i, radius,
                                          need_df1=need1, need_df2=need2)
             else:
                 d1 = d2 = None
             if need1:
                 df1 = d1 if df1 is None else df1 + d1
             dlevels[i] = d2 if need2 else None
+        return df1, tuple(dlevels)
+
+    def backward(ctx, ct):
+        fmap1, center, *levels = ctx.saved_tensors
+        df1, dlevels = backward_only(fmap1, levels, center, ct, ctx.radius,
+                                     ctx.needs_input_grad[0],
+                                     ctx.needs_input_grad[3:])
         return (df1, None, None, *dlevels)
 
     return type(name, (torch.autograd.Function,),
                 {"forward": staticmethod(forward),
                  "backward": staticmethod(backward),
+                 "backward_only": staticmethod(backward_only),
                  "__module__": plain.__module__})
 
 

@@ -304,19 +304,31 @@ class _WindowedSamplePyramid(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         center, *levels = ctx.saved_tensors
-        need_dc, need_vol = ctx.needs_input_grad[0], any(
+        dcoords, dvols = windowed_sample_pyramid_vjp(
+            levels, center, ct, ctx.radius, ctx.needs_input_grad[0],
             ctx.needs_input_grad[2:])
-        if _on_cpu(center, *levels):
-            dvols, dcoords = windowed_sample_pyramid_backward_plain(
-                levels, center, ct, ctx.radius)
-        else:
-            dvols, dcoords = windowed_sample_pyramid_backward(
-                levels, center, ct, ctx.radius, need_dvol=need_vol,
-                need_dcoords=need_dc)
-        dvols = dvols or (None,) * len(levels)
-        return (dcoords if need_dc else None, None,
-                *[dv if n else None
-                  for dv, n in zip(dvols, ctx.needs_input_grad[2:])])
+        return (dcoords, None, *dvols)
+
+
+def windowed_sample_pyramid_vjp(levels: Sequence[torch.Tensor],
+                                center: torch.Tensor, ct: torch.Tensor,
+                                radius: int, need_dcoords: bool,
+                                need_dvols: Sequence[bool]):
+    """The gradients of :func:`windowed_sample_pyramid` for the cotangent
+    ``ct``, computed without its forward: ``(dcoords, dvols)``, each entry
+    None unless asked for. CUDA tensors launch the backward kernels once
+    (counted in ``windowed_sample.bwd_launches``); CPU tensors take the
+    plain version."""
+    if _on_cpu(center, *levels):
+        dvols, dcoords = windowed_sample_pyramid_backward_plain(
+            levels, center, ct, radius)
+    else:
+        dvols, dcoords = windowed_sample_pyramid_backward(
+            levels, center, ct, radius, need_dvol=any(need_dvols),
+            need_dcoords=need_dcoords)
+    dvols = dvols or (None,) * len(levels)
+    return (dcoords if need_dcoords else None,
+            tuple(dv if n else None for dv, n in zip(dvols, need_dvols)))
 
 
 def windowed_sample_pyramid(levels: Sequence[torch.Tensor],

@@ -37,7 +37,8 @@ def make_shardmap_train_step(model, optimizer, train_iters: int, mesh: Mesh,
     ``step(state, local_batch, stop=False) -> (state, metrics)`` with
     ``local_batch`` this rank's slice. Building it broadcasts rank 0's
     model (and the optimizer's state, ``state`` being given) to every rank.
-    ``fused_loss`` raises as :func:`make_train_step` does."""
+    ``fused_loss``: the in-loop reduced loss, its sums over the group
+    (``training/loss.py::sequence_loss_fused``)."""
     require_seq_one(mesh.seq)
     replicated(mesh, state if state is not None else model)
     return make_train_step(model, optimizer, train_iters, group=mesh.group,
@@ -116,20 +117,18 @@ def _dryrun_rank(dev, image_size, batch, train_iters, fused_loss,
 
 def dryrun_train_step(n_devices: int, seq_parallel: int = 1,
                       image_size=(32, 64), batch: int = 0,
-                      train_iters: int = 2, fused_loss: bool = False,
+                      train_iters: int = 2, fused_loss: bool = True,
                       run_shardmap: bool = True, device: str = "cuda"):
     """One full data-parallel training step (the pjit-style one, then the
     shard_map-style one) over ``n_devices`` ranks, one process each: on a
     card each (``device="cuda"``; more ranks than cards raises) or on the
     CPU. The default architecture in mixed precision on a seeded batch
-    (``batch`` 0: one pair a rank). ``seq_parallel`` above 1 and
-    ``fused_loss`` raise, as the steps do. Returns each rank's metrics."""
+    (``batch`` 0: one pair a rank), with the fused loss by default, as
+    JAX's dry run. ``seq_parallel`` above 1 raises, as the steps do.
+    Returns each rank's metrics."""
     from raft_stereo_tpu_torch.parallel.distributed import (launch,
                                                             rank_device)
     require_seq_one(seq_parallel)
-    if fused_loss:
-        raise NotImplementedError("fused_loss is not ported yet (ROADMAP.md "
-                                  "A9)")
     devices = [rank_device(device, r) for r in range(n_devices)]
     return launch(_dryrun_rank, devices, tuple(image_size),
                   batch if batch > 0 else n_devices, train_iters, fused_loss,
@@ -141,7 +140,7 @@ def dryrun_flagship_shape(n_devices: int, seq_parallel: int = 1,
     """The dry run at the SceneFlow recipe's shape: batch 8, 320x720."""
     return dryrun_train_step(n_devices, seq_parallel=seq_parallel,
                              image_size=(320, 720), batch=8,
-                             train_iters=train_iters, fused_loss=False,
+                             train_iters=train_iters, fused_loss=True,
                              run_shardmap=False, device=device)
 
 
@@ -151,5 +150,5 @@ def dryrun_flagship_scaled(n_devices: int, seq_parallel: int = 1,
     scaled dry run."""
     return dryrun_train_step(n_devices, seq_parallel=seq_parallel,
                              image_size=(96, 224), batch=8,
-                             train_iters=train_iters, fused_loss=False,
+                             train_iters=train_iters, fused_loss=True,
                              run_shardmap=False, device=device)

@@ -7,7 +7,9 @@ iteration counts weigh alike: ``gamma_adj = gamma ** (15 / (n - 1))``, and
 iteration ``i`` weighted ``gamma_adj ** (n - 1 - i)``. Pixels count when
 valid and when ``|gt| < max_flow``; the sum is normalised by the number of
 such pixels. The final iteration's metrics are ``epe`` and the ``1px``,
-``3px`` and ``5px`` inlier shares.
+``3px`` and ``5px`` inlier shares. :func:`sequence_loss_fused` takes
+the per-iteration sums the model reduced itself (the fused loss) and
+applies the same weighting, normalisation and metrics.
 
 Data parallelism (the counterpart of JAX's ``axis_name``): with a
 ``torch.distributed`` ``group`` the per-iteration error sums, the
@@ -56,6 +58,32 @@ class _GroupSum(torch.autograd.Function):
         return grad, None
 
 
+def _weighted_loss_and_metrics(per_iter, final_flow, gt, mask, loss_gamma,
+                               group):
+    """The exponential weighting and valid-pixel normalisation of the
+    per-iteration masked L1 sums ``per_iter (iters,)``, and the final
+    iteration's metrics, summed over ``group`` by one all-reduce."""
+    zero = torch.zeros((), device=gt.device)
+    n = per_iter.shape[0]
+    gamma = loss_gamma ** (15.0 / (n - 1)) if n > 1 else 1.0
+    weights = gamma ** torch.arange(n - 1, -1, -1, dtype=torch.float32,
+                                    device=gt.device)
+    epe = torch.sqrt(torch.sum((final_flow.float() - gt) ** 2, dim=-1))
+    m = mask[..., 0]
+    epe = torch.where(m > 0, epe, zero).detach()
+    sums = torch.stack([mask.sum(), epe.sum(), ((epe < 1.0) * m).sum(),
+                        ((epe < 3.0) * m).sum(), ((epe < 5.0) * m).sum()])
+    if group is not None:
+        # one all-reduce for the iterations' error sums and the counts
+        both = _GroupSum.apply(torch.cat([per_iter, sums]), group)
+        per_iter, sums = both[:n], both[n:]
+    denom = torch.clamp(sums[0], min=1.0)
+    loss = torch.sum(weights * per_iter) / denom
+    metrics = {k: sums[i] / denom
+               for i, k in enumerate(("epe", "1px", "3px", "5px"), 1)}
+    return loss, metrics
+
+
 def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor,
                   valid: torch.Tensor, loss_gamma: float = 0.9,
                   max_flow: float = 700.0, group: Optional[Any] = None
@@ -74,22 +102,20 @@ def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor,
     abs_err = torch.abs(flow_preds.float() - gt[None])
     abs_err = torch.where(mask[None] > 0, abs_err, zero)
     per_iter = abs_err.sum(dim=(1, 2, 3, 4))
-    n = per_iter.shape[0]
-    gamma = loss_gamma ** (15.0 / (n - 1)) if n > 1 else 1.0
-    weights = gamma ** torch.arange(n - 1, -1, -1, dtype=torch.float32,
-                                    device=gt.device)
+    return _weighted_loss_and_metrics(per_iter, flow_preds[-1], gt, mask,
+                                      loss_gamma, group)
 
-    epe = torch.sqrt(torch.sum((flow_preds[-1].float() - gt) ** 2, dim=-1))
-    m = mask[..., 0]
-    epe = torch.where(m > 0, epe, zero).detach()
-    sums = torch.stack([mask.sum(), epe.sum(), ((epe < 1.0) * m).sum(),
-                        ((epe < 3.0) * m).sum(), ((epe < 5.0) * m).sum()])
-    if group is not None:
-        # one all-reduce for the iterations' error sums and the counts
-        both = _GroupSum.apply(torch.cat([per_iter, sums]), group)
-        per_iter, sums = both[:n], both[n:]
-    denom = torch.clamp(sums[0], min=1.0)
-    loss = torch.sum(weights * per_iter) / denom
-    metrics = {k: sums[i] / denom
-               for i, k in enumerate(("epe", "1px", "3px", "5px"), 1)}
-    return loss, metrics
+
+def sequence_loss_fused(per_iter_err_sums: torch.Tensor,
+                        final_flow: torch.Tensor, flow_gt: torch.Tensor,
+                        mask: torch.Tensor, loss_gamma: float = 0.9,
+                        group: Optional[Any] = None
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The sequence loss from the model's fused-loss outputs: each
+    iteration's masked L1 sum ``per_iter_err_sums (iters,)`` (already
+    reduced in the model) and the final ``flow_up (B, H, W, 1)``, against
+    ``flow_gt`` and the :func:`loss_mask` ``mask``. The same weighting,
+    normalisation, metrics and ``group`` sums as :func:`sequence_loss`."""
+    return _weighted_loss_and_metrics(per_iter_err_sums.float(), final_flow,
+                                      flow_gt.float(), mask, loss_gamma,
+                                      group)

@@ -25,29 +25,43 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from raft_stereo_tpu_torch.training.loss import sequence_loss
+from raft_stereo_tpu_torch.training.loss import (loss_mask, sequence_loss,
+                                                 sequence_loss_fused)
 from raft_stereo_tpu_torch.training.optim import Optimizer, global_norm
 from raft_stereo_tpu_torch.utils.weights import jax_leaf_names
 
 
 def loss_and_grads(model: torch.nn.Module, batch: Mapping[str, Any],
-                   train_iters: int, group: Optional[Any] = None):
+                   train_iters: int, group: Optional[Any] = None,
+                   fused_loss: bool = False):
     """Train-mode forward, sequence loss and backward on ``batch``:
     ``(loss, metrics, grads)`` with ``metrics`` holding ``loss`` too, all
     detached, and ``grads`` in ``model.parameters()`` order (zeros for a
     parameter the loss does not reach). Leaves every ``.grad`` None.
     ``group``: ``batch`` is this rank's slice of the global batch; loss
     and metrics are the global batch's, ``grads`` this rank's share of its
-    gradients (:func:`all_reduce_grads` sums the shares)."""
+    gradients (:func:`all_reduce_grads` sums the shares). ``fused_loss``:
+    the model reduces each iteration's masked L1 itself (its ``flow_gt``
+    and ``loss_mask`` inputs) and :func:`sequence_loss_fused` weighs the
+    sums: the same loss without the prediction stack."""
     params = list(model.parameters())
     dev = params[0].device
     b = {k: torch.as_tensor(batch[k]).to(dev)
          for k in ("image1", "image2", "flow", "valid")}
     for p in params:
         p.grad = None
-    preds = model(b["image1"], b["image2"], iters=train_iters,
-                  test_mode=False)
-    loss, metrics = sequence_loss(preds, b["flow"], b["valid"], group=group)
+    if fused_loss:
+        mask = loss_mask(b["flow"], b["valid"])
+        err_sums, final = model(b["image1"], b["image2"], iters=train_iters,
+                                test_mode=False, flow_gt=b["flow"],
+                                loss_mask=mask)
+        loss, metrics = sequence_loss_fused(err_sums, final, b["flow"],
+                                            mask, group=group)
+    else:
+        preds = model(b["image1"], b["image2"], iters=train_iters,
+                      test_mode=False)
+        loss, metrics = sequence_loss(preds, b["flow"], b["valid"],
+                                      group=group)
     loss.backward()
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
@@ -114,12 +128,9 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
     this rank's slice. ``stop`` (a host bool, e.g. this rank's preemption
     signal) rides the gradients' all-reduce: ``metrics["stop"]`` (a host
     bool, with a group only) is True on every rank when any rank asked,
-    so all stop after the same step. ``fused_loss`` (the in-loop reduced
-    loss, queued under A9b) is not ported and raises.
+    so all stop after the same step. ``fused_loss``: the model reduces
+    each iteration's masked L1 sum itself (:func:`loss_and_grads`).
     """
-    if fused_loss:
-        raise NotImplementedError("fused_loss is not ported yet (ROADMAP.md "
-                                  "A9)")
     params = list(model.parameters())
     if [id(p) for p in optimizer.params] != [id(p) for p in params]:
         raise ValueError("the optimizer does not hold the model's parameters "
@@ -133,7 +144,8 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
                    stop: bool = False
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         loss, metrics, grads = loss_and_grads(state.model, batch,
-                                              train_iters, group=group)
+                                              train_iters, group=group,
+                                              fused_loss=fused_loss)
         # the agreed stop request, read with the guard's decision
         stops = []
         if group is not None:

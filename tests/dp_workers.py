@@ -28,7 +28,9 @@ def parity_rank(dev, cfg, state_dict, batch, iters, loss_inputs, lr,
                 num_steps):
     """Every data-parallel check of one rank on the CPU, over one spawn:
     the batch slice and its gather, the grouped sequence loss and its
-    gradient, the reduced gradients, two data-parallel steps, and (rank 0)
+    gradient, the reduced gradients (of the stacked loss, of the fused
+    loss, and of the fused loss over the batched-weight-gradient
+    backward), two data-parallel steps, and (rank 0)
     a 1-rank group against the plain step or (rank 1) the one-process
     gradients of the whole batch. Returns a dict of host values."""
     from raft_stereo_tpu_torch.config import TrainConfig
@@ -89,6 +91,23 @@ def parity_rank(dev, cfg, state_dict, batch, iters, loss_inputs, lr,
     out["dp_grads_digest"] = _digest(grads)
     if rank == 0:
         out["dp_grads"] = {k: g.numpy() for k, g in zip(names, grads)}
+
+    # the fused loss, and the fused loss over the batched-weight-gradient
+    # backward: the reduced gradients of the grouped step
+    import dataclasses
+    for key, c in (("fused", cfg),
+                   ("custom", dataclasses.replace(cfg,
+                                                  batched_scan_wgrad=True))):
+        f_loss, f_metrics, f_grads = loss_and_grads(
+            _model(c, state_dict), local_batch, iters, group=mesh.group,
+            fused_loss=True)
+        f_grads, _ = all_reduce_grads(f_grads, mesh.group)
+        out[key + "_loss"] = float(f_loss)
+        out[key + "_epe"] = float(f_metrics["epe"])
+        out[key + "_grads_digest"] = _digest(f_grads)
+        if rank == 0:
+            out[key + "_grads"] = {k: g.numpy()
+                                   for k, g in zip(names, f_grads)}
 
     # two data-parallel steps from rank 0's state: replicas bitwise equal
     tcfg = TrainConfig(num_steps=num_steps, lr=lr, batch_size=n)

@@ -234,7 +234,7 @@ def test_forward_guards_match_jax(setup):
                   test_mode=False), "test-mode"),
             (dict(flow_gt=gt), "iter_metrics"),
             (dict(numerics=True, test_mode=False), "test-mode"),
-            (dict(flow_gt=gt, test_mode=False), "A9b")):
+            (dict(flow_gt=gt, test_mode=False), "loss_mask")):
         kw.setdefault("test_mode", True)
         with pytest.raises(ValueError, match=match):
             model(a, a, iters=2, **kw)

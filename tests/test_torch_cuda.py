@@ -213,8 +213,24 @@ def test_autograd_launches_the_backward(cuda):
 
 @pytest.mark.parametrize("mixed", [False, True])
 def test_model_train_kernels_match_plain_lookup(cuda, mixed):
+    # under the recipe's full per-iteration recompute: one forward launch
+    # for the four levels an iteration and its recompute, one backward
+    # launch
+    _train_kernels_match_plain(cuda, mixed, False, (2 * 3, 3))
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_model_train_kernels_match_plain_lookup_save_policy(cuda, mixed):
+    # under the auto save policy, which engages at this size: each
+    # iteration's lookup is kept and the backward replays it without a
+    # forward launch
+    _train_kernels_match_plain(cuda, mixed, None, (3, 3))
+
+
+def _train_kernels_match_plain(cuda, mixed, policy, launches):
     # the same training step with the kernels (reg_cuda) and with the plain
-    # lookup under autograd (reg), both on the card. The forwards are
+    # lookup under autograd (reg), both on the card, under the save policy
+    # ``policy``. The forwards are
     # bitwise equal; the backward is not deterministic from run to run even
     # with deterministic cuDNN (PyTorch backward ops that accumulate with
     # atomics; measured 1.4e-7 of the global gradient norm in fp32 and
@@ -223,7 +239,8 @@ def test_model_train_kernels_match_plain_lookup(cuda, mixed):
     from raft_stereo_tpu_torch.training.state import loss_and_grads
     torch.backends.cudnn.deterministic = True
     kw = dict(hidden_dims=(32, 32, 32), mixed_precision=mixed,
-              corr_storage_dtype="bfloat16" if mixed else None)
+              corr_storage_dtype="bfloat16" if mixed else None,
+              refinement_save_policy=policy)
     try:
         model_k = init_weights(
             RAFTStereo(RAFTStereoConfig(corr_implementation="reg_cuda", **kw)),
@@ -239,10 +256,8 @@ def test_model_train_kernels_match_plain_lookup(cuda, mixed):
                  "valid": torch.ones((2, 64, 128), device=cuda)}
         windowed_sample.launches = windowed_sample.bwd_launches = 0
         loss_k, _, grads_k = loss_and_grads(model_k, batch, 3)
-        # one forward launch for the four levels an iteration (and its
-        # remat recompute), one backward launch
-        assert (windowed_sample.launches, windowed_sample.bwd_launches) == (
-            2 * 3, 3)
+        assert (windowed_sample.launches,
+                windowed_sample.bwd_launches) == launches
         _, _, again = loss_and_grads(model_k, batch, 3)
         loss_p, _, grads_p = loss_and_grads(model_p, batch, 3)
     finally:
@@ -476,18 +491,22 @@ def test_fused_memory_contract(cuda):
         del out
 
 
-def _model_step_matches_reg(cuda, impl, kernel, launches, **kw):
+def _model_step_matches_reg(cuda, impl, kernel, launches, policy=False,
+                            **kw):
     # one fp32 training step through a kernel path against the same step
-    # through the volume and the plain lookup (reg), both on the card.
+    # through the volume and the plain lookup (reg), both on the card,
+    # under the save policy ``policy`` (False: the recipe's full
+    # per-iteration recompute).
     # Bounds: loss 1e-5 relative; all gradients within 1e-3 relative L2
     # (the size of a 1e-6 weight perturbation's null run, PERF.md)
     from raft_stereo_tpu_torch.training.state import loss_and_grads
-    kw = dict(hidden_dims=(32, 32, 32), **kw)
+    kw = dict(hidden_dims=(32, 32, 32), refinement_save_policy=policy, **kw)
     model_k = init_weights(
         RAFTStereo(RAFTStereoConfig(corr_implementation=impl, **kw)),
         torch.Generator().manual_seed(0))
     model_p = RAFTStereo(RAFTStereoConfig(corr_implementation="reg",
-                                          hidden_dims=(32, 32, 32)))
+                                          hidden_dims=(32, 32, 32),
+                                          refinement_save_policy=policy))
     model_p.load_state_dict(model_k.state_dict(), strict=True)
     model_k.to(cuda)
     model_p.to(cuda)
@@ -521,6 +540,16 @@ def test_fused_model_train_step_matches_reg(cuda):
     # recompute), four backward launches
     grads = _model_step_matches_reg(cuda, "alt_cuda", fc.fused_corr,
                                     (2 * 1 * 3, 4 * 3))
+    assert all(float(gr.abs().max()) > 0 for n, gr in grads.items()
+               if n.startswith("fnet."))
+
+
+def test_fused_model_train_step_matches_reg_save_policy(cuda):
+    # the auto save policy engages at this size: one forward launch an
+    # iteration (the backward replays the kept lookup), four backward
+    # launches, the gradients through the features still
+    grads = _model_step_matches_reg(cuda, "alt_cuda", fc.fused_corr,
+                                    (3, 4 * 3), policy=None)
     assert all(float(gr.abs().max()) > 0 for n, gr in grads.items()
                if n.startswith("fnet."))
 
@@ -786,6 +815,14 @@ def test_alt_model_train_step_matches_reg(cuda):
     # recompute), four backward launches
     _model_step_matches_reg(cuda, "alt_pallas", ac.alt_corr,
                             (2 * 1 * 3, 4 * 3))
+
+
+def test_alt_model_train_step_matches_reg_save_policy(cuda):
+    # the auto save policy engages at this size: one forward launch an
+    # iteration (the backward replays the kept lookup), four backward
+    # launches
+    _model_step_matches_reg(cuda, "alt_pallas", ac.alt_corr,
+                            (3, 4 * 3), policy=None)
 
 
 # alt_corr's one-launch forward over 1 to 4 levels: bitwise equal to its
@@ -1335,7 +1372,8 @@ def test_trainer_step_on_card_from_the_cpu_loader_batch(cuda, tmp_path):
     """The loader's first batch is the same bits whatever the number of
     its worker processes (it is made on the host, whichever device
     trains), and one trainer step on the card, with the windowed_sample
-    kernels, is finite and launches (2, 1) an iteration."""
+    kernels, is finite and launches (2, 1) an iteration under the
+    recipe's full per-iteration recompute."""
     import dataclasses
     from raft_stereo_tpu_torch.config import TrainConfig
     from raft_stereo_tpu_torch.data.datasets import fetch_dataloader
@@ -1357,7 +1395,8 @@ def test_trainer_step_on_card_from_the_cpu_loader_batch(cuda, tmp_path):
         assert batches[0][k].tobytes() == batches[1][k].tobytes(), k
     before = (ws.windowed_sample.launches, ws.windowed_sample.bwd_launches)
     final = train(RAFTStereoConfig(hidden_dims=(32, 32, 32),
-                                   corr_implementation="reg_cuda"),
+                                   corr_implementation="reg_cuda",
+                                   refinement_save_policy=False),
                   cfg, device="cuda")
     after = (ws.windowed_sample.launches, ws.windowed_sample.bwd_launches)
     assert (after[0] - before[0], after[1] - before[1]) == (4, 2)
@@ -1367,6 +1406,32 @@ def test_trainer_step_on_card_from_the_cpu_loader_batch(cuda, tmp_path):
              if e["event"] == "step"]
     assert len(steps) == 1 and steps[0]["skipped_updates"] == 0.0
     assert final.endswith("card")
+
+
+def test_trainer_step_on_card_save_policy(cuda, tmp_path):
+    """One trainer step on the card under the auto save policy, which
+    engages at this size: finite, and (1, 1) windowed_sample launches an
+    iteration (the backward replays each kept lookup)."""
+    from raft_stereo_tpu_torch.config import TrainConfig
+    from raft_stereo_tpu_torch.training.trainer import train
+    root = _train_tree(tmp_path / "data")
+    cfg = TrainConfig(name="card", batch_size=2, num_steps=1,
+                      image_size=(64, 128), train_iters=2,
+                      data_root=str(root), ckpt_dir=str(tmp_path / "ck"),
+                      run_dir=str(tmp_path / "runs"), num_workers=1,
+                      spatial_scale=(-0.2, 0.4), saturation_range=(0, 1.4),
+                      validation_frequency=1000, stall_deadline_s=None)
+    before = (ws.windowed_sample.launches, ws.windowed_sample.bwd_launches)
+    train(RAFTStereoConfig(hidden_dims=(32, 32, 32),
+                           corr_implementation="reg_cuda"),
+          cfg, device="cuda")
+    after = (ws.windowed_sample.launches, ws.windowed_sample.bwd_launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 2)
+    from raft_stereo_tpu_torch.obs import read_events
+    steps = [e for e in read_events(str(tmp_path / "runs" / "card" /
+                                        "events.jsonl"))
+             if e["event"] == "step"]
+    assert len(steps) == 1 and steps[0]["skipped_updates"] == 0.0
 
 
 def test_checkpoint_round_trip_on_card(cuda, tmp_path):

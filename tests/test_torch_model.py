@@ -363,8 +363,15 @@ def test_forward_refusals(default_small):
     for test_mode in (True, False):  # train mode is ported (A9)
         with pytest.raises(ValueError, match="iters"):
             model(x, x, iters=0, test_mode=test_mode)
+    # remat_encoders maps and runs (tests/test_torch_schedules.py); a JAX
+    # compile knob the port lacks is refused off its default
+    remat = _loaded(RAFTStereo(port_config(dataclasses.replace(
+        jcfg, remat_encoders=True))), v)
+    preds = remat(x, x, iters=1, test_mode=False)
+    assert preds.shape == (1,) + tuple(x.shape[:3]) + (1,)
+    assert bool(torch.isfinite(preds).all())
     with pytest.raises(ValueError, match="not ported"):
-        port_config(dataclasses.replace(jcfg, remat_encoders=True))
+        port_config(dataclasses.replace(jcfg, scan_unroll=2))
 
 
 def test_predictor_pads_and_unpads_like_jax(default_small, record_property):

@@ -25,7 +25,12 @@ beside the JAX fixtures):
   scaled by 1 + 1e-6 N(0, 1)); two steps leave both replicas bitwise
   equal; a stop request on one rank reaches both;
 * a 1-rank group bitwise equal to the step without one;
-* ``seq_parallel > 1`` and ``fused_loss`` raise.
+* the fused loss's grouped step (``fused_loss=True``), alone and over the
+  batched-weight-gradient backward (``batched_scan_wgrad``, JAX's
+  ``test_shardmap_dp_matches_single_device_custom``): the loss within
+  1e-5 relative of JAX's single-device one, the reduced gradients under
+  the same null-floor rule, both ranks' bitwise equal;
+* ``seq_parallel > 1`` raises.
 """
 
 import dataclasses
@@ -275,14 +280,12 @@ def test_seq_parallel_and_fused_loss_raise(setup):
     with pytest.raises(ValueError, match="A13"):
         dp.make_pjit_train_step(model, opt, ITERS, seq_mesh)
     mesh = pm.make_mesh(device="cpu")
+    # the fused loss builds every step (its grouped run: the tests below)
     for fn in (make_train_step, dp.make_shardmap_train_step,
                dp.make_pjit_train_step):
         args = (model, opt, ITERS) + ((mesh,) if fn is not make_train_step
                                       else ())
-        with pytest.raises(NotImplementedError, match="fused_loss"):
-            fn(*args, fused_loss=True)
-    with pytest.raises(NotImplementedError, match="fused_loss"):
-        dp.dryrun_train_step(2, fused_loss=True, device="cpu")
+        assert callable(fn(*args, fused_loss=True))
     with pytest.raises(ValueError, match="not divisible"):
         pm.batch_sharding(pm.Mesh(data=2, seq=1, coords=(1, 0),
                                   device=torch.device("cpu")), 3)
@@ -295,3 +298,41 @@ def test_seq_parallel_and_fused_loss_raise(setup):
     assert [id(p) for p in unfused.parameters()] == [
         id(p) for p in fused.parameters()]
     assert dp.unfused_lookup(model) is model
+
+
+def _fused_dp_check(key, setup, ranks, jax_grads, record_property):
+    jcfg, v = setup
+    want_loss, want, nulls = jax_grads
+    out = _rank_results(ranks)
+    got = out[0][key + "_grads"]
+    names = list(got)
+    want_sd = state_dict_from_jax({"params": want})
+    norm = float(np.linalg.norm(flat(want_sd, names)))
+    roundoff = {k for k in names
+                if np.linalg.norm(want_sd[k].numpy()) < ROUNDOFF_REL * norm}
+    ok, read = null_gate(got, want, nulls, 1e-4, roundoff)
+    losses = [r[key + "_loss"] for r in out]
+    loss_dev = max(abs(x - want_loss) / abs(want_loss) for x in losses)
+    record_property("loss_max_rel_dev", loss_dev)
+    for k, value in read.items():
+        record_property(k, value)
+    assert loss_dev <= 1e-5, (losses, want_loss)
+    assert losses[0] == losses[1]
+    assert out[0][key + "_epe"] == out[1][key + "_epe"]
+    assert ok, read
+    assert out[0][key + "_grads_digest"] == out[1][key + "_grads_digest"]
+
+
+def test_fused_loss_dp_matches_single_device(setup, ranks, jax_grads,
+                                             record_property):
+    """The fused loss's grouped step on 2 gloo ranks against JAX's
+    single-device gradients of the same (stacked) loss."""
+    _fused_dp_check("fused", setup, ranks, jax_grads, record_property)
+
+
+def test_shardmap_dp_matches_single_device_custom(setup, ranks, jax_grads,
+                                                  record_property):
+    """JAX's tests/test_scan_grad.py counterpart: the grouped fused-loss
+    step over the batched-weight-gradient backward against the
+    single-device gradients, under the null floor."""
+    _fused_dp_check("custom", setup, ranks, jax_grads, record_property)

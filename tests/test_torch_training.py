@@ -127,12 +127,16 @@ def test_train_config_and_sceneflow_preset_match_jax():
                 == getattr(JTrainConfig(), f.name)), f.name
     assert tconfig.RAFTStereoConfig().remat_refinement is JConfig(
     ).remat_refinement is True
-    # a JAX knob the port lacks may only sit at its default
-    for field, value in [("remat_encoders", "blocks"), ("scan_unroll", 2),
+    # the training schedules map; a JAX knob the port lacks (an XLA
+    # layout or compile knob) may only sit at its default
+    for field, value in [("remat_encoders", "blocks"),
                          ("refinement_save_policy", "corr"),
                          ("batched_scan_wgrad", True),
                          ("residual_dtype", "bfloat16"),
                          ("deferred_upsample", False)]:
+        assert getattr(port_config(JConfig(**{field: value})),
+                       field) == value
+    for field, value in [("scan_unroll", 2), ("fold_enc_saves", True)]:
         with pytest.raises(ValueError, match="not ported"):
             port_config(JConfig(**{field: value}))
     assert port_config(JConfig(fused_lookup=True)).fused_lookup is True
@@ -445,8 +449,12 @@ def test_step_refusals(small):
     # JAX's mesh-axis spelling: the port's step takes a process group
     with pytest.raises(TypeError, match="axis_name"):
         make_train_step(model, opt, ITERS, axis_name="data")
-    with pytest.raises(NotImplementedError, match="fused_loss"):
-        make_train_step(model, opt, ITERS, fused_loss=True)
+    # the fused loss builds and runs a step, with the stacked loss's value
+    step = make_train_step(model, opt, ITERS, fused_loss=True)
+    want = loss_and_grads(model, _batch(31), ITERS)[0]
+    state, m = step(TrainState(model, opt), _batch(31))
+    assert state.step == 1 and float(m["skipped_updates"]) == 0.0
+    assert abs(float(m["loss"]) - float(want)) <= 1e-6 * abs(float(want))
     other = toptim.fetch_optimizer(tconfig.TrainConfig(),
                                    list(model.parameters())[::-1])
     with pytest.raises(ValueError, match="parameters"):
