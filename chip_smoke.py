@@ -216,8 +216,8 @@ Phases, each reported as one JSON line, in the order they run:
    float64 im2col contraction of the same stacks than today's
    per-iteration route on them is. B1's
    launches a step as TRAIN_SCHEDULES states them (22 or 44 forward, 22
-   backward) and no other kernel's; ms/step (median of
-   SCHEDULE_STEPS after a warm-up), peak memory, and the device-time
+   backward) and no other kernel's; ms/step (SCHEDULE_STEPS timed
+   after a warm-up), peak memory, and the device-time
    split (lookup, convolution, matmul, elementwise), kernels and idle
    share of one profiled step. In fp32 (TF32 off) at batch
    FP32_GATE_BATCH: batched_scan_wgrad (and with the full policy)
@@ -281,6 +281,24 @@ Phases, each reported as one JSON line, in the order they run:
    events.jsonl valid with its mesh coordinates and the backend on
    run_start; the restored step's loss the uninterrupted run's bitwise;
    (22, 22) launches a rank a step (batch 4 a rank); no process left.
+15d. obs_reports — the report tools on the logs the card wrote above
+   (copied out of each phase's temporary directory as it ends):
+   eval_cli, numerics_eval's run with the taps on, adaptive_eval,
+   loadtest/{seq,serve}, train_trainer, train_trainer_steady, serve_http
+   and dp_trainer's two ranks as a fleet. Each report runs as python -m
+   raft_stereo_tpu_torch.cli {telemetry, doctor, timeline, compare,
+   numerics, converge, fleet} in a subprocess of its own (REPORT_WORKERS
+   at a time, host only): every exit code as expected (numerics and
+   converge exit 1 on a log without their records), neither jax nor
+   raft_stereo_tpu in the subprocess's modules after main returns,
+   obs.validate.check_path clean on each log (and python -m
+   raft_stereo_tpu_torch.obs.validate over all of them), the summary's
+   step count the steps or frames the phase ran, compare of a run against
+   itself exit 0, the timeline valid JSON with one step span a train step
+   and one request span a served request (none in the eval and sequential
+   logs, which write no spans), a train verdict on both trainers, a
+   numerics verdict on numerics_eval and FLEET_OK over dp_trainer's
+   ranks; each report's verdict and wall seconds.
 16. timings, bwd_timings — windowed_sample's forward at the default,
    realtime and train pyramids and its backward at the train pyramid: per
    level, the one-level launch's time, its bound (bound_ms: bytes over
@@ -1572,7 +1590,9 @@ TRAIN_SCHEDULES = (
     ("remat_encoders_norms", {"remat_encoders": "norms"}, False, 44),
 )
 SCHEDULE_LOSS_TOL = 2.0 ** -8  # bf16's relative precision
-SCHEDULE_STEPS = 3             # timed steps a schedule, after a warm-up
+SCHEDULE_STEPS = 1             # timed steps a schedule, after a warm-up
+                               # (the profiled step's device ms is the
+                               # figure: a step's wall follows the host)
 GATE_WEIGHTS = ("convz.weight", "convr.weight", "convq.weight")
 
 
@@ -1816,8 +1836,8 @@ def run_train_schedules(dev, all_kernels, ws_kernel):
     on them (per_iteration_route; train_schedules_wgrad).
     B1's launches a step as TRAIN_SCHEDULES states them (22 forward where
     a policy keeps the lookups, 44 where the backward recomputes them;
-    22 backward) and no other kernel's; ms/step (median of
-    SCHEDULE_STEPS), peak memory and the device-time split of one
+    22 backward) and no other kernel's; ms/step (SCHEDULE_STEPS
+    timed), peak memory and the device-time split of one
     profiled step, printed a schedule a line."""
     import torch
     from raft_stereo_tpu_torch.config import sceneflow_config
@@ -4000,6 +4020,182 @@ def run_loadtest(work):
     return result
 
 
+# --- the report tools on the card's logs --------------------------------------
+
+REPORT_WORKERS = 8               # report subprocesses at a time (8 host cores)
+REPORT_FORBIDDEN = ("jax", "jaxlib", "flax", "raft_stereo_tpu")
+
+#: python -m raft_stereo_tpu_torch.cli <args>, then the modules it loaded
+CLI_RUNNER = """
+import json, runpy, sys
+sys.argv = ["raft_stereo_tpu_torch.cli"] + sys.argv[1:]
+try:
+    runpy.run_module("raft_stereo_tpu_torch.cli", run_name="__main__",
+                     alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+print("CLI_EXIT " + json.dumps({"rc": rc, "forbidden": bad}),
+      file=sys.stderr)
+sys.exit(rc)
+""" % (REPORT_FORBIDDEN,)
+
+
+def keep_logs(src, dst):
+    """Copy every events.jsonl under ``src`` to the same place under
+    ``dst`` (the report phase reads them after ``src`` is gone)."""
+    import shutil
+    for root, _, files in os.walk(src):
+        if "events.jsonl" in files:
+            where = os.path.join(dst, os.path.relpath(root, src))
+            os.makedirs(where, exist_ok=True)
+            shutil.copy2(os.path.join(root, "events.jsonl"), where)
+
+
+def run_cli_report(args, want_rc):
+    """One ``python -m raft_stereo_tpu_torch.cli`` run in a subprocess:
+    its stdout, exit code (checked against ``want_rc``) and wall
+    seconds; fails if it loaded jax or the JAX package."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", CLI_RUNNER, *args],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    tail = [ln for ln in out.stderr.splitlines()
+            if ln.startswith("CLI_EXIT ")]
+    check(tail, f"cli {args}: no exit line:\n{out.stderr[-2000:]}")
+    status = json.loads(tail[-1][len("CLI_EXIT "):])
+    check(status["rc"] == out.returncode == want_rc,
+          f"cli {args}: exit {out.returncode} ({status['rc']}), expected "
+          f"{want_rc}:\n{out.stderr[-2000:]}")
+    check(not status["forbidden"],
+          f"cli {args}: loaded {status['forbidden']}")
+    return out.stdout, secs
+
+
+def run_obs_reports(root, expected):
+    """obs_reports: the report tools over the logs under ``root``
+    (``expected``: log name -> (relative dir, steps the phase ran or
+    None)), each command in a subprocess, REPORT_WORKERS at a time."""
+    import concurrent.futures
+    import re
+    from raft_stereo_tpu_torch.obs import read_events
+    from raft_stereo_tpu_torch.obs.validate import check_path
+    t_phase = time.perf_counter()
+    logs = {name: os.path.join(root, rel)
+            for name, (rel, _) in expected.items()}
+    steps_of = {name: steps for name, (_, steps) in expected.items()}
+    fleet_dir = logs.pop("dp_trainer")
+    ranks = sorted(os.listdir(fleet_dir))
+    check(ranks == ["rank0", "rank1"], f"obs_reports: dp_trainer {ranks}")
+    for r in ranks:
+        logs[f"dp_trainer/{r}"] = os.path.join(fleet_dir, r)
+        steps_of[f"dp_trainer/{r}"] = steps_of["dp_trainer"]
+    jobs, facts = [], {}
+    for name, path in logs.items():
+        check(check_path(path) == [],
+              f"obs_reports: {name} fails the lint: {check_path(path)[:5]}")
+        events = read_events(os.path.join(path, "events.jsonl"))
+        kinds = {}
+        for e in events:
+            kinds[e["event"]] = kinds.get(e["event"], 0) + 1
+        facts[name] = kinds
+        tl = os.path.join(path, "timeline.json")
+        jobs += [(name, "telemetry", [path], 0),
+                 (name, "doctor", [path, "--json"], 0),
+                 (name, "timeline", [path, "--out", tl], 0),
+                 (name, "compare", [path, path], 0),
+                 (name, "numerics", [path, "--json", "-"],
+                  0 if kinds.get("numerics") else 1),
+                 (name, "converge", [path, "--json", "-"],
+                  0 if kinds.get("converge") else 1)]
+    jobs += [("dp_trainer", "fleet", [fleet_dir], 0),
+             ("dp_trainer", "doctor", [fleet_dir, "--json"], 0)]
+    with concurrent.futures.ThreadPoolExecutor(REPORT_WORKERS) as pool:
+        futures = [pool.submit(run_cli_report, [cmd, *args], rc)
+                   for _, cmd, args, rc in jobs]
+        t_lint = time.perf_counter()
+        lint = subprocess.run(
+            [sys.executable, "-m", "raft_stereo_tpu_torch.obs.validate",
+             *logs.values()], cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        lint_s = time.perf_counter() - t_lint
+        done = [f.result() for f in futures]
+    check(lint.returncode == 0, f"obs_reports: obs.validate exited "
+                                f"{lint.returncode}: {lint.stderr[-2000:]}")
+    rows = []
+    for (name, cmd, args, rc), (stdout, secs) in zip(jobs, done):
+        kinds = facts.get(name, {})
+        verdict = None
+        if cmd == "telemetry":
+            m = re.search(r"events: (\d+) records, (\d+) steps", stdout)
+            check(m is not None, f"obs_reports: {name} telemetry: {stdout}")
+            steps = int(m.group(2))
+            want = steps_of[name]
+            check(steps == kinds.get("step", 0)
+                  and (want is None or steps == want),
+                  f"obs_reports: {name}: summary of {steps} steps, the "
+                  f"phase ran {want}")
+            verdict = f"steps={steps}"
+        elif cmd == "doctor":
+            verdicts = [(v["phase"], v["verdict"])
+                        for v in json.loads(stdout)["verdicts"]]
+            verdict = " ".join(f"[{p}] {v}" for p, v in verdicts)
+            phases = [p for p, _ in verdicts]
+            if name in ("train_trainer", "train_trainer_steady"):
+                check("train" in phases, f"obs_reports: {name}: {verdict}")
+            if name == "numerics_eval":
+                check("numerics" in phases,
+                      f"obs_reports: {name}: {verdict}")
+            if args[0] == fleet_dir:
+                check(verdicts == [("fleet", "FLEET_OK")],
+                      f"obs_reports: dp_trainer fleet: {verdict}")
+        elif cmd == "timeline":
+            with open(args[2]) as f:
+                doc = json.load(f)
+            spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+            roots = {n: sum(e["name"] == n for e in spans)
+                     for n in ("step", "request")}
+            # a train log's root is its step, a served request's its
+            # request; eval and the sequential baseline write no spans
+            served = bool(kinds.get("request"))
+            want = {"step": 0 if served else kinds.get("step", 0),
+                    "request": kinds.get("request", 0)}
+            if not kinds.get("span"):
+                want = {"step": 0, "request": 0}
+            check(roots == want, f"obs_reports: {name} timeline roots "
+                                 f"{roots}, records {kinds}")
+            verdict = f"spans={len(spans)} roots={roots}"
+        elif cmd == "compare":
+            check("ok: no metric moved past its threshold" in stdout,
+                  f"obs_reports: {name} self-compare: {stdout[-500:]}")
+            verdict = "ok"
+        elif cmd in ("numerics", "converge") and rc == 0:
+            doc = json.loads(stdout)
+            verdict = (f"tap_events={doc['tap_events']} "
+                       f"grad_events={doc['grad_events']}"
+                       if cmd == "numerics" else f"curves={doc['curves']}")
+            if cmd == "converge":
+                check(doc["curves"] == kinds["converge"],
+                      f"obs_reports: {name} converge {doc['curves']}")
+        elif cmd == "fleet":
+            check("[fleet] FLEET_OK" in stdout and "2 host(s)" in stdout,
+                  f"obs_reports: fleet: {stdout[-1000:]}")
+            verdict = "FLEET_OK over 2 ranks"
+        else:
+            verdict = f"no {cmd} records (exit 1)"
+        rows.append(dict(log=name, command=cmd, exit_code=rc,
+                         seconds=round(secs, 3), verdict=verdict))
+    result = dict(logs=sorted(logs), reports=rows, workers=REPORT_WORKERS,
+                  validate_seconds=round(lint_s, 3),
+                  report_seconds_sum=round(sum(r["seconds"] for r in rows),
+                                           3),
+                  wall_s=round(time.perf_counter() - t_phase, 3))
+    emit("obs_reports", **result)
+    return result
+
+
 # --- convergence, early exit and numerics ------------------------------------
 
 ADAPTIVE_TIMED = 3           # timed forwards a mode in adaptive_parity
@@ -4804,6 +5000,11 @@ def main():
     numerics_cpu = run_numerics_card_cpu(dev, all_kernels, windowed_sample,
                                          fused_corr, default_state)
 
+    # the logs the report tools read at the end (obs_reports), copied out
+    # of each phase's temporary directory (removed at exit in any case)
+    reports_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_reports_")
+    logs = reports_dir.name
+
     # the evaluation path (validators, stream driver, predict_async, the
     # entry point) on synthetic trees written by the port's own png.py
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as work:
@@ -4822,6 +5023,10 @@ def main():
         adaptive_eval = run_adaptive_eval(
             dev, work, tree, ckpt, all_kernels, windowed_sample,
             fused_lookup_c1, conv, numerics_eval["kitti_fps"]["off"])
+        for name, src in (("eval_cli", "eval_cli"),
+                          ("numerics_eval", "numerics_on"),
+                          ("adaptive_eval", "adaptive_eval")):
+            keep_logs(os.path.join(work, src), os.path.join(logs, name))
         torch.backends.cudnn.allow_tf32 = False
         eval_mb = run_eval_middlebury(dev, work, all_kernels, fused_corr)
         run_eval_cpu(dev, work, windowed_sample)
@@ -4837,6 +5042,8 @@ def main():
                                         default_state)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as work:
         run_loadtest(work)
+        keep_logs(os.path.join(work, "loadtest"),
+                  os.path.join(logs, "loadtest"))
 
     # 8-9. training steps at the SceneFlow recipe's shape, a NaN step;
     # then the same recipe with alt_cuda, with alt_pallas and with the
@@ -4919,7 +5126,27 @@ def main():
         torch.cuda.empty_cache()
         train_resume = run_train_resume(tree, work)
         dp_trainer = run_dp_trainer(tree, work)
+        for name, src in (
+                ("train_trainer", "train_trainer/runs/train_trainer"),
+                ("train_trainer_steady",
+                 "train_trainer_steady/runs/train_trainer_steady"),
+                ("serve_http", "serve_http"),
+                ("dp_trainer", "dp_trainer/runs/dp")):
+            keep_logs(os.path.join(work, src), os.path.join(logs, name))
     del train_loader, train_resume
+
+    # 15d. the report tools on those logs, host only
+    run_obs_reports(logs, {
+        "eval_cli": ("eval_cli", EVAL_FRAMES),
+        "numerics_eval": ("numerics_eval", EVAL_FRAMES),
+        "adaptive_eval": ("adaptive_eval", EVAL_FRAMES),
+        "loadtest/seq": ("loadtest/seq", None),
+        "loadtest/serve": ("loadtest/serve", None),
+        "train_trainer": ("train_trainer", TRAINER_STEPS),
+        "train_trainer_steady": ("train_trainer_steady", STEADY_STEPS),
+        "serve_http": ("serve_http", None),
+        "dp_trainer": ("dp_trainer", DP_TRAINER_STEPS)})
+    reports_dir.cleanup()
 
     # 11. timings at the main-path pyramids: each level alone (its
     # one-level launch, plain version and F.grid_sample), then the one

@@ -1,22 +1,26 @@
-"""Command-line flags -> the port's config (the reference's flag names).
+"""Command-line flags -> the port's config (the reference's flag names), and
+the root command set: ``python -m raft_stereo_tpu_torch.cli <command>``.
 
 The flag surface is the JAX package's (``raft_stereo_tpu/cli.py``
 ``add_model_args``, ``add_train_args``, ``build_train_parser``,
 ``build_eval_parser``, ``build_demo_parser``, ``add_serve_args``,
-``build_serve_parser`` and ``build_loadtest_parser``) plus ``--device``.
-Every flag reaches the config as the JAX package's ``model_config`` maps
-it, except ``--fused_block_w``: the W2 tile of the JAX package's TPU
-kernel, accepted so that the same command lines parse, and read by
-nothing (the CUDA kernels take no tile width). The training-schedule
-flags steer the training forward and backward only.
+``build_serve_parser``, ``build_loadtest_parser`` and the report tools'
+``build_{timeline,doctor,fleet,converge,numerics}_parser``) plus
+``--device``. Every flag reaches the config as the JAX package's
+``model_config`` maps it, except ``--fused_block_w``: the W2 tile of the
+JAX package's TPU kernel, accepted so that the same command lines parse,
+and read by nothing (the CUDA kernels take no tile width). The
+training-schedule flags steer the training forward and backward only.
 ``--corr_implementation alt_cuda`` runs the memoryless ``fused_corr``
 kernels, ``alt_pallas`` the ``alt_corr`` kernels, and ``--fused_lookup on``
-the ``fused_lookup`` kernel.
+the ``fused_lookup`` kernel. :func:`main` dispatches the JAX package's
+twelve commands (``lint`` is not ported: ROADMAP A15).
 """
 
 from __future__ import annotations
 
 import argparse
+from typing import Optional, Sequence
 
 from raft_stereo_tpu_torch.config import RAFTStereoConfig, TrainConfig
 
@@ -566,3 +570,144 @@ def build_loadtest_parser() -> argparse.ArgumentParser:
     add_serve_args(parser)
     add_model_args(parser)
     return parser
+
+
+def build_timeline_parser() -> argparse.ArgumentParser:
+    """The ``cli timeline`` flag surface (consumed by obs/timeline.py)."""
+    parser = argparse.ArgumentParser(
+        prog="cli timeline",
+        description="Export a run's span/event/device timeline as "
+                    "Chrome/Perfetto trace JSON")
+    parser.add_argument("run_dir", help="run directory holding events.jsonl")
+    parser.add_argument("--out", default=None,
+                        help="output path (default <run_dir>/timeline.json)")
+    return parser
+
+
+def build_doctor_parser() -> argparse.ArgumentParser:
+    """The ``cli doctor`` flag surface (consumed by obs/doctor.py)."""
+    parser = argparse.ArgumentParser(
+        prog="cli doctor",
+        description="Rule-driven bottleneck diagnosis over a run's "
+                    "events + spans")
+    parser.add_argument("run_dir",
+                        help="run directory (or events.jsonl path)")
+    parser.add_argument("--json", action="store_true",
+                        help="emit the report as JSON instead of text")
+    return parser
+
+
+def build_fleet_parser() -> argparse.ArgumentParser:
+    """The ``cli fleet`` flag surface (consumed by obs/fleet.py)."""
+    parser = argparse.ArgumentParser(
+        prog="cli fleet",
+        description="Merge N per-host run dirs into one clock-aligned "
+                    "rollup (per-host step-time/throughput, skew table, "
+                    "heartbeat gaps, cross-host trace joins) plus a "
+                    "merged Perfetto timeline with a process-group per "
+                    "host")
+    parser.add_argument("fleet_dir",
+                        help="directory whose child directories are the "
+                             "per-host run dirs (each holding an "
+                             "events.jsonl)")
+    parser.add_argument("--out", default=None,
+                        help="merged timeline output path (default "
+                             "<fleet_dir>/fleet_timeline.json)")
+    parser.add_argument("--json", action="store_true",
+                        help="emit the rollup as JSON instead of text")
+    return parser
+
+
+def build_numerics_parser() -> argparse.ArgumentParser:
+    """The ``cli numerics`` flag surface (consumed by obs/numerics.py)."""
+    parser = argparse.ArgumentParser(
+        prog="cli numerics",
+        description="Numerics-observatory replay: per-leaf gradient-norm "
+                    "trends, per-tap activation-range trends, the bf16 "
+                    "saturation leaderboard and the first-nonfinite (NaN "
+                    "provenance) report over a run's recorded `numerics` "
+                    "events — no model re-run")
+    parser.add_argument("run_dir",
+                        help="run directory (or events.jsonl path) holding "
+                             "numerics events")
+    parser.add_argument("--top", type=int, default=10,
+                        help="rows per table section (worst-first)")
+    parser.add_argument("--json", default=None, metavar="PATH",
+                        help="write the report JSON to this path; '-' "
+                             "prints the JSON to stdout INSTEAD of the "
+                             "text report (compare's convention)")
+    return parser
+
+
+#: the JAX package's command set, in its order
+COMMANDS = ("telemetry", "compare", "lint", "timeline", "doctor", "fleet",
+            "converge", "numerics", "train", "eval", "serve", "loadtest")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """Subcommand dispatch for ``python -m raft_stereo_tpu_torch.cli``:
+
+    * ``telemetry <run_dir>``: the run report (obs/summarize.py);
+    * ``compare <baseline> <candidate>``: the two-run regression gate
+      (obs/compare.py; exit 1 on a regression, 2 on unreadable input);
+    * ``lint``: not ported (the JAX package's graph and AST lint, ROADMAP
+      A15); exits 2 and says so (its ``--help`` says so and exits 0);
+    * ``timeline <run_dir>``: the span/event/device timeline as
+      Chrome/Perfetto JSON (obs/timeline.py);
+    * ``doctor <run_dir>``: the bottleneck diagnosis with evidence lines
+      (obs/doctor.py); pointed at a directory of per-host run dirs, the
+      fleet verdicts;
+    * ``fleet <fleet_dir>``: the clock-aligned roll-up of N per-host run
+      dirs and their merged timeline (obs/fleet.py);
+    * ``converge <run_dir>``: the early-exit what-if simulator and the
+      policy writer (obs/converge.py);
+    * ``numerics <run_dir>``: the numerics report (obs/numerics.py);
+    * ``train``, ``eval``, ``serve``, ``loadtest``: the port's entry
+      points (``train.py``, ``evaluate.py``, ``serve/__main__.py``,
+      ``serve/loadtest.py``), on the card unless ``--device cpu``.
+    """
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] not in COMMANDS:
+        print(f"usage: python -m raft_stereo_tpu_torch.cli "
+              f"{{{'|'.join(COMMANDS)}}} ...", file=sys.stderr)
+        return 2
+    cmd, rest = argv[0], argv[1:]
+    if cmd == "lint":
+        note = ("cli lint: not ported to raft_stereo_tpu_torch (the graph, "
+                "SPMD and AST lint engines are ROADMAP A15)")
+        if "-h" in rest or "--help" in rest:  # help exits 0, as argparse's
+            print(f"usage: python -m raft_stereo_tpu_torch.cli lint\n\n"
+                  f"{note}; every invocation exits 2")
+            return 0
+        print(note, file=sys.stderr)
+        return 2
+    if cmd == "telemetry":
+        from raft_stereo_tpu_torch.obs.summarize import main as run
+    elif cmd == "compare":
+        from raft_stereo_tpu_torch.obs.compare import main as run
+    elif cmd == "timeline":
+        from raft_stereo_tpu_torch.obs.timeline import main as run
+    elif cmd == "doctor":
+        from raft_stereo_tpu_torch.obs.doctor import main as run
+    elif cmd == "fleet":
+        from raft_stereo_tpu_torch.obs.fleet import main as run
+    elif cmd == "converge":
+        from raft_stereo_tpu_torch.obs.converge import main as run
+    elif cmd == "numerics":
+        from raft_stereo_tpu_torch.obs.numerics import main as run
+    elif cmd == "train":
+        from raft_stereo_tpu_torch.train import main as run
+    elif cmd == "eval":
+        from raft_stereo_tpu_torch.evaluate import main as run
+    elif cmd == "serve":
+        from raft_stereo_tpu_torch.serve.__main__ import main as run
+    else:
+        from raft_stereo_tpu_torch.serve.loadtest import main as run
+    rc = run(rest)
+    return 0 if rc is None else rc
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

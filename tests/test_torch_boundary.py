@@ -7,7 +7,9 @@ inspects ``sys.modules`` (a subprocess, because this pytest process has
 already imported jax), and an AST scan of every port source backs it up.
 A third check reads a KITTI tree through the eval modules, and a fourth
 loads an augmented SceneFlow batch, in a fresh interpreter where
-importing PIL or cv2 fails.
+importing PIL or cv2 fails. A fifth runs ``--help`` of every command of
+``python -m raft_stereo_tpu_torch.cli`` where importing jax, flax or the
+JAX package fails.
 """
 
 import ast
@@ -52,6 +54,10 @@ def test_port_modules_load_no_jax():
     assert f"{PKG}.ops.kernels.windowed_sample" in mods
     # the policy lint is the port's own copy, not the JAX package's
     assert f"{PKG}.obs.validate" in mods
+    # and so are the report tools
+    for m in ("obs.summarize", "obs.compare", "obs.timeline", "obs.doctor",
+              "obs.fleet", "obs.numerics", "utils.profiling", "cli"):
+        assert f"{PKG}.{m}" in mods, m
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -64,6 +70,44 @@ def test_port_modules_load_no_jax():
     assert set(mods) <= set(loaded)
     bad = [m for m in loaded if _forbidden(m, FORBIDDEN + NOT_ON_CARD)]
     assert not bad, f"port import pulled in {bad[:10]}"
+
+
+def test_cli_commands_run_without_jax():
+    """``python -m raft_stereo_tpu_torch.cli <command> --help`` for every
+    command of the root command line, in one interpreter where importing
+    jax, flax or the JAX package raises: each exits 0, and none of them is
+    loaded after."""
+    from raft_stereo_tpu_torch.cli import COMMANDS
+    code = f"""
+import contextlib, importlib.abc, io, json, runpy, sys
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in {FORBIDDEN!r}:
+            raise ImportError("refused: " + name)
+sys.meta_path.insert(0, Refuse())
+codes = {{}}
+for cmd in {COMMANDS!r}:
+    sys.argv = ["raft_stereo_tpu_torch.cli", cmd, "--help"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            runpy.run_module("raft_stereo_tpu_torch.cli", run_name="__main__",
+                             alter_sys=True)
+            codes[cmd] = None
+        except SystemExit as e:
+            codes[cmd] = e.code
+    codes[cmd] = [codes[cmd] or 0, len(out.getvalue())]
+print(json.dumps([codes, sorted(m for m in sys.modules
+                                if m.split(".")[0] in {FORBIDDEN!r})]))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    codes, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sorted(codes) == sorted(COMMANDS)
+    assert all(rc == 0 and n > 0 for rc, n in codes.values()), codes
+    assert loaded == []
 
 
 def test_port_sources_import_no_jax():
